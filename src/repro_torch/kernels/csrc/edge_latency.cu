@@ -17,7 +17,8 @@
 //   epilogue.  A CTA owns 64 edge rows and walks every u-tile (128 wide); for
 //   each it accumulates the 64x128 block of t over 16-deep v-tiles staged in
 //   shared memory (x_j and com are both v-contiguous, so both tiles are
-//   stored transposed, v-major), each thread holding a 4x8 register tile.
+//   stored transposed, v-major), each of 256 threads holding a 4x8 register
+//   tile.
 //   Global loads for the next v-tile are issued before the current tile's
 //   FMAs (register prefetch).  After the last v-tile the block is multiplied
 //   by x_i and folded into a per-thread running row max, so t never reaches
@@ -35,9 +36,9 @@
 //   c = b or 0 (shared scenario).
 //   Bound: bytes.  x_i and x_j are each read once (2*B*E*V floats); a, corr
 //   and mass are small (R << V), so HBM bandwidth is the limit.
-//   Design: a CTA owns 16 edge rows, keeps their (16, R) mass in shared
+//   Design: a CTA owns 8 edge rows, keeps their (8, R) mass in shared
 //   memory and streams u with coalesced loads (consecutive threads, consecutive
-//   u).  Each a[r, u] value is loaded once per CTA and reused for the 16 rows;
+//   u).  Each a[r, u] value is loaded once per CTA and reused for the 8 rows;
 //   x_i/x_j are loaded before the R loop so their latency hides behind it.
 //   The running max lives in registers and is reduced across the CTA once at
 //   the end.
@@ -55,19 +56,20 @@ namespace {
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // -- K1: dense ---------------------------------------------------------------
+//
+// A CTA tile of BM edge rows x BN u columns over BK-deep v-tiles; each of the
+// (BM/TM)*(BN/TN) threads holds a TM x TN register tile made of float4
+// groups (TM/4 row groups BM/(TM/4) apart, TN/4 column groups BN/(TN/4)
+// apart), so its shared-memory reads are 16-byte and bank-conflict free.
+// The row group's BN/TN threads are consecutive lanes of one warp, which
+// lets the final row max reduce with shuffles.
 
-constexpr int D_BM = 64;                                   // edge rows per CTA
-constexpr int D_BN = 128;                                  // u columns per u-tile
-constexpr int D_BK = 16;                                   // v depth per v-tile
-constexpr int D_TM = 4;                                    // rows per thread
-constexpr int D_TN = 8;                                    // u columns per thread
-constexpr int D_THREADS = (D_BM / D_TM) * (D_BN / D_TN);   // 256
-constexpr int D_APITCH = D_BM + 4;                         // keeps float4 alignment,
-constexpr int D_BPITCH = D_BN + 4;                         // 2-way store conflicts
-constexpr int D_ALOADS = D_BM * D_BK / D_THREADS;          // 4
-constexpr int D_BLOADS = D_BN * D_BK / D_THREADS;          // 8
-
-__global__ void __launch_bounds__(D_THREADS)
+// __launch_bounds__(threads, 1): one CTA per SM is all the register tile
+// allows anyway, and saying so frees the compiler to keep the prefetch and
+// the accumulators in registers (without it ptxas squeezes to fewer
+// registers and the kernel ran slower on the H100).
+template <int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN), 1)
 edge_latency_dense_kernel(const float* __restrict__ xi,
                           const float* __restrict__ xj,
                           const float* __restrict__ com,
@@ -76,129 +78,143 @@ edge_latency_dense_kernel(const float* __restrict__ xi,
                           int64_t x_bs, int64_t x_rs,
                           int64_t com_bs, int64_t com_rs,
                           int64_t out_bs) {
-  __shared__ __align__(16) float As[D_BK][D_APITCH];   // x_j tile, [v][row]
-  __shared__ __align__(16) float Bs[D_BK][D_BPITCH];   // com tile, [v][u]
+  constexpr int TX = BN / TN, T = TX * (BM / TM);
+  constexpr int ALOADS = BM * BK / T, BLOADS = BN * BK / T;
+  constexpr int MS = BM / (TM / 4), NS = BN / (TN / 4);   // group strides
+  // pitch +4 keeps rows 16-byte aligned; the transposed stores conflict
+  // at most 2-way
+  __shared__ __align__(16) float As[BK][BM + 4];   // x_j tile, [v][row]
+  __shared__ __align__(16) float Bs[BK][BN + 4];   // com tile, [v][u]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (D_BN / D_TN);   // u group: columns 4tx..4tx+3, 64+4tx..
-  const int ty = tid / (D_BN / D_TN);   // row group: rows 4ty..4ty+3
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int64_t b = blockIdx.y;
-  const int64_t row0 = (int64_t)blockIdx.x * D_BM;
+  const int64_t row0 = (int64_t)blockIdx.x * BM;
   const float* xi_b = xi + b * x_bs;
   const float* xj_b = xj + b * x_bs;
   const float* com_b = com + b * com_bs;
 
-  float rmax[D_TM];
+  float rmax[TM];
 #pragma unroll
-  for (int i = 0; i < D_TM; ++i) rmax[i] = neg_inf();
+  for (int i = 0; i < TM; ++i) rmax[i] = neg_inf();
+  float a_reg[ALOADS], b_reg[BLOADS];
 
-  float a_reg[D_ALOADS];
-  float b_reg[D_BLOADS];
+  for (int64_t u0 = 0; u0 < V; u0 += BN) {
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int64_t u0 = 0; u0 < V; u0 += D_BN) {
-    float acc[D_TM][D_TN];
+    // prefetch v-tile 0 of this u-tile: consecutive threads read
+    // consecutive v of one row
 #pragma unroll
-    for (int i = 0; i < D_TM; ++i)
-#pragma unroll
-      for (int j = 0; j < D_TN; ++j) acc[i][j] = 0.f;
-
-    // prefetch v-tile 0 of this u-tile
-#pragma unroll
-    for (int l = 0; l < D_ALOADS; ++l) {
-      const int idx = tid + l * D_THREADS;
-      const int64_t r = row0 + idx / D_BK;
-      const int64_t v = idx % D_BK;
+    for (int l = 0; l < ALOADS; ++l) {
+      const int idx = tid + l * T;
+      const int64_t r = row0 + idx / BK, v = idx % BK;
       a_reg[l] = (r < rows && v < V) ? xj_b[r * x_rs + v] : 0.f;
     }
 #pragma unroll
-    for (int l = 0; l < D_BLOADS; ++l) {
-      const int idx = tid + l * D_THREADS;
-      const int64_t u = u0 + idx / D_BK;
-      const int64_t v = idx % D_BK;
+    for (int l = 0; l < BLOADS; ++l) {
+      const int idx = tid + l * T;
+      const int64_t u = u0 + idx / BK, v = idx % BK;
       b_reg[l] = (u < V && v < V) ? com_b[u * com_rs + v] : 0.f;
     }
 
-    for (int64_t v0 = 0; v0 < V; v0 += D_BK) {
+    for (int64_t v0 = 0; v0 < V; v0 += BK) {
       __syncthreads();   // the previous tile's FMAs are done with As/Bs
 #pragma unroll
-      for (int l = 0; l < D_ALOADS; ++l) {
-        const int idx = tid + l * D_THREADS;
-        As[idx % D_BK][idx / D_BK] = a_reg[l];
+      for (int l = 0; l < ALOADS; ++l) {
+        const int idx = tid + l * T;
+        As[idx % BK][idx / BK] = a_reg[l];
       }
 #pragma unroll
-      for (int l = 0; l < D_BLOADS; ++l) {
-        const int idx = tid + l * D_THREADS;
-        Bs[idx % D_BK][idx / D_BK] = b_reg[l];
+      for (int l = 0; l < BLOADS; ++l) {
+        const int idx = tid + l * T;
+        Bs[idx % BK][idx / BK] = b_reg[l];
       }
       __syncthreads();
 
-      const int64_t vn = v0 + D_BK;   // issue the next tile's loads now
+      const int64_t vn = v0 + BK;   // issue the next tile's loads now
       if (vn < V) {
 #pragma unroll
-        for (int l = 0; l < D_ALOADS; ++l) {
-          const int idx = tid + l * D_THREADS;
-          const int64_t r = row0 + idx / D_BK;
-          const int64_t v = vn + idx % D_BK;
+        for (int l = 0; l < ALOADS; ++l) {
+          const int idx = tid + l * T;
+          const int64_t r = row0 + idx / BK, v = vn + idx % BK;
           a_reg[l] = (r < rows && v < V) ? xj_b[r * x_rs + v] : 0.f;
         }
 #pragma unroll
-        for (int l = 0; l < D_BLOADS; ++l) {
-          const int idx = tid + l * D_THREADS;
-          const int64_t u = u0 + idx / D_BK;
-          const int64_t v = vn + idx % D_BK;
+        for (int l = 0; l < BLOADS; ++l) {
+          const int idx = tid + l * T;
+          const int64_t u = u0 + idx / BK, v = vn + idx % BK;
           b_reg[l] = (u < V && v < V) ? com_b[u * com_rs + v] : 0.f;
         }
       }
 
 #pragma unroll
-      for (int k = 0; k < D_BK; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * D_TM]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[k][D_BN / 2 + tx * 4]);
-        const float av[D_TM] = {a4.x, a4.y, a4.z, a4.w};
-        const float bv[D_TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int k = 0; k < BK; ++k) {
+        float av[TM], bv[TN];
 #pragma unroll
-        for (int i = 0; i < D_TM; ++i)
+        for (int g = 0; g < TM / 4; ++g) {
+          const float4 t =
+              *reinterpret_cast<const float4*>(&As[k][g * MS + ty * 4]);
+          av[4 * g] = t.x; av[4 * g + 1] = t.y;
+          av[4 * g + 2] = t.z; av[4 * g + 3] = t.w;
+        }
 #pragma unroll
-          for (int j = 0; j < D_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 t =
+              *reinterpret_cast<const float4*>(&Bs[k][g * NS + tx * 4]);
+          bv[4 * g] = t.x; bv[4 * g + 1] = t.y;
+          bv[4 * g + 2] = t.z; bv[4 * g + 3] = t.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
 
-    // epilogue: fold this u-tile into the running row max
+    // epilogue: fold this u-tile into the running row max; u >= V columns
+    // are skipped, never compared as 0
 #pragma unroll
-    for (int i = 0; i < D_TM; ++i) {
-      const int64_t r = row0 + ty * D_TM + i;
+    for (int i = 0; i < TM; ++i) {
+      const int64_t r = row0 + (i / 4) * MS + ty * 4 + i % 4;
       if (r >= rows) continue;
 #pragma unroll
-      for (int j = 0; j < D_TN; ++j) {
-        const int64_t u = u0 + (j < 4 ? tx * 4 + j : D_BN / 2 + tx * 4 + (j - 4));
+      for (int j = 0; j < TN; ++j) {
+        const int64_t u = u0 + (j / 4) * NS + tx * 4 + j % 4;
         if (u < V) rmax[i] = fmaxf(rmax[i], xi_b[r * x_rs + u] * acc[i][j]);
       }
     }
   }
 
-  // the 16 threads of a row group sit in one half-warp: reduce across them
 #pragma unroll
-  for (int i = 0; i < D_TM; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int off = (D_BN / D_TN) / 2; off > 0; off >>= 1)
+    for (int off = TX / 2; off > 0; off >>= 1)
       rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], off));
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < D_TM; ++i) {
-      const int64_t r = row0 + ty * D_TM + i;
+    for (int i = 0; i < TM; ++i) {
+      const int64_t r = row0 + (i / 4) * MS + ty * 4 + i % 4;
       if (r < rows) out[b * out_bs + r] = rmax[i];
     }
   }
 }
 
+// The instantiation the wrapper launches: fixed constants until the block
+// policy (K3 in ROADMAP.md) picks them per shape.
+constexpr int D_BM = 64, D_BN = 128, D_BK = 16, D_TM = 4, D_TN = 8;
+constexpr int D_THREADS = (D_BM / D_TM) * (D_BN / D_TN);   // 256
+
 // -- K2: structured (region-factored) ----------------------------------------
 
-constexpr int S_ROWS = 16;      // edge rows per CTA
+constexpr int S_ROWS = 8;       // edge rows per CTA
 constexpr int S_THREADS = 256;
 constexpr int S_UNROLL = 4;     // u columns per thread per step, S_THREADS apart
 
-__global__ void __launch_bounds__(S_THREADS)
+// two CTAs per SM (≤128 registers, no spills) keep more loads in flight
+__global__ void __launch_bounds__(S_THREADS, 2)
 edge_latency_structured_kernel(const float* __restrict__ xi,
                                const float* __restrict__ xj,
                                const float* __restrict__ mass,
@@ -290,14 +306,15 @@ int edge_latency_dense_launch(const float* xi, const float* xj,
   if (n_batch < 1 || n_batch > 65535 || blocks < 1 || blocks > 0x7fffffff)
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)blocks, (unsigned)n_batch);
-  edge_latency_dense_kernel<<<grid, D_THREADS, 0, (cudaStream_t)stream>>>(
-      xi, xj, com, out, rows, V, x_bs, x_rs, com_bs, com_rs, out_bs);
+  edge_latency_dense_kernel<D_BM, D_BN, D_BK, D_TM, D_TN>
+      <<<grid, D_THREADS, 0, (cudaStream_t)stream>>>(
+          xi, xj, com, out, rows, V, x_bs, x_rs, com_bs, com_rs, out_bs);
   return (int)cudaGetLastError();
 }
 
-// K2.  a_bs = corr_bs = 0 shares one scenario across batches.  The (16, R)
+// K2.  a_bs = corr_bs = 0 shares one scenario across batches.  The (8, R)
 // mass tile lives in dynamic shared memory, so R is bounded by the 227 KB a
-// CTA can use (R <= ~3600); a larger R fails cudaFuncSetAttribute.
+// CTA can use (R <= ~7200); a larger R fails cudaFuncSetAttribute.
 int edge_latency_structured_launch(const float* xi, const float* xj,
                                    const float* mass, const float* a,
                                    const float* corr, float* out,

@@ -12,7 +12,7 @@ tiled.  In brief:
 * :func:`edge_latency_structured` (K2) replaces
   ``repro.kernels.edge_latency.edge_latency_structured_pallas``.  It is
   bound by HBM bytes (x_i and x_j are read once; R ≪ V), so it streams u
-  with coalesced loads and keeps each CTA's (16, R) ``mass`` tile in shared
+  with coalesced loads and keeps each CTA's (8, R) ``mass`` tile in shared
   memory.
 
 Each wrapper takes CUDA tensors only — the device policy in

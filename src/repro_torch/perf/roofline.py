@@ -2,15 +2,15 @@
 which the serving layer's admission pricer runs its FLOP/byte counts
 through (``repro_torch.serve.admission``).
 
-  compute_s    = FLOPs      / (chips × PEAK_FLOPS)
-  memory_s     = bytes      / (chips × HBM_BW)
-  collective_s = wire bytes / LINK_BW
+  compute_s = FLOPs / PEAK_FLOPS
+  memory_s  = bytes / HBM_BW
 
 The edge-latency kernels compute in full FP32 on the CUDA cores (TF32
 tensor cores miss the 1e-5 accuracy bar), so the compute peak is the FP32
 non-tensor rate.  The rates are NVIDIA's data-sheet numbers for the SXM
 part at its full power limit; a card capped lower runs slower under load,
-which the pricer's observed/bound calibration absorbs.
+which the pricer's observed/bound calibration absorbs.  The reference's
+collective (ICI) term has no user in this single-card slice.
 """
 
 from __future__ import annotations
@@ -21,44 +21,27 @@ import dataclasses
 PEAK_FLOPS = 67e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
-# NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): NVLink, bytes/s each way
-LINK_BW = 450e9
 
-__all__ = ["RooflineTerms", "compute_terms", "PEAK_FLOPS", "HBM_BW",
-           "LINK_BW"]
+__all__ = ["RooflineTerms", "compute_terms", "PEAK_FLOPS", "HBM_BW"]
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class RooflineTerms:
     compute_s: float
     memory_s: float
-    collective_s: float
-    flops_total: float
-    bytes_total: float
-    chips: int
 
     @property
     def dominant(self) -> str:
-        terms = {"compute": self.compute_s, "memory": self.memory_s,
-                 "collective": self.collective_s}
-        return max(terms, key=terms.get)
+        return "compute" if self.compute_s >= self.memory_s else "memory"
 
     @property
     def step_time_s(self) -> float:
-        """Lower-bound time: max of the three terms (perfect overlap)."""
-        return max(self.compute_s, self.memory_s, self.collective_s)
+        """Lower-bound time: the larger term (perfect overlap)."""
+        return max(self.compute_s, self.memory_s)
 
 
-def compute_terms(flops: float, bytes_: float, wire_bytes: float = 0.0,
-                  chips: int = 1) -> RooflineTerms:
+def compute_terms(flops: float, bytes_: float) -> RooflineTerms:
     """Roofline terms for ``flops`` operations and ``bytes_`` of device
-    memory traffic summed over ``chips`` cards, plus ``wire_bytes`` per card
-    over NVLink."""
-    return RooflineTerms(
-        compute_s=flops / (chips * PEAK_FLOPS),
-        memory_s=bytes_ / (chips * HBM_BW),
-        collective_s=wire_bytes / LINK_BW,
-        flops_total=flops,
-        bytes_total=bytes_,
-        chips=chips,
-    )
+    memory traffic on one card."""
+    return RooflineTerms(compute_s=flops / PEAK_FLOPS,
+                         memory_s=bytes_ / HBM_BW)

@@ -24,9 +24,9 @@ service on the card is created and that time is recorded as
 ``stats.setup_s``, so no dispatch and no admission price ever includes it.
 
 This slice serves the single-objective latency-F grid: ``score``, ``rank``
-(weighted, worst-case) and ``joint``.  Objective sets, ``pareto`` and
-ε-constraint ranking need the multi-objective grid and raise
-``NotImplementedError`` until that slice.
+(weighted, worst-case) and ``joint``.  Objective sets and ``pareto``
+queries need the multi-objective grid and raise ``NotImplementedError``
+until that slice.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from repro_torch.sim.batched import BatchedEvaluator
 __all__ = ["WhatIfQuery", "QueryTicket", "ResultChunk", "QueryResult",
            "WhatIfService"]
 
-_KINDS = ("score", "rank", "pareto", "joint")
+_KINDS = ("score", "rank", "joint")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +67,11 @@ class WhatIfQuery:
     * ``"score"``  — the finished (S, P) score grid, dq/β applied;
     * ``"rank"``   — top-``top_k`` candidates by worst-case score;
     * ``"joint"``  — placement × dq co-optimization over ``dq_values``
-      (optionally DQCoupling-masked), min–max selected;
-    * ``"pareto"`` — accepted here for parity with the reference; the
-      service refuses it until the multi-objective slice.
+      (optionally DQCoupling-masked), min–max selected.
+
+    The reference's ``"pareto"`` kind and ε-constraint ranking
+    (``minimize`` / ``eps_caps``) need objective sets: ``kind="pareto"``
+    raises NotImplementedError until the multi-objective slice.
 
     ``dq`` may be a scalar or per-scenario (S,) column; dq/β never affect
     which super-batch the query coalesces into.
@@ -81,15 +83,15 @@ class WhatIfQuery:
     beta: float = 0.0
     # rank
     top_k: int = 1
-    minimize: str | None = None
-    eps_caps: dict | None = None
-    # pareto / rank reduction across scenarios
-    scenario: int | str = "worst"
     # joint
     dq_values: np.ndarray | None = None
     coupling: object | None = None
 
     def __post_init__(self):
+        if self.kind == "pareto":
+            raise NotImplementedError(
+                "pareto queries need objective sets, which come with the "
+                "multi-objective slice")
         if self.kind not in _KINDS:
             raise ValueError(f"kind must be one of {_KINDS}, "
                              f"got {self.kind!r}")
@@ -100,8 +102,6 @@ class WhatIfQuery:
         object.__setattr__(self, "placements", x)
         if self.kind == "joint" and self.dq_values is None:
             raise ValueError("joint queries need dq_values")
-        if self.eps_caps and self.minimize is None:
-            raise ValueError("eps_caps needs minimize=<objective name>")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,10 +254,6 @@ class WhatIfService:
         nothing is dispatched here; call :meth:`step` / :meth:`drain`."""
         fleet = self._fleets[fleet_id]
         q = query
-        if q.kind == "pareto" or q.eps_caps or q.minimize is not None:
-            raise NotImplementedError(
-                "pareto queries and ε-constraint ranking need objective "
-                "sets, which come with the multi-objective slice")
         if q.placements.shape[2] != fleet.n_devices:
             raise ValueError(
                 f"placements have V={q.placements.shape[2]} devices; "

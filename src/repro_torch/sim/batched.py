@@ -99,7 +99,6 @@ class _Layout:
 
     region_ix: torch.Tensor
     onehot: torch.Tensor
-    n_regions: int
     self_cost: float
 
 
@@ -147,7 +146,10 @@ class BatchedEvaluator:
 
     # -- operands ------------------------------------------------------------
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        """float32, contiguous (the kernels take no strided views), on the
+        evaluator's device; a no-op for a tensor that already is."""
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=self.device).contiguous()
 
     def _layout(self, fam: RegionFleetFamily) -> _Layout:
         # built once per family layout and cached process-wide under the
@@ -158,7 +160,7 @@ class BatchedEvaluator:
         def build():
             region_ix = torch.as_tensor(fam.region, device=self.device)
             return _Layout(region_ix, region_onehot(region_ix, fam.n_regions),
-                           fam.n_regions, float(fam.self_cost))
+                           float(fam.self_cost))
 
         return executable_cache().get_or_build(key, build)
 
@@ -216,7 +218,7 @@ class BatchedEvaluator:
         return arr.astype(np.float32)
 
     def score_grid(self, placements, coms, dq=0.0, beta: float = 0.0,
-                   objectives=None, guard_output: bool = True):
+                   objectives=None):
         """Score every (scenario, placement) pair: (S, P) float32 latency-F
         grid on the evaluator's device.  ``coms`` is a dense (S, V, V) pack
         or a RegionFleetFamily; ``dq`` a scalar or exactly (S,)."""
@@ -244,7 +246,7 @@ class BatchedEvaluator:
             lat = self._grid_latency(x, coms, structured)
             out = lat / self._tensor(dq_denominator(dq_arr, beta, S))[:, None]
             sp.sync(out)
-        if guard_output and san.enabled and san.nan_check:
+        if san.enabled and san.nan_check:
             sanitize.check_finite("score_grid", out)
         return out
 

@@ -38,11 +38,12 @@ def graph_key(graph) -> tuple:
 
 
 class ExecutableCache:
-    """Thread-safe LRU of built callables.
+    """Thread-safe LRU of built values.
 
-    ``get_or_build(key, builder)`` returns the cached value for ``key``
-    or invokes ``builder()`` and caches it.  Keys are arbitrary hashable tuples whose first element
-    names the entry-point kind (used as the obs label).
+    ``get_or_build(key, builder)`` returns the cached value for ``key`` or
+    invokes ``builder()`` and caches it.  Keys are arbitrary hashable
+    tuples whose first element names the entry-point kind (used as the obs
+    label).
     """
 
     def __init__(self, capacity: int = 512, name: str = "executables"):

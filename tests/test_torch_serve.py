@@ -249,13 +249,12 @@ def test_unported_query_surface_raises_and_validation():
     fid = svc.register_fleet("t", coms)
     with pytest.raises(NotImplementedError, match="multi-objective"):
         svc.register_fleet("t", coms, objectives=("latency_f",))
-    with pytest.raises(NotImplementedError):
-        svc.submit("t", fid, WhatIfQuery(kind="pareto",
-                                         placements=placements(2)))
-    with pytest.raises(NotImplementedError):
-        svc.submit("t", fid, WhatIfQuery(
-            kind="rank", placements=placements(2), minimize="latency_f",
-            eps_caps={"network_movement": 1.0}))
+    with pytest.raises(NotImplementedError, match="pareto"):
+        WhatIfQuery(kind="pareto", placements=placements(2))
+    with pytest.raises(ValueError, match="kind"):
+        WhatIfQuery(kind="nope", placements=placements(2))
+    with pytest.raises(ValueError, match="dq_values"):
+        WhatIfQuery(kind="joint", placements=placements(2))
     with pytest.raises(ValueError, match="devices"):
         svc.submit("t", fid, WhatIfQuery(
             kind="score", placements=np.ones((2, 5, 9), np.float32)))
