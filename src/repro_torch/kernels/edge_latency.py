@@ -81,9 +81,11 @@ def _launch(name: str, tensors: tuple, ints: tuple) -> None:
     """Call ``<name>_launch`` with the tensors' pointers, the integer
     shape/stride arguments and the current stream; count the launch."""
     lib = _lib()
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = getattr(lib, f"{name}_launch")(
-        *(t.data_ptr() for t in tensors), *ints, stream)
+    dev = tensors[0].device
+    with torch.cuda.device(dev):     # launch on the operands' card
+        rc = getattr(lib, f"{name}_launch")(
+            *(t.data_ptr() for t in tensors), *ints,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.edge_latency_error_string(rc).decode()}")

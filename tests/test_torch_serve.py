@@ -74,15 +74,34 @@ def _queries(coms, placements):
     ]
 
 
-def test_served_results_match_the_jax_service():
+def _jax_region_family(rng, n_dev, n_fleets):
+    from repro.core import RegionFleet
+    from repro.sim import pack_region_fleets
+    region = rng.integers(0, 3, n_dev)
+    return pack_region_fleets([
+        RegionFleet(region=region, inter=rng.uniform(0.1, 2.0, (3, 3)),
+                    self_cost=0.05, degrade=rng.uniform(1.0, 2.5, n_dev))
+        for _ in range(n_fleets)])
+
+
+@pytest.mark.parametrize("kind", ["dense", "structured"])
+def test_served_results_match_the_jax_service(kind):
     g, coms, placements = _setup()
     queries = _queries(coms, placements)
+    if kind == "dense":
+        jpack, pack = coms, convert.dense_pack_from_array(coms)
+    else:
+        jpack = _jax_region_family(np.random.default_rng(11), coms.shape[1],
+                                   coms.shape[0])
+        pack = convert.region_family_from_arrays(
+            jpack.region, jpack.inter, jpack.degrade, jpack.self_cost,
+            jpack.speed)
     jsvc = JaxService(g, admission=JaxAdmission(p99_budget_s=1e6))
-    jfid = jsvc.register_fleet("t", coms)
+    jfid = jsvc.register_fleet("t", jpack)
     jt = [jsvc.submit(t, jfid, JaxQuery(**q)) for t, q in queries]
     jsvc.drain()
     svc = WhatIfService(_port_graph(g), device="cpu", admission=RELAXED)
-    fid = svc.register_fleet("t", convert.dense_pack_from_array(coms))
+    fid = svc.register_fleet("t", pack)
     pt = [svc.submit(t, fid, WhatIfQuery(**q)) for t, q in queries]
     svc.drain()
     jmail = {t: jsvc.poll(t) for t in ("alice", "bob", "carol")}
