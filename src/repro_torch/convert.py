@@ -5,17 +5,22 @@ rebuilt from plain numpy arrays and Python scalars — what
 ``repro.core.OpGraph`` / ``repro.core.RegionFleetFamily`` hold and what the
 reference's ``pack_fleets`` returns.  With these a test (or a user moving
 a deployment across) feeds one graph and one fleet to both packages.
+:func:`decoder_lm_from_arrays` does the same for a ``DecoderLM``'s
+parameter tree, so both packages run one model.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.devices import RegionFleetFamily
 from repro_torch.core.graph import Operator, OpGraph
+from repro_torch.models.api import ModelConfig
+from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["graph_from_arrays", "region_family_from_arrays",
-           "dense_pack_from_array"]
+           "dense_pack_from_array", "decoder_lm_from_arrays"]
 
 
 def graph_from_arrays(names, selectivity, out_bytes, work, dq_eligible,
@@ -55,3 +60,55 @@ def dense_pack_from_array(coms) -> np.ndarray:
     if arr.ndim != 3 or arr.shape[1] != arr.shape[2]:
         raise ValueError(f"dense pack must be (S, V, V), got {arr.shape}")
     return arr
+
+
+def decoder_lm_from_arrays(cfg: ModelConfig, tree, device=None) -> DecoderLM:
+    """A :class:`DecoderLM` on ``device`` holding the reference's parameter
+    tree, given as nested dicts of numpy arrays: ``embed`` (V_pad, d),
+    ``blocks`` with a leading layer axis (``attn`` flat (L, d, H·hd), ``mlp``,
+    norm weights or (L, 0) placeholders), ``final_norm`` and ``head``
+    (d, V_pad).  Raises on a missing, extra or mis-shaped leaf."""
+    model = DecoderLM(cfg, device=device)
+    blocks = tree["blocks"]
+    if set(tree) != {"embed", "blocks", "final_norm", "head"} \
+            or set(blocks) != {"ln1", "ln2", "attn", "mlp"}:
+        raise ValueError(f"not a dense DecoderLM tree: {sorted(tree)} / "
+                         f"{sorted(blocks)}")
+
+    def put(p: torch.Tensor | None, arr, what: str) -> None:
+        arr = np.asarray(arr)
+        if p is None:               # non-parametric norm: a (0,) leaf
+            if arr.size:
+                raise ValueError(f"{what}: non-parametric norm given "
+                                 f"weights {arr.shape}")
+            return
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{what}: shape {arr.shape}, want "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
+
+    put(model.embed, tree["embed"], "embed")
+    put(model.head, tree["head"], "head")
+    put(model.final_norm, tree["final_norm"], "final_norm")
+    stacked = {"ln1": np.asarray(blocks["ln1"]),
+               "ln2": np.asarray(blocks["ln2"])}
+    for group in ("attn", "mlp"):
+        want = set(getattr(model.blocks[0], group))
+        if set(blocks[group]) != want:
+            raise ValueError(f"blocks/{group}: leaves "
+                             f"{sorted(blocks[group])}, want {sorted(want)}")
+        stacked.update({f"{group}/{n}": np.asarray(a)
+                        for n, a in blocks[group].items()})
+    for what, arr in stacked.items():
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"blocks/{what}: {arr.shape[0]} layers, want "
+                             f"{cfg.n_layers}")
+    for li, blk in enumerate(model.blocks):
+        put(blk.ln1, stacked["ln1"][li], "blocks/ln1")
+        put(blk.ln2, stacked["ln2"][li], "blocks/ln2")
+        for group in ("attn", "mlp"):
+            for name, p in getattr(blk, group).items():
+                put(p, stacked[f"{group}/{name}"][li],
+                    f"blocks/{group}/{name}")
+    return model

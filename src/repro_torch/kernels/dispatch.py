@@ -1,20 +1,25 @@
-"""Device policy for the edge-latency hot path — the port's counterpart of
-``repro.kernels.dispatch`` (``resolve_flags`` / ``plan_edge_kernel``).
+"""Device policy for the port's kernels — the counterpart of
+``repro.kernels.dispatch`` (``resolve_flags`` / ``plan_edge_kernel``) and
+of the model layer's ``attention_impl="pallas"`` route
+(``repro.kernels.ops.flash_attention``).
 
 The rule is the tensors' device, nothing else:
 
-* a CUDA tensor goes to the CUDA C++ kernel (:mod:`.edge_latency`);
+* a CUDA tensor goes to the CUDA C++ kernel (:mod:`.edge_latency`,
+  :mod:`.flash_attention`);
 * a CPU tensor goes to the plain PyTorch version (:mod:`.ref`);
 * any other device, or operands on different devices, raise.
 
 There is no coercion and no fallback: a CUDA tensor reaches the kernel or
 raises.  Block sizes are fixed constants of the kernel sources.  Every
 decision is counted as ``kernels.dispatch.plans{kind, impl}`` in
-:mod:`repro_torch.obs` when the registry is enabled.
+:mod:`repro_torch.obs` when the registry is enabled (kind ``dense``,
+``structured`` or ``flash_attention``).
 
 :func:`resolve_device` is the policy for the public entry points
-(``BatchedEvaluator``, ``WhatIfService``): ``None`` means the card, and a
-machine without CUDA raises instead of quietly running on the CPU.
+(``BatchedEvaluator``, ``WhatIfService``, ``build_model``): ``None`` means
+the card, and a machine without CUDA raises instead of quietly running on
+the CPU.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import edge_latency as kernels
+from repro_torch.kernels import flash_attention as attention_kernel
 from repro_torch.kernels import ref
 
-__all__ = ["resolve_device", "plan_edge_kernel", "edge_latency",
-           "edge_latency_structured"]
+__all__ = ["resolve_device", "plan_edge_kernel", "plan_attention_kernel",
+           "edge_latency", "edge_latency_structured", "flash_attention"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,11 +52,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
+def _plan(kind: str, what: str, tensors) -> str:
     """"cuda" or "plain" for these operands (see the module docstring)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
-        raise ValueError(f"{kind} edge-latency operands span devices "
+        raise ValueError(f"{kind} {what} operands span devices "
                          f"{sorted(map(str, devices))}")
     (dev,) = devices
     if dev.type == "cuda":
@@ -58,11 +64,22 @@ def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
     elif dev.type == "cpu":
         impl = "plain"
     else:
-        raise ValueError(f"no edge-latency route for device {dev}")
+        raise ValueError(f"no {what} route for device {dev}")
     reg = obs.registry()
     if reg.enabled:
         reg.counter("kernels.dispatch.plans", kind=kind, impl=impl).add(1)
     return impl
+
+
+def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
+    """"cuda" or "plain" for edge-latency operands of ``kind`` ("dense" or
+    "structured")."""
+    return _plan(kind, "edge-latency", tensors)
+
+
+def plan_attention_kernel(*tensors: torch.Tensor) -> str:
+    """"cuda" or "plain" for attention operands."""
+    return _plan("flash_attention", "flash-attention", tensors)
 
 
 def edge_latency(x_i, x_j, com) -> torch.Tensor:
@@ -78,3 +95,11 @@ def edge_latency_structured(x_i, x_j, mass, a, corr) -> torch.Tensor:
     if plan_edge_kernel("structured", x_i, x_j, mass, a, corr) == "cuda":
         return kernels.edge_latency_structured(x_i, x_j, mass, a, corr)
     return ref.edge_latency_structured_plain(x_i, x_j, mass, a, corr)
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """(B, S, H, D) attention with kv repeated to H → (B, S, H, D) in q's
+    dtype: K5 on the card, its plain version on the CPU."""
+    if plan_attention_kernel(q, k, v) == "cuda":
+        return attention_kernel.flash_attention(q, k, v, causal=causal)
+    return ref.flash_attention_plain(q, k, v, causal=causal)

@@ -1,13 +1,15 @@
 """Roofline terms on one NVIDIA H100 — the port's own ``compute_terms``,
 which the serving layer's admission pricer runs its FLOP/byte counts
-through (``repro_torch.serve.admission``).
+through (``repro_torch.serve.admission``), and the attention kernel's
+bound (:func:`flash_attention_terms`).
 
-  compute_s = FLOPs / PEAK_FLOPS
+  compute_s = FLOPs / peak (FP32 by default)
   memory_s  = bytes / HBM_BW
 
 The edge-latency kernels compute in full FP32 on the CUDA cores (TF32
-tensor cores miss the 1e-5 accuracy bar), so the compute peak is the FP32
-non-tensor rate.  The rates are NVIDIA's data-sheet numbers for the SXM
+tensor cores miss the 1e-5 accuracy bar), so their compute peak is the
+FP32 non-tensor rate.  Attention on bf16 operands is priced at the bf16
+tensor-core rate, the least time the card could take for it.  The rates are NVIDIA's data-sheet numbers for the SXM
 part at its full power limit; a card capped lower runs slower under load,
 which the pricer's observed/bound calibration absorbs.  The reference's
 collective (ICI) term has no user in this single-card slice.
@@ -19,20 +21,30 @@ import dataclasses
 
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): FP32 without tensor cores
 PEAK_FLOPS = 67e12
+# NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): dense bf16 tensor cores
+PEAK_BF16_TC = 989e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
 
-__all__ = ["RooflineTerms", "compute_terms", "PEAK_FLOPS", "HBM_BW"]
+__all__ = ["RooflineTerms", "compute_terms", "flash_attention_terms",
+           "PEAK_FLOPS", "PEAK_BF16_TC", "HBM_BW"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RooflineTerms:
     compute_s: float
     memory_s: float
+    flops: float = 0.0
+    bytes: float = 0.0
 
     @property
     def dominant(self) -> str:
         return "compute" if self.compute_s >= self.memory_s else "memory"
+
+    @property
+    def bound_by(self) -> str:
+        """"operations" or "bytes": which term limits the bound."""
+        return "operations" if self.dominant == "compute" else "bytes"
 
     @property
     def step_time_s(self) -> float:
@@ -40,8 +52,34 @@ class RooflineTerms:
         return max(self.compute_s, self.memory_s)
 
 
-def compute_terms(flops: float, bytes_: float) -> RooflineTerms:
-    """Roofline terms for ``flops`` operations and ``bytes_`` of device
-    memory traffic on one card."""
-    return RooflineTerms(compute_s=flops / PEAK_FLOPS,
-                         memory_s=bytes_ / HBM_BW)
+def compute_terms(flops: float, bytes_: float,
+                  peak: float = PEAK_FLOPS) -> RooflineTerms:
+    """Roofline terms for ``flops`` operations at ``peak`` FLOP/s and
+    ``bytes_`` of device memory traffic on one card."""
+    return RooflineTerms(compute_s=flops / peak, memory_s=bytes_ / HBM_BW,
+                         flops=flops, bytes=bytes_)
+
+
+_ATTN_OPERANDS = {"float32": (4, PEAK_FLOPS), "bfloat16": (2, PEAK_BF16_TC)}
+
+
+def flash_attention_terms(B: int, S: int, H: int, D: int, dtype,
+                          causal: bool) -> RooflineTerms:
+    """The least time for (B, S, H, D) self-attention with operands of
+    ``dtype`` (a torch dtype or its name; float32 or bfloat16).
+
+    Operations: q·kᵀ and p·v, 2 FLOPs per multiply-add each, over the
+    (query, key) pairs the mask keeps — S(S+1)/2 per head when causal,
+    S² when not: ``4·B·H·D·S(S+1)/2`` or ``4·B·H·D·S²``.  Bytes: q, k, v
+    read once and the output written once, at the operands' width.  The
+    peak is the bf16 tensor-core rate for bf16 operands and the FP32 rate
+    for float32 ones.  ``.bound_by`` says which limit the bound."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in _ATTN_OPERANDS:
+        raise ValueError(f"no attention peak for dtype {dtype}; "
+                         f"known: {sorted(_ATTN_OPERANDS)}")
+    width, peak = _ATTN_OPERANDS[name]
+    pairs = S * (S + 1) / 2 if causal else float(S) * S
+    flops = 4.0 * B * H * D * pairs
+    bytes_ = 4.0 * B * S * H * D * width
+    return compute_terms(flops, bytes_, peak=peak)

@@ -1,0 +1,265 @@
+"""The port's streaming slice against the JAX package: the LM-scoring
+operator, the data-quality scores, and the example job
+(``examples/geo_placement.py``: ingest → clean → dq_check → lm_score →
+window_mean on a 3-region, 12-device fleet, smoke OLMo, uniform placement)
+run through both engines on the same fleet, parameters and batches.
+
+Bars: LM scores ≤1e-5 relative (max |err| / max |want|; float32
+activations, the two forwards sum in different orders); everything the
+engines compute in numpy — row counts, modeled / true / per-edge latencies
+on the float64 cost model, work-model busy times — equal bitwise.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.core import ExplicitFleet as JaxFleet  # noqa: E402
+from repro.core import uniform_placement as jax_uniform  # noqa: E402
+from repro.models.api import build_model as jax_build  # noqa: E402
+from repro.streaming import engine as jax_engine  # noqa: E402
+from repro.streaming import operators as jax_ops  # noqa: E402
+from repro.streaming.quality import quality_scores as jax_quality  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.devices import ExplicitFleet  # noqa: E402
+from repro_torch.core.placement import uniform_placement  # noqa: E402
+from repro_torch.streaming import operators as port_ops  # noqa: E402
+from repro_torch.streaming import (StreamGraph, StreamingEngine,  # noqa: E402
+                                   dq_latency_model, filter_op, map_op,
+                                   model_op, quality_op, quality_scores,
+                                   source, window_agg)
+
+REL = 1e-5
+COM = np.array([[0.0, 1.0, 2.0],
+                [1.0, 0.0, 1.5],
+                [2.0, 1.5, 0.0]])
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _example_fleet():
+    """The example's 3 regions × 4 devices with WAN costs and fast region 0
+    (examples/geo_placement.py:27-37)."""
+    rng = np.random.default_rng(0)
+    n_dev, n_regions = 12, 3
+    region = np.repeat(np.arange(n_regions), n_dev // n_regions)
+    wan = np.array([[0.02, 1.5, 2.5], [1.5, 0.02, 1.0], [2.5, 1.0, 0.02]])
+    com = wan[np.ix_(region, region)] + rng.uniform(0, 0.05, (n_dev, n_dev))
+    com = (com + com.T) / 2
+    np.fill_diagonal(com, 0.0)
+    speed = np.where(region == 0, 2.0, 1.0)
+    return com, speed, region
+
+
+def _models():
+    jcfg = jax_smoke("olmo_1b")
+    jmodel = jax_build(jcfg)
+    params = jmodel.init_params(jax.random.PRNGKey(0))
+    cfg = get_smoke_config("olmo_1b").replace(attention_impl="pallas")
+    model = convert.decoder_lm_from_arrays(
+        cfg, jax.tree.map(np.asarray, params), device="cpu")
+    return jcfg, jmodel, params, model
+
+
+def _capture(op, sink):
+    """Record each shard's output of ``op``."""
+    fn = op.fn
+
+    def wrapped(rows):
+        out = fn(rows)
+        sink.append(out)
+        return out
+
+    op.fn = wrapped
+    return op
+
+
+def _jobs():
+    jcfg, jmodel, params, model = _models()
+    vocab = jcfg.vocab
+    scores = {"jax": [], "port": []}
+
+    def ops(mod, lm, key):
+        return [mod.source("ingest"),
+                mod.map_op("clean", lambda r: np.clip(r, 0, vocab - 1),
+                           work=0.5),
+                mod.quality_op("dq_check", threshold=0.4, work=2.0),
+                _capture(lm, scores[key]),
+                mod.window_agg("window_mean", window=8, work=0.5)]
+
+    edges = [(0, 1), (1, 2), (2, 3), (3, 4)]
+    jg = jax_ops.StreamGraph(
+        ops(jax_ops, jax_ops.model_op("lm_score", jmodel, params, jcfg,
+                                      work=50.0), "jax"), edges)
+    g = StreamGraph(ops(port_ops, model_op("lm_score", model, work=50.0),
+                        "port"), edges)
+    com, speed, region = _example_fleet()
+    jfleet = JaxFleet(com_cost=com, speed=speed, region=region)
+    fleet = ExplicitFleet(com_cost=com, speed=speed, region=region)
+    jx = jax_uniform(5, jfleet.availability(5))
+    x = uniform_placement(5, fleet.availability(5))
+    assert np.array_equal(jx, x)
+    jeng = jax_engine.StreamingEngine(jg, jfleet, jx, alpha=0.002,
+                                      device_speed=speed, observed="work")
+    eng = StreamingEngine(g, fleet, x, alpha=0.002, device_speed=speed,
+                          observed="work")
+    return jeng, eng, scores, vocab
+
+
+def _same_report(rep, jrep):
+    assert rep.rows_in == jrep.rows_in and rep.rows_out == jrep.rows_out
+    for f in ("modeled_latency", "true_latency", "edge_latencies",
+              "device_busy", "op_rows_in", "op_rows_out"):
+        assert np.array_equal(getattr(rep, f), getattr(jrep, f)), f
+
+
+def test_example_job_matches_jax_engine():
+    jeng, eng, scores, vocab = _jobs()
+    rng = np.random.default_rng(1)
+    events = [None, ("degrade", 5, 10.0), ("outage", 1, 3.0),
+              ("recover", 1, 3.0), ("drift", 2, 0.8), ("remove", 11, 1.0)]
+    for event in events:
+        if event is not None:
+            kind, dev, factor = event
+            jeng.apply_event(kind, dev, factor, reoptimize=False)
+            eng.apply_event(kind, dev, factor, reoptimize=False)
+            assert np.array_equal(eng.x, jeng.x)
+            assert np.array_equal(eng.fleet.com_matrix(),
+                                  jeng.fleet.com_matrix())
+        batch = rng.integers(0, vocab, (64, 32)).astype(float)
+        batch[rng.random(64) < 0.05] = -1  # sensor dropouts
+        _same_report(eng.run_batch(batch), jeng.run_batch(batch))
+    assert eng.fleet.n_devices == 11 and eng.x.shape == (5, 11)
+    assert np.array_equal(eng.true_graph().operators[2].selectivity,
+                          jeng.true_graph().operators[2].selectivity)
+    got = np.concatenate(scores["port"])
+    want = np.concatenate(scores["jax"])
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.shape[1] == 1 and len(got) >= 6 * 40
+    assert _rel(got, want) <= REL
+
+
+def test_model_op_scores_match_jax():
+    jcfg, jmodel, params, model = _models()
+    rows = np.random.default_rng(2).integers(-3, jcfg.vocab + 5,
+                                             (5, 24)).astype(float)
+    got = model_op("lm", model).fn(rows)
+    want = jax_ops.model_op("lm", jmodel, params, jcfg).fn(rows)
+    assert got.dtype == np.float32 and got.shape == (5, 1)
+    assert _rel(got, want) <= REL
+    # the model op's metadata matches the reference's
+    assert dataclasses.astuple(model_op("lm", model).to_meta()) == \
+        dataclasses.astuple(jax_ops.model_op("lm", jmodel, params,
+                                             jcfg).to_meta())
+
+
+def test_quality_scores_equal_the_reference():
+    rng = np.random.default_rng(4)
+    for trial in range(6):
+        toks = rng.integers(-1, 30, (int(rng.integers(2, 20)),
+                                     int(rng.integers(4, 40))))
+        if trial == 1:
+            toks[0] = 7
+        if trial == 2:
+            toks[1] = -1
+        assert np.array_equal(quality_scores(toks), jax_quality(toks))
+    assert dq_latency_model(2.0, 0.5, 1.5) == 2.0 / (1.0 + 1.5 * 0.5)
+
+
+def _pipeline():
+    ops = [
+        source(),
+        map_op("normalize", lambda r: (r - r.mean()) / (r.std() + 1e-9),
+               work=1.0),
+        filter_op("threshold", lambda r: r[:, 0] > -0.5, selectivity=0.7),
+        window_agg("window_mean", window=4),
+    ]
+    return StreamGraph(ops, [(0, 1), (1, 2), (2, 3)])
+
+
+def test_engine_runs_and_respects_selectivity():
+    g = _pipeline()
+    x = uniform_placement(g.meta.n_ops, np.ones((g.meta.n_ops, 3), bool))
+    eng = StreamingEngine(g, ExplicitFleet(com_cost=COM), x)
+    rep = eng.run_batch(np.random.default_rng(0).normal(size=(256, 4)))
+    assert rep.rows_in == 256
+    # filter keeps ~70% (here: >−0.5 of standard normal ≈ 69%), window /4
+    assert 20 < rep.rows_out["window_mean"] < 64
+    assert rep.modeled_latency > 0.0
+    assert rep.edge_latencies.shape == (3,)
+
+
+def test_quality_operator_drops_bad_rows():
+    g = StreamGraph([source(), quality_op(threshold=0.5)], [(0, 1)])
+    x = uniform_placement(2, np.ones((2, 3), bool))
+    eng = StreamingEngine(g, ExplicitFleet(com_cost=COM), x)
+    rng = np.random.default_rng(1)
+    batch = rng.integers(0, 50, (64, 32)).astype(float)
+    batch[:16] = -1  # fully-missing rows → low completeness
+    assert eng.run_batch(batch).rows_out["dq_check"] <= 48
+
+
+def test_reoptimize_is_refused_before_any_state_changes():
+    g = _pipeline()
+    n = g.meta.n_ops
+    x = uniform_placement(n, np.ones((n, 3), bool))
+    fleet = ExplicitFleet(com_cost=COM, region=np.array([0, 0, 1]))
+    eng = StreamingEngine(g, fleet, x)
+    for call in (lambda: eng.degrade_and_replace(2, 10.0),
+                 lambda: eng.remove_device(1),
+                 lambda: eng.apply_event("outage", 0, 4.0),
+                 lambda: eng.apply_event("degrade", 1, 2.0,
+                                         reoptimize=True)):
+        with pytest.raises(NotImplementedError, match="A5"):
+            call()
+    assert eng.fleet is fleet and np.array_equal(eng.x, x)
+    assert np.array_equal(eng.device_speed, np.ones(3))
+    assert eng.remove_device(1, reoptimize=False) is None
+    assert eng.fleet.n_devices == 2
+    np.testing.assert_allclose(eng.x.sum(axis=1), 1.0, atol=1e-6)
+
+
+def test_chip_smoke_lm_score_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's lm_score phase at the smoke config on the CPU, with
+    K5 swapped for its plain version behind a counting wrapper: the phase's
+    launch, row and reference checks pass and it reports every batch."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+
+    def counted_plain(q, k, v, causal=True):
+        fa.launches["flash_attention"] += 1
+        return ref.flash_attention_plain(q, k, v, causal=causal)
+
+    monkeypatch.setattr(dispatch, "plan_attention_kernel", lambda *t: "cuda")
+    monkeypatch.setattr(fa, "flash_attention", counted_plain)
+    monkeypatch.setitem(fa.launches, "flash_attention", 0)
+    cfg = get_smoke_config("olmo_1b").replace(attention_impl="pallas",
+                                              act_dtype="bfloat16")
+    out = chip_smoke.lm_score_phase(torch, np, torch.device("cpu"), cfg,
+                                    rows=48, seq=24, batches=2,
+                                    profile=False)
+    assert out["calls"] >= 24 and out["shard_rows"] <= 4
+    assert out["launches"] == cfg.n_layers * out["calls"]
+    assert out["ref_rel"] <= chip_smoke.LM_REF_REL
+    printed = capsys.readouterr().out
+    assert "lm_score batch 1" in printed and "not measured" in printed
