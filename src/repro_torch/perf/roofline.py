@@ -9,10 +9,11 @@ bound (:func:`flash_attention_terms`).
 The edge-latency kernels compute in full FP32 on the CUDA cores (TF32
 tensor cores miss the 1e-5 accuracy bar), so their compute peak is the
 FP32 non-tensor rate.  Attention on bf16 operands is priced at the bf16
-tensor-core rate, the least time the card could take for it.  The rates are NVIDIA's data-sheet numbers for the SXM
-part at its full power limit; a card capped lower runs slower under load,
-which the pricer's observed/bound calibration absorbs.  The reference's
-collective (ICI) term has no user in this single-card slice.
+tensor-core rate, the least time the card could take for it.  The rates
+are NVIDIA's data-sheet numbers for the SXM part at its full power limit;
+a card capped lower runs slower under load, which the pricer's
+observed/bound calibration absorbs.  The reference's collective (ICI)
+term has no user on one card.
 """
 
 from __future__ import annotations

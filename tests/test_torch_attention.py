@@ -8,7 +8,7 @@ float32, atol 3e-2 with rtol 1e-2 for bfloat16 (both sides compute in
 float32 and round the output to bfloat16; the Pallas kernel sums per
 128-block, the plain version in one pass).  The CUDA kernel itself has no
 CPU mode: ``chip_smoke.py`` holds it against the plain version on the card,
-and the ``cuda``-marked test below does so where a card is present."""
+and so does ``tests/test_torch_cuda.py`` where a card is present."""
 
 import pytest
 
@@ -21,6 +21,7 @@ from repro.kernels import ops  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.perf import roofline  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=1e-2),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
@@ -116,35 +117,14 @@ def test_plain_version_masks_causally_from_position_zero():
     torch.testing.assert_close(flat[0, 3], v[0].mean(0), rtol=0, atol=1e-6)
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
-                    "tests/test_torch_attention.py on the H100)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_kernel_matches_plain_on_the_card(card, dtype, causal):
-    """K5 against its plain version on the same card: float32 inputs
-    against the float64 plain version at ≤1e-5 relative; bfloat16 inputs
-    against the plain version in float32 math, within one bfloat16 ulp
-    of the largest output (≤1e-2 relative)."""
-    rng = np.random.default_rng(11)
-    for B, S, H, D in SHAPES + [(1, 1000, 2, 128)]:
-        q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D))
-                                    .astype(np.float32)).to(card)
-                   .to(getattr(torch, dtype)) for _ in range(3))
-        got = fa.flash_attention(q, k, v, causal=causal)
-        if dtype == "float32":
-            want = ref.flash_attention_plain(q.double(), k.double(),
-                                             v.double(), causal=causal)
-            bar = 1e-5
-        else:
-            want = ref.flash_attention_plain(q, k, v, causal=causal)
-            bar = 1e-2
-        err = (got.double() - want.double()).abs().max()
-        assert float(err / want.double().abs().max()) <= bar, (B, S, H, D)
-        assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal))
+def test_attention_roofline_counts_the_pairs_the_mask_keeps():
+    t = roofline.flash_attention_terms(11, 2048, 16, 128, torch.bfloat16,
+                                       causal=True)
+    assert t.flops == 4 * 11 * 16 * 128 * 2048 * 2049 / 2
+    assert t.bytes == 4 * 11 * 2048 * 16 * 128 * 2
+    assert t.compute_s == t.flops / 989e12 and t.bound_by == "operations"
+    f = roofline.flash_attention_terms(1, 64, 1, 64, "float32", causal=False)
+    assert f.flops == 4 * 64 ** 3 and f.compute_s == f.flops / 67e12
+    assert f.memory_s == 4 * 64 * 64 * 4 / 3.35e12 and f.bound_by == "bytes"
+    with pytest.raises(ValueError, match="no attention peak"):
+        roofline.flash_attention_terms(1, 8, 1, 16, torch.float16, True)
