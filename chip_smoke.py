@@ -11,8 +11,8 @@ Phases, each raising on a failed check:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every ``src/repro_torch/kernels/csrc/*.cu`` (``edge_latency.cu``,
-   ``flash_attention.cu``) compiled with ``nvcc`` for ``sm_90a``, all in
-   parallel, ptxas register / spill lines;
+   ``flash_attention.cu``, ``ssd_scan.cu``, ``rmsnorm.cu``) compiled with
+   ``nvcc`` for ``sm_90a``, all in parallel, ptxas register / spill lines;
 2. kernels: each CUDA kernel against its plain PyTorch version computed in
    float64 on the card, ≤1e-5 relative (max |err| / max |want|), bitwise
    equal on a repeat launch — at the serving shapes, at V ∈ {7, 129, 300}
@@ -53,8 +53,32 @@ that its kernel launched; the structured phase also checks that two
    ``attention_impl="reference"`` within 1e-2 relative (bfloat16
    activations through 16 layers), and that ``rows_out`` is what the
    engine's counts predict; it prints per-batch wall time, tokens/s, peak
-   memory and a ``torch.profiler`` breakdown of a third batch (K5, GEMMs,
-   other kernels, copies, idle share).
+   memory and a ``torch.profiler`` breakdown of a third batch (K5, K6, K7,
+   float32 and bf16 GEMMs, conv/elementwise kernels, copies, other, idle
+   share);
+7. ssm kernels: K6 (SSD chunked scan) and K7 (RMSNorm) against their plain
+   versions on the card, with the bars of phase 5 — float32 inputs against
+   the float64 plain version at ≤1e-5 (for K6, or the plain version's own
+   float32 error on the same inputs where that is larger: its cumsum
+   differences lose digits over a 256-row chunk), bfloat16 inputs at ≤1e-2
+   against the plain version in float32 math — bitwise equal on a repeat
+   launch.  K6 at the tests/test_kernels.py shapes, ragged L (in one chunk
+   and over several chunks at P = 64, N = 128, chunk 256) and the serving
+   shape of one lm_score shard (b 11, L 2048, H 64, P 64, N 128, chunk
+   256; x, B, C read as strided views of one conv output, as the model
+   passes them); K7 at vectorised, scalar and unaligned rows and at the
+   serving shapes (22 528 rows × 2048, the block norm, and × 4096, the gate
+   norm).  Kernel, plain and bound times at the serving shapes, and
+   ``torch.nn.functional.rms_norm`` for K7 (timed as a yardstick only,
+   never called by the port; there is no single PyTorch call for the scan);
+8. lm_score_mamba2: the job of phase 6 with Mamba2-1.3B at its published
+   widths (48 layers, d 2048, d_inner 4096, 64 SSM heads of 64, state 128,
+   chunk 256, vocab 50432 padded; seeded random weights made on the card)
+   after the OLMo model is freed.  It checks that K6 launched 48 times and
+   K7 97 times (2 per layer + the final norm) in every shard call, finite
+   scores, one shard's scores against the same forward with K6/K7 swapped
+   for their plain versions (inside the check only) within 1e-2, and the
+   row counts; it prints what phase 6 prints.
 
 The launch counts are set to 0 just before a phase drives its main path
 (the service, the engine) and read just after it.  The last lines are the
@@ -64,6 +88,7 @@ card, one JSON object listing every ported kernel and, last,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -88,10 +113,14 @@ SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "edge_latency_structured":
                "src/repro_torch/kernels/csrc/edge_latency.cu",
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
 REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
             "edge_latency_structured": "src/repro/kernels/edge_latency.py:246",
-            "flash_attention": "src/repro/kernels/flash_attention.py:76"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:76",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:30"}
 # K5 cases: the tests/test_kernels.py shapes and ragged S, (B, S, H, D)
 ATTN_SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
                (2, 96, 3, 32), (1, 384, 2, 64), (1, 100, 2, 64),
@@ -99,7 +128,22 @@ ATTN_SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
 BF16_REL = 1e-2      # one bfloat16 ulp of the largest output
 # lm_score: OLMo-1B's context length (arXiv:2402.00838) per row
 LM_ARCH, LM_ROWS, LM_SEQ, LM_BATCHES, LM_DROPOUT = "olmo_1b", 128, 2048, 2, 0.05
-LM_REF_REL = 1e-2    # flash vs chunked attention, bf16 through 16 layers
+# one shard's scores, kernels vs the plain route (chunked attention; K6/K7's
+# plain versions), bf16 activations through 16 (OLMo) or 48 (Mamba2) layers
+LM_REF_REL = 1e-2
+SSM_ARCH = "mamba2_1_3b"
+# K6 cases (b, L, H, P, N, chunk): the tests/test_kernels.py shapes, a
+# ragged L in one chunk, and ragged multi-chunk L at the model's P, N, chunk
+SSD_CASES = [(2, 64, 8, 16, 16, 16), (1, 128, 4, 32, 8, 16),
+             (2, 32, 2, 8, 4, 16), (1, 20, 5, 8, 16, 8),
+             (2, 300, 6, 64, 128, 256), (1, 700, 3, 64, 128, 256)]
+# K7 cases (rows, D, offset): vectorised and scalar rows (D % 8 != 0 for
+# bf16, D = 37), and an offset of one element (rows not 16-byte aligned)
+RMS_CASES = [(1, 64, 0), (3, 100, 0), (7, 2048, 0), (5, 128, 0),
+             (33, 4096, 0), (9, 37, 0), (4, 256, 1)]
+# profiler groups: float32 GEMMs (the dt projection and the head) first
+F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
+GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
 def check(ok: bool, what: str) -> None:
@@ -270,6 +314,165 @@ def attention_phase(torch, dev, serving: tuple) -> dict:
     return r
 
 
+def ssd_operands(torch, gen, dev, b, L, H, P, N, dtype, model_like=False):
+    """x (b, L, H, P) and B, C (b, L, N) in ``dtype``, dt (b, L, H), A, D
+    (H,) float32.  Case inputs follow tests/test_kernels.py (dt =
+    softplus(z)/2, A = −exp(0.3 z)); ``model_like`` ones follow the Mamba2
+    forward (dt = softplus(z − 2), A = −linspace(1, 16, H)) and are read as
+    views of one (b, L, H·P + 2N) tensor, the conv output the model
+    slices them from."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if model_like:
+        conv = randn(b, L, H * P + 2 * N).to(dtype)
+        x = conv[..., :H * P].reshape(b, L, H, P)
+        B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+        dt = F.softplus(randn(b, L, H) - 2.0)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        x = randn(b, L, H, P).to(dtype)
+        B, C = (randn(b, L, N) * 0.5).to(dtype), (randn(b, L, N) * 0.5).to(dtype)
+        dt = F.softplus(randn(b, L, H)) * 0.5
+        A = -torch.exp(randn(H) * 0.3)
+    return x, B, C, dt, A, randn(H)
+
+
+def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
+    """K6 and K7 against their plain versions at the case shapes, a ragged
+    L and the serving shapes of one lm_score shard of ``cfg`` (Mamba2),
+    bitwise on repeat; their times there.  Returns the kernel line's
+    numbers for both."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.perf.roofline import rmsnorm_terms, ssd_scan_terms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = {}
+
+    def hold(name, kernel, plain, args, widen, what):
+        """``widen``: the f32 bar becomes the plain version's own float32
+        error against float64 on these inputs where that is larger."""
+        out, again = kernel(*args), kernel(*args)
+        f32 = args[0].dtype == torch.float32
+        if f32:
+            want = plain(*(a.double() if torch.is_tensor(a) else a
+                           for a in args))
+            bar = REL
+            if widen:
+                own, _ = rel_err(plain(*args), want)
+                bar = max(REL, own)
+        else:
+            want, bar = plain(*args), BF16_REL
+        sync(torch, dev)
+        rel, err = rel_err(out, want)
+        check(out.shape == args[0].shape and out.dtype == args[0].dtype,
+              f"{name} {what}: {out.shape} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{name} {what}: non-finite")
+        check(rel <= bar, f"{name} {what}: rel err {rel:.3e} > {bar:.3e}")
+        check(torch.equal(out, again), f"{name} {what}: repeat launch differs")
+        key = (name, "float32" if f32 else "bfloat16")
+        worst[key] = max(worst.get(key, 0.0), rel)
+        return rel, err, bar
+
+    cases = 0
+    for b, L, H, P, N, Q in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (*ssd_operands(torch, gen, dev, b, L, H, P, N, dtype), Q)
+            hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args, True,
+                 f"(b={b} L={L} H={H} P={P} N={N} Q={Q}) {dtype}")
+            cases += 1
+    for rows, D, offset in RMS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.randn(rows * D + offset, generator=gen,
+                               device=dev).to(dtype)
+            x = flat[offset:].view(rows, D)     # offset 1: unaligned rows
+            w = torch.randn(D, generator=gen, device=dev)
+            hold("rmsnorm", rk.rmsnorm, ref.rmsnorm_plain, (x, w), False,
+                 f"({rows}, {D}) offset {offset} {dtype}")
+            cases += 1
+
+    out = {}
+    # K6 at the serving shape: one shard's SSD, as the model calls it
+    H, P, N, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    serving = (shard_rows, seq, H, P, N)
+    args = (*ssd_operands(torch, gen, dev, *serving, torch.float32,
+                          model_like=True), Q)
+    rel32, _, bar32 = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args,
+                           True, f"serving {serving} float32")
+    del args
+    args = (*ssd_operands(torch, gen, dev, *serving, torch.bfloat16,
+                          model_like=True), Q)
+    rel, err, _ = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args,
+                       False, f"serving {serving} bfloat16")
+    terms = ssd_scan_terms(*serving, Q, torch.bfloat16)
+    out["ssd_scan"] = {
+        "max_abs_err": err, "rel_err": rel,
+        "ms": time_ms(lambda: sk.ssd_scan(*args), 5),
+        "plain_ms": time_ms(lambda: ref.ssd_scan_plain(*args), 3),
+        "library_ms": None, "bound_ms": terms.step_time_s * 1e3,
+        "bound_by": terms.bound_by, "flops": terms.flops,
+        "bytes": terms.bytes,
+        "shape": "b={} L={} H={} P={} N={} Q={} bf16 x/B/C (views of one "
+                 "conv output), f32 dt".format(*serving, Q)}
+    print(f"ssd_scan serving float32: rel err {rel32:.3e} against float64, "
+          f"bar {bar32:.3e} (1e-5, or the plain float32 version's own error "
+          f"on the same inputs where larger)")
+    del args
+    # K7 at the serving shapes: the block norm (d) and the gate norm (d_inner)
+    times = {}
+    for D, what in ((cfg.d_model, "block"), (cfg.d_inner, "gate")):
+        rows = shard_rows * seq
+        x = torch.randn((rows, D), generator=gen, device=dev)
+        w = torch.randn(D, generator=gen, device=dev)
+        hold("rmsnorm", rk.rmsnorm, ref.rmsnorm_plain, (x, w), False,
+             f"serving ({rows}, {D}) float32")
+        x = x.bfloat16()
+        rel, err, _ = hold("rmsnorm", rk.rmsnorm, ref.rmsnorm_plain, (x, w),
+                           False, f"serving ({rows}, {D}) bfloat16")
+        # yardsticks only, never called by the port: rms_norm on the same
+        # inputs (float32 w), and with a bf16 w, which may take a fused path
+        wb = w.bfloat16()
+        try:
+            F.rms_norm(x, (D,), weight=w, eps=1e-6)
+            wl, lib_w = w, "float32 w"
+        except RuntimeError:
+            wl, lib_w = wb, "bfloat16 w (refuses float32 w)"
+        terms = rmsnorm_terms(rows, D, torch.bfloat16)
+        times[what] = {
+            "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(lambda: rk.rmsnorm(x, w), 20),
+            "plain_ms": time_ms(lambda: ref.rmsnorm_plain(x, w), 10),
+            "library_ms": time_ms(lambda: F.rms_norm(
+                x, (D,), weight=wl, eps=1e-6), 20),
+            "library": f"torch.nn.functional.rms_norm, {lib_w}; with a "
+                       f"bfloat16 w " + "{:.3f} ms".format(time_ms(
+                           lambda: F.rms_norm(x, (D,), weight=wb, eps=1e-6),
+                           20)),
+            "bound_ms": terms.step_time_s * 1e3, "bound_by": terms.bound_by,
+            "flops": terms.flops, "bytes": terms.bytes,
+            "shape": f"rows={rows} D={D} bf16 ({what} norm)"}
+        del x, w, wb, wl
+    out["rmsnorm"] = times["block"]
+    out["rmsnorm_gate"] = times["gate"]
+    print(f"ssm kernels: {cases} case shapes plus the serving shapes within "
+          f"bounds and bitwise on repeat; worst rel err " + ", ".join(
+              f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
+    for k, r in out.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.3f} ({r['library']})"
+        print(f"kernel {k} [{r['shape']}]: {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, library {lib} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.1%} of it), rel err "
+              f"{r['rel_err']:.3e}")
+    return out
+
+
 def example_fleet(np, ExplicitFleet):
     """examples/geo_placement.py's fleet: 3 regions × 4 devices, WAN costs
     between regions, region 0 twice as fast."""
@@ -284,20 +487,70 @@ def example_fleet(np, ExplicitFleet):
     return ExplicitFleet(com_cost=com, speed=speed, region=region), speed
 
 
+def expected_launches(cfg) -> dict[str, int]:
+    """Launches of each LM kernel in one forward of ``cfg`` (one lm_score
+    shard call): K5 once per layer on the "pallas" attention route; K6 once
+    per Mamba2 layer; K7 for every RMSNorm with a weight (block and final
+    norms, qk-norms, Mamba2's gate norms)."""
+    L, rms = cfg.n_layers, cfg.norm_type == "rmsnorm"
+    if cfg.family == "ssm":
+        return {"ssd_scan": L, "rmsnorm": (2 * L + 1) if rms else L}
+    return {"flash_attention": L if cfg.attention_impl == "pallas" else 0,
+            "rmsnorm": ((2 * L + 1) if rms else 0)
+            + (2 * L if cfg.qk_norm else 0)}
+
+
+def lm_launches() -> dict[str, int]:
+    """The LM kernels' launch counts, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    return {**fa.launches, **sk.launches, **rk.launches}
+
+
+def reset_lm_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    for mod in (fa, sk, rk):
+        mod.reset_launches()
+
+
+@contextlib.contextmanager
+def plain_ssm_kernels():
+    """K6 and K7 swapped for their plain versions (uncounted) inside the
+    block, restored after it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    saved = sk.ssd_scan, rk.rmsnorm
+    sk.ssd_scan, rk.rmsnorm = ref.ssd_scan_plain, ref.rmsnorm_plain
+    try:
+        yield
+    finally:
+        sk.ssd_scan, rk.rmsnorm = saved
+
+
 def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                    profile: bool = True) -> dict:
     """The example's streaming job with ``cfg`` as the LM-scoring operator
-    (see the module docstring, phase 6).  Returns K5's launches on the
-    main path and the phase's numbers."""
+    (see the module docstring, phases 6 and 8).  Returns the launches of
+    the family's main kernel (K5, or K6 for Mamba2) and of every LM kernel
+    on the main path, and the phase's numbers."""
     from repro_torch.core.devices import ExplicitFleet
     from repro_torch.core.placement import uniform_placement
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.streaming import (StreamGraph, StreamingEngine, map_op,
                                        model_op, quality_op, quality_scores,
                                        source, window_agg)
 
+    ssm = cfg.family == "ssm"
+    phase = "lm_score_mamba2" if ssm else "lm_score"
+    main_kernel = "ssd_scan" if ssm else "flash_attention"
+    want_per_call = expected_launches(cfg)
     fleet, speed = example_fleet(np, ExplicitFleet)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(SEED))
@@ -305,13 +558,14 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
     init_s = time.perf_counter() - t0
     lm = model_op("lm_score", model, work=50.0)
     score_fn = lm.fn
-    shards = []          # (rows, scores, K5 launches) per lm_score call
+    shards = []          # (rows, scores, LM kernel launches) per shard call
 
     def counted(shard_rows):
-        before = fa.launches["flash_attention"]
+        before = lm_launches()
         out = score_fn(shard_rows)
+        after = lm_launches()
         shards.append((shard_rows, out,
-                       fa.launches["flash_attention"] - before))
+                       {k: after[k] - before[k] for k in want_per_call}))
         return out
 
     lm.fn = counted
@@ -332,7 +586,7 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
         data.append(batch)
 
     sync(torch, dev)
-    fa.reset_launches()
+    reset_lm_launches()
     reports, walls, peaks = [], [], []
     for batch in data[:batches]:
         if dev.type == "cuda":
@@ -343,19 +597,21 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
         walls.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated(dev)
                      if dev.type == "cuda" else None)
-    launched = fa.launches["flash_attention"]
+    launched = {k: lm_launches()[k] for k in want_per_call}
 
     calls = len(shards)
-    check(calls > 0, "lm_score: the scoring operator never ran")
-    check(all(n == cfg.n_layers for _, _, n in shards),
-          f"lm_score: K5 launches per shard call "
-          f"{sorted({n for _, _, n in shards})}, want {cfg.n_layers}")
-    check(launched == cfg.n_layers * calls,
-          f"lm_score: {launched} K5 launches for {calls} shard calls")
+    check(calls > 0, f"{phase}: the scoring operator never ran")
+    for k, n in want_per_call.items():
+        got = sorted({c[k] for _, _, c in shards})
+        check(got == [n], f"{phase}: {k} launches per shard call {got}, "
+                          f"want {n}")
+        check(launched[k] == n * calls,
+              f"{phase}: {launched[k]} {k} launches for {calls} shard calls")
+    check(launched[main_kernel] > 0, f"{phase}: {main_kernel} never launched")
     for _, out, _ in shards:
         check(out.dtype == np.float32 and out.ndim == 2 and out.shape[1] == 1
               and bool(np.isfinite(out).all()),
-              "lm_score: scores not finite float32 (n, 1)")
+              f"{phase}: scores not finite float32 (n, 1)")
     lm_ix = [op.name for op in g.ops].index("lm_score")
     for batch, rep in zip(data, reports):
         clean = np.clip(batch, 0, vocab - 1)
@@ -364,21 +620,27 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
             np.arange(n_scored), eng.x[lm_ix + 1]).values())
         check(int(rep.op_rows_in[lm_ix]) == n_scored
               and rep.rows_out == {"window_mean": want_out},
-              f"lm_score: rows {rep.op_rows_in.tolist()} -> {rep.rows_out}, "
+              f"{phase}: rows {rep.op_rows_in.tolist()} -> {rep.rows_out}, "
               f"want {n_scored} scored -> {want_out}")
 
-    # one shard against the same forward with the chunked reference route
-    ref_model = build_model(cfg.replace(attention_impl="reference"),
-                            device=dev)
-    ref_model.load_state_dict(model.state_dict())
+    # one shard against the same forward through the plain route: the
+    # chunked reference attention (dense) or K6/K7's plain versions (ssm)
     shard_rows, got, _ = shards[0]
-    want = model_op("reference", ref_model).fn(shard_rows)
+    if ssm:
+        what = "K6/K7 vs their plain versions"
+        with plain_ssm_kernels():
+            want = model_op("reference", model).fn(shard_rows)
+    else:
+        what = "flash vs reference attention"
+        ref_model = build_model(cfg.replace(attention_impl="reference"),
+                                device=dev)
+        ref_model.load_state_dict(model.state_dict())
+        want = model_op("reference", ref_model).fn(shard_rows)
+        del ref_model
     ref_rel = float(np.abs(got.astype(np.float64) - want).max()
                     / np.abs(want.astype(np.float64)).max())
     check(ref_rel <= LM_REF_REL,
-          f"lm_score: flash vs reference attention rel err {ref_rel:.3e} > "
-          f"{LM_REF_REL}")
-    del ref_model
+          f"{phase}: {what} rel err {ref_rel:.3e} > {LM_REF_REL}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -386,24 +648,32 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
     for i, (rep, wall, peak, tok) in enumerate(zip(reports, walls, peaks,
                                                    tokens)):
         mem = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
-        print(f"lm_score batch {i}: {rep.rows_in} rows x {seq} tokens -> "
+        print(f"{phase} batch {i}: {rep.rows_in} rows x {seq} tokens -> "
               f"{rep.rows_out}; lm_score {tok} tokens; wall {wall:.3f} s, "
               f"{tok / wall:.0f} tokens/s; peak memory {mem}; modeled "
               f"latency {rep.modeled_latency:.4f}")
-    print(f"lm_score: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads} heads of {cfg.hd}, vocab {cfg.vocab_padded}) "
-          f"weights made in {init_s:.1f} s; {calls} shard calls, K5 "
-          f"launched {launched} times ({cfg.n_layers} per call); flash vs "
-          f"reference attention on a shard of {len(shard_rows)} rows: rel "
+    width = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk}" if ssm
+             else f"{cfg.n_heads} heads of {cfg.hd}")
+    print(f"{phase}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{width}, vocab {cfg.vocab_padded}) weights made in {init_s:.1f} "
+          f"s; {calls} shard calls, launches {launched} ({want_per_call} "
+          f"per call); {what} on a shard of {len(shard_rows)} rows: rel "
           f"err {ref_rel:.3e} (bar {LM_REF_REL})")
     if profile:
-        prof = device_profile(torch, lambda: eng.run_batch(data[-1]), {
-            "K5": ("flash_attention",),
-            "GEMM": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
-            "copies": ("memcpy", "memset")})
-        print(f"lm_score profile (a third, profiled batch): {prof}")
-    return {"launches": launched, "calls": calls, "walls": walls,
-            "tokens": tokens, "ref_rel": ref_rel,
+        groups = {"K6": ("ssd_scan",), "K7": ("rmsnorm",),
+                  "K5": ("flash_attention",),
+                  "f32 GEMM (dt projection, head)": F32_GEMM,
+                  "bf16 GEMM": GEMM,
+                  "conv/elementwise": ("elementwise", "vectorized",
+                                       "unrolled", "cat", "reduce"),
+                  "copies": ("memcpy", "memset")}
+        prof = device_profile(torch, lambda: eng.run_batch(data[-1]), groups)
+        print(f"{phase} profile (a third, profiled batch): {prof}")
+    return {"launches": launched[main_kernel], "kernel_launches": launched,
+            "calls": calls, "walls": walls, "tokens": tokens,
+            "ref_rel": ref_rel,
             "shard_rows": max(len(r) for r, _, _ in shards)}
 
 
@@ -727,11 +997,25 @@ def main() -> int:
     lm = lm_score_phase(torch, np, dev, cfg, LM_ROWS, LM_SEQ, LM_BATCHES)
     check(lm["shard_rows"] <= shard,
           f"lm_score: a shard of {lm['shard_rows']} rows, K5 timed at {shard}")
+    torch.cuda.empty_cache()        # the OLMo model went with the phase
+
+    # -- 7./8. K6, K7 and the LM-scoring job on Mamba2 ------------------------
+    ssm_cfg = get_config(SSM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    report.update(ssm_kernels_phase(torch, dev, shard, LM_SEQ, ssm_cfg))
+    torch.cuda.empty_cache()
+    ssm = lm_score_phase(torch, np, dev, ssm_cfg, LM_ROWS, LM_SEQ,
+                         LM_BATCHES)
+    check(ssm["shard_rows"] <= shard,
+          f"lm_score_mamba2: a shard of {ssm['shard_rows']} rows, K6/K7 "
+          f"timed at {shard}")
 
     launches = {"edge_latency_dense": dense_launched["edge_latency_dense"],
                 "edge_latency_structured":
                     struct_launched["edge_latency_structured"],
-                "flash_attention": lm["launches"]}
+                "flash_attention": lm["launches"],
+                "ssd_scan": ssm["kernel_launches"]["ssd_scan"],
+                "rmsnorm": ssm["kernel_launches"]["rmsnorm"]}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],

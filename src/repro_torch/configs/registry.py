@@ -30,7 +30,7 @@ ARCH_IDS = [
     "llama_3_2_vision_11b",
     "whisper_large_v3",
 ]
-PORTED = ("olmo_1b",)
+PORTED = ("olmo_1b", "mamba2_1_3b")
 
 
 def canonical_arch(arch: str) -> str:

@@ -6,7 +6,7 @@ of the model layer's ``attention_impl="pallas"`` route
 The rule is the tensors' device, nothing else:
 
 * a CUDA tensor goes to the CUDA C++ kernel (:mod:`.edge_latency`,
-  :mod:`.flash_attention`);
+  :mod:`.flash_attention`, :mod:`.rmsnorm`, :mod:`.ssd_scan`);
 * a CPU tensor goes to the plain PyTorch version (:mod:`.ref`);
 * any other device, or operands on different devices, raise.
 
@@ -14,7 +14,7 @@ There is no coercion and no fallback: a CUDA tensor reaches the kernel or
 raises.  Block sizes are fixed constants of the kernel sources.  Every
 decision is counted as ``kernels.dispatch.plans{kind, impl}`` in
 :mod:`repro_torch.obs` when the registry is enabled (kind ``dense``,
-``structured`` or ``flash_attention``).
+``structured``, ``flash_attention``, ``rmsnorm`` or ``ssd_scan``).
 
 :func:`resolve_device` is the policy for the public entry points
 (``BatchedEvaluator``, ``WhatIfService``, ``build_model``): ``None`` means
@@ -30,9 +30,12 @@ from repro_torch import obs
 from repro_torch.kernels import edge_latency as kernels
 from repro_torch.kernels import flash_attention as attention_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels import ssd_scan as ssd_kernel
 
 __all__ = ["resolve_device", "plan_edge_kernel", "plan_attention_kernel",
-           "edge_latency", "edge_latency_structured", "flash_attention"]
+           "edge_latency", "edge_latency_structured", "flash_attention",
+           "rmsnorm", "ssd_scan"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -103,3 +106,19 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     if plan_attention_kernel(q, k, v) == "cuda":
         return attention_kernel.flash_attention(q, k, v, causal=causal)
     return ref.flash_attention_plain(q, k, v, causal=causal)
+
+
+def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of the last axis with a weight, in x's dtype: K7 on the
+    card, its plain version on the CPU.  The weight is read as float32."""
+    if _plan("rmsnorm", "rmsnorm", (x, w)) == "cuda":
+        return rmsnorm_kernel.rmsnorm(x, w.float(), eps)
+    return ref.rmsnorm_plain(x, w, eps)
+
+
+def ssd_scan(x, B, C, dt, A, D, chunk: int) -> torch.Tensor:
+    """The Mamba2 SSD chunked scan → y (b, L, H, P) in x's dtype: K6 on
+    the card, its plain version on the CPU."""
+    if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
+        return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk)
+    return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk)

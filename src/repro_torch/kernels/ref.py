@@ -10,6 +10,12 @@
   ``repro.kernels.flash_attention._flash_kernel`` computes, as one full
   softmax.  It computes in float32 for float32 / bfloat16 inputs and in
   float64 for float64 inputs.
+* RMSNorm (:func:`rmsnorm_plain`): ``repro.models.layers.rms_norm``, the
+  function ``repro.kernels.rmsnorm._rmsnorm_kernel`` computes.
+* The SSD scan (:func:`ssd_scan_plain`): the chunked form of
+  ``repro.models.mamba2.ssd_chunked`` (what ``_ssd_kernel`` computes),
+  returning y.  Like the attention version it computes in float32, or in
+  float64 for float64 inputs.
 
 The device policy sends CPU tensors here, and ``chip_smoke.py`` holds the
 CUDA kernels against these versions on the card (float64 for float32
@@ -21,7 +27,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["edge_latency_dense_plain", "edge_latency_structured_plain",
-           "check_attention_operands", "flash_attention_plain"]
+           "check_attention_operands", "flash_attention_plain",
+           "rmsnorm_plain", "check_ssd_operands", "ssd_scan_plain"]
 
 # the reference kernel's mask value (repro.kernels.flash_attention.NEG_INF)
 # and the floor of its softmax denominator
@@ -98,3 +105,86 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True).clamp_min(ATTN_L_FLOOR)
     acc = torch.einsum("bhqk,bkhd->bhqd", p, v.to(ct))
     return (acc / l).transpose(1, 2).to(q.dtype)
+
+
+def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor | None,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·weight`` over the last axis in float32
+    (float64 for float64 x), in x's dtype; no weight when ``None``."""
+    dt = x.dtype
+    x = x.float() if dt != torch.float64 else x
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        x = x * weight.to(x.dtype)
+    return x.to(dt)
+
+
+def check_ssd_operands(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                       dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       chunk: int) -> tuple[int, int, int, int, int, int]:
+    """Raise unless x (b, L, H, P), B and C (b, L, N) of one dtype, dt
+    (b, L, H), A and D (H,) agree and ``chunk`` ≥ 1; return
+    (b, L, H, P, N, Q) with Q = min(chunk, L), the reference's chunk."""
+    if x.dim() != 4 or B.dim() != 3 or C.shape != B.shape or dt.dim() != 3:
+        raise ValueError(f"SSD scan wants x (b, L, H, P), B/C (b, L, N), dt "
+                         f"(b, L, H); got {tuple(x.shape)}, {tuple(B.shape)},"
+                         f" {tuple(C.shape)}, {tuple(dt.shape)}")
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    if tuple(B.shape[:2]) != (b, L) or tuple(dt.shape) != (b, L, H) \
+            or tuple(A.shape) != (H,) or tuple(D.shape) != (H,):
+        raise ValueError(f"SSD operands disagree: x {tuple(x.shape)}, B/C "
+                         f"{tuple(B.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, D {tuple(D.shape)}")
+    if not (x.dtype == B.dtype == C.dtype):
+        raise TypeError(f"x, B, C dtypes differ: {x.dtype}, {B.dtype}, "
+                        f"{C.dtype}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return b, L, H, P, N, max(min(chunk, L), 1)
+
+
+def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                   dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    """The chunked SSD scan of ``repro.models.mamba2.ssd_chunked``: chunks
+    of Q = min(chunk, L) rows, a ragged last chunk zero-padded, per chunk
+    the intra-chunk form ``(C·Bᵀ ⊙ exp(cum_i − cum_j) ⊙ dt_j)·x`` masked to
+    j ≤ i, the carried term ``exp(cum_i)·C_i·S``, ``D·x`` and the state
+    update, op for op.  Returns y (b, L, H, P) in x's dtype; the final
+    state is dropped."""
+    b, L, H, Pd, N, Q = check_ssd_operands(x, B, C, dt, A, D, chunk)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    n = -(-L // Q)
+    if n == 0:
+        return torch.empty((b, 0, H, Pd), dtype=x.dtype, device=x.device)
+    pad = n * Q - L
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    A, D, dt = A.to(ct), D.to(ct), dt.to(ct)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    S = torch.zeros((b, H, N, Pd), dtype=ct, device=x.device)
+    ys = []
+    for c in range(n):
+        rows = slice(c * Q, (c + 1) * Q)
+        x_c, B_c, C_c = x[:, rows], B[:, rows], C[:, rows]
+        dt_c = dt[:, rows]                                    # (b, Q, H)
+        xf = x_c.to(ct)
+        cum = torch.cumsum(dt_c * A, dim=1)                   # (b, Q, H)
+        total = cum[:, -1, :]                                 # (b, H)
+        CB = torch.einsum("biN,bjN->bij", C_c.to(ct), B_c.to(ct))
+        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+        M = CB[..., None] * torch.where(mask[None, :, :, None], decay,
+                                        0.0) * dt_c[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", M, xf)
+        y = y + torch.einsum("biN,bhNp->bihp", C_c.to(ct), S) \
+            * torch.exp(cum)[..., None]
+        w = torch.exp(total[:, None, :] - cum) * dt_c         # (b, Q, H)
+        S = torch.exp(total)[..., None, None] * S + torch.einsum(
+            "bjN,bjh,bjhp->bhNp", B_c.to(ct), w, xf)
+        y = y + D[None, None, :, None] * xf
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :L]

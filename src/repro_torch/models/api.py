@@ -8,8 +8,9 @@ torch dtypes.  ``build_model(cfg, device)`` returns a module exposing
   init_params(generator)        -> fills the parameters in place
   forward(batch)                -> (logits, aux_loss)
 
-Only the dense decoder family without experts is ported (ROADMAP A13);
-the cache paths (prefill / decode) come with the LM-serving slice.
+The dense decoder family without experts and the Mamba2 SSM family are
+ported (ROADMAP A13); the cache paths (prefill / decode) come with the
+LM-serving slice.
 """
 
 from __future__ import annotations
@@ -105,11 +106,14 @@ def build_model(cfg: ModelConfig, device=None):
     if cfg.family == "dense" and not cfg.moe_experts:
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, device=device)
+    if cfg.family == "ssm" and not cfg.moe_experts:
+        from repro_torch.models.mamba2 import Mamba2LM
+        return Mamba2LM(cfg, device=device)
     raise NotImplementedError(
         f"family {cfg.family!r}"
         + (f" with {cfg.moe_experts} experts" if cfg.moe_experts else "")
         + " is not ported yet (ROADMAP A13); the port runs the dense "
-          "decoder without experts")
+          "decoder without experts and the Mamba2 SSM")
 
 
 # ------------------------------------------------------- analytic counts ---

@@ -7,7 +7,8 @@ packages (``repro_torch.convert.decoder_lm_from_arrays``).  Numerics follow
 the reference op for op: norms, rotary and softmax in float32; matmuls read
 the weights cast to the activation dtype and return the activation dtype.
 
-Attention here is the self-attention path without a cache (the reference's
+RMSNorm with a weight runs K7 (:func:`rms_norm`).  Attention here is the
+self-attention path without a cache (the reference's
 training / scoring path).  Two routes, chosen by ``impl``:
 
   * ``"pallas"`` — K5 through :mod:`repro_torch.kernels.dispatch`: the CUDA
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ref
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "dense", "embed_lookup",
@@ -41,12 +42,12 @@ ATTENTION_IMPLS = ("reference", "pallas")
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
              eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    if weight is not None:
-        x = x * weight.float()
-    return x.to(dt)
+    """With a weight: K7 through :mod:`repro_torch.kernels.dispatch` (the
+    CUDA kernel on the card, its plain version on the CPU).  Without one
+    (no caller of the port passes ``None``) the plain math on x's device."""
+    if weight is None:
+        return ref.rmsnorm_plain(x, None, eps)
+    return dispatch.rmsnorm(x, weight, eps)
 
 
 def layer_norm(x: torch.Tensor, weight=None, bias=None,

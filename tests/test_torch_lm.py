@@ -119,7 +119,8 @@ def test_registry_and_builder_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("gpt-5")
     smoke = get_smoke_config("olmo_1b")
-    for cfg in (smoke.replace(family="ssm"), smoke.replace(moe_experts=4)):
+    for cfg in (smoke.replace(family="hybrid"), smoke.replace(family="vlm"),
+                smoke.replace(moe_experts=4)):
         with pytest.raises(NotImplementedError, match="A13"):
             build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="attention impl"):

@@ -1,8 +1,9 @@
 """The port's streaming slice against the JAX package: the LM-scoring
 operator, the data-quality scores, and the example job
 (``examples/geo_placement.py``: ingest → clean → dq_check → lm_score →
-window_mean on a 3-region, 12-device fleet, smoke OLMo, uniform placement)
-run through both engines on the same fleet, parameters and batches.
+window_mean on a 3-region, 12-device fleet, uniform placement) run through
+both engines on the same fleet, parameters and batches, with the smoke OLMo
+and the smoke Mamba2 as the LM.
 
 Bars: LM scores ≤1e-5 relative (max |err| / max |want|; float32
 activations, the two forwards sum in different orders); everything the
@@ -61,13 +62,17 @@ def _example_fleet():
     return com, speed, region
 
 
-def _models():
-    jcfg = jax_smoke("olmo_1b")
+def _models(arch="olmo_1b"):
+    jcfg = jax_smoke(arch)
     jmodel = jax_build(jcfg)
     params = jmodel.init_params(jax.random.PRNGKey(0))
-    cfg = get_smoke_config("olmo_1b").replace(attention_impl="pallas")
-    model = convert.decoder_lm_from_arrays(
-        cfg, jax.tree.map(np.asarray, params), device="cpu")
+    tree = jax.tree.map(np.asarray, params)
+    if arch == "olmo_1b":
+        cfg = get_smoke_config(arch).replace(attention_impl="pallas")
+        model = convert.decoder_lm_from_arrays(cfg, tree, device="cpu")
+    else:
+        model = convert.mamba2_lm_from_arrays(get_smoke_config(arch), tree,
+                                              device="cpu")
     return jcfg, jmodel, params, model
 
 
@@ -84,8 +89,8 @@ def _capture(op, sink):
     return op
 
 
-def _jobs():
-    jcfg, jmodel, params, model = _models()
+def _jobs(arch="olmo_1b"):
+    jcfg, jmodel, params, model = _models(arch)
     vocab = jcfg.vocab
     scores = {"jax": [], "port": []}
 
@@ -146,6 +151,32 @@ def test_example_job_matches_jax_engine():
     want = np.concatenate(scores["jax"])
     assert got.dtype == np.float32 and got.shape == want.shape
     assert got.shape[1] == 1 and len(got) >= 6 * 40
+    assert _rel(got, want) <= REL
+
+
+def test_mamba2_example_job_matches_jax_engine():
+    """The example's job with the smoke Mamba2 as the LM: row counts and
+    every numpy-side latency bitwise, scores within 1e-5."""
+    jeng, eng, scores, vocab = _jobs("mamba2_1_3b")
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        batch = rng.integers(0, vocab, (64, 20)).astype(float)
+        batch[rng.random(64) < 0.05] = -1  # sensor dropouts
+        _same_report(eng.run_batch(batch), jeng.run_batch(batch))
+    got = np.concatenate(scores["port"])
+    want = np.concatenate(scores["jax"])
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.shape[1] == 1 and len(got) >= 3 * 40
+    assert _rel(got, want) <= REL
+
+
+def test_mamba2_model_op_scores_match_jax():
+    jcfg, jmodel, params, model = _models("mamba2_1_3b")
+    rows = np.random.default_rng(5).integers(-3, jcfg.vocab + 5,
+                                             (5, 20)).astype(float)
+    got = model_op("lm", model).fn(rows)
+    want = jax_ops.model_op("lm", jmodel, params, jcfg).fn(rows)
+    assert got.dtype == np.float32 and got.shape == (5, 1)
     assert _rel(got, want) <= REL
 
 
@@ -263,3 +294,55 @@ def test_chip_smoke_lm_score_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert out["ref_rel"] <= chip_smoke.LM_REF_REL
     printed = capsys.readouterr().out
     assert "lm_score batch 1" in printed and "not measured" in printed
+
+
+def test_chip_smoke_lm_score_mamba2_phase_rehearses_on_the_cpu(monkeypatch,
+                                                               capsys):
+    """chip_smoke.py's lm_score_mamba2 phase at the smoke config (bf16
+    activations) on the CPU, with K6 and K7 swapped for their plain
+    versions behind counting wrappers: K6 once per layer and K7 2·layers+1
+    times in every shard call, the row and plain-route checks pass, and
+    the swap of the plain-route check is undone after it."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+
+    def counted_ssd(*args):
+        sk.launches["ssd_scan"] += 1
+        return ref.ssd_scan_plain(*args)
+
+    def counted_rms(x, w, eps=1e-6):
+        rk.launches["rmsnorm"] += 1
+        return ref.rmsnorm_plain(x, w, eps)
+
+    plan = dispatch._plan
+    monkeypatch.setattr(dispatch, "_plan", lambda kind, what, t: "cuda"
+                        if kind in ("ssd_scan", "rmsnorm")
+                        else plan(kind, what, t))
+    monkeypatch.setattr(sk, "ssd_scan", counted_ssd)
+    monkeypatch.setattr(rk, "rmsnorm", counted_rms)
+    monkeypatch.setitem(sk.launches, "ssd_scan", 0)
+    monkeypatch.setitem(rk.launches, "rmsnorm", 0)
+    cfg = get_smoke_config("mamba2_1_3b").replace(act_dtype="bfloat16")
+    out = chip_smoke.lm_score_phase(torch, np, torch.device("cpu"), cfg,
+                                    rows=48, seq=20, batches=2,
+                                    profile=False)
+    assert out["calls"] >= 24 and out["shard_rows"] <= 4
+    assert out["launches"] == cfg.n_layers * out["calls"]
+    assert out["kernel_launches"] == {
+        "ssd_scan": cfg.n_layers * out["calls"],
+        "rmsnorm": (2 * cfg.n_layers + 1) * out["calls"]}
+    assert out["ref_rel"] <= chip_smoke.LM_REF_REL
+    assert sk.ssd_scan is counted_ssd and rk.rmsnorm is counted_rms
+    printed = capsys.readouterr().out
+    assert "lm_score_mamba2 batch 1" in printed and "not measured" in printed
