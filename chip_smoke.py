@@ -32,6 +32,31 @@ against the float64 oracle (``repro_torch.core.costmodel``) at ≤1e-5, and
 that its kernel launched; the structured phase also checks that two
 ``score_grid`` calls are bitwise equal.
 
+2b. single_tile: K4a and K4b (the whole-V references) through their
+   dispatch routes at tests/test_kernel_blocking.py's inputs (B 2, E 5,
+   V 64, R 4), at E ∈ {1, 33} and at V ∈ {1, 37, 128, the largest V the
+   kernel accepts}, shared and per-scenario: K4a bitwise equal to K1 and
+   K4b to K2, both ≤1e-5 relative to the float64 plain version, bitwise
+   on a repeat launch, and the size refusal above the largest V; kernel
+   and plain times at V 64 and at the largest V;
+3b. serve_multi_dense: the serve_dense instance registered with all five
+   §3.1 objectives (``ObjectiveSet.of(*OBJECTIVES)``, unit weights) and
+   per-scenario speeds; four queries (score; rank by ε-constraint,
+   minimize latency_f with network_movement_cost capped at its median;
+   pareto; joint) over the same three tenants, 1024 rows, one chunk;
+4b. serve_multi_structured: the serve_structured family with the same set
+   and queries, 256 rows.
+
+Each multi-objective phase checks every served per-objective grid and
+score bitwise against a direct ``score_grid(objectives=...)`` over the
+rows as dispatched (the padded chunk), eight (scenario, placement) cells
+of every objective against ``ObjectiveSet.scalar_values`` on that
+scenario's fleet at ≤1e-5 relative (abs 1e-6), the pareto front and the
+ε-rank against ``pareto_front`` / ``epsilon_constraint`` on the direct
+grids, and that K1 (K2) launched S times in the one dispatch; the
+structured phase checks that two ``score_grid(objectives=...)`` calls are
+bitwise equal.
+
 5. flash_attention: K5 against its plain version on the card — float32
    inputs against the float64 plain version at ≤1e-5 relative, bfloat16
    inputs against the plain version on the same inputs in float32 math at
@@ -109,8 +134,20 @@ N_OPS, EDGE_PROB = 12, 0.3
 S = 4
 DENSE_V, DENSE_ROWS = 4096, (512, 256, 256)          # one 1024-row chunk
 STRUCT_V, STRUCT_R, STRUCT_ROWS = 131_072, 8, (128, 64, 64)
+# the multi-objective phases: four queries over the same three tenants
+MULTI_TENANTS = ("a", "b", "c", "a")
+MULTI_DENSE_ROWS = (384, 256, 256, 128)              # one 1024-row chunk
+MULTI_STRUCT_ROWS = (96, 64, 64, 32)
+# K4a / K4b: test_kernel_blocking.py's inputs (B 2, E 5, V 64, R 4)
+TILE_B, TILE_E, TILE_V, TILE_R = 2, 5, 64, 4
+TILE_ES, TILE_VS = (1, 33), (1, 37, 128)       # + the largest V accepted
+TILE_TIMED = (4, 1024)          # (B, E) of the timed calls: 4096 edge rows
 SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "edge_latency_structured":
+               "src/repro_torch/kernels/csrc/edge_latency.cu",
+           "edge_latency_dense_single_tile":
+               "src/repro_torch/kernels/csrc/edge_latency.cu",
+           "edge_latency_structured_single_tile":
                "src/repro_torch/kernels/csrc/edge_latency.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -118,6 +155,10 @@ SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
 REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
             "edge_latency_structured": "src/repro/kernels/edge_latency.py:246",
+            "edge_latency_dense_single_tile":
+                "src/repro/kernels/edge_latency.py:311",
+            "edge_latency_structured_single_tile":
+                "src/repro/kernels/edge_latency.py:357",
             "flash_attention": "src/repro/kernels/flash_attention.py:76",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:30"}
@@ -471,6 +512,297 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
               f"{r['bound_ms'] / r['ms']:.1%} of it), rel err "
               f"{r['rel_err']:.3e}")
     return out
+
+
+def single_tile_phase(torch, dev) -> dict:
+    """K4a/K4b through their dispatch routes at every case shape (the
+    phase's main path, launches counted from 0), then held against K1/K2
+    bitwise, against the float64 plain version at ≤1e-5 and against a
+    repeat launch; the size refusal; times at V 64 and at the largest V.
+    Returns each kernel's line numbers and the launches."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.perf.roofline import (
+        edge_latency_single_tile_terms,
+        edge_latency_structured_single_tile_terms)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    names = {"dense": "edge_latency_dense_single_tile",
+             "structured": "edge_latency_structured_single_tile"}
+    route = {"dense": dispatch.edge_latency_single_tile,
+             "structured": dispatch.edge_latency_structured_single_tile}
+    blocked = {"dense": kernels.edge_latency_dense,
+               "structured": kernels.edge_latency_structured}
+    single = {"dense": kernels.edge_latency_dense_single_tile,
+              "structured": kernels.edge_latency_structured_single_tile}
+    plain = {"dense": ref.edge_latency_dense_single_tile_plain,
+             "structured": ref.edge_latency_structured_single_tile_plain}
+    vmax = {"dense": kernels.single_tile_max_v(),
+            "structured": kernels.single_tile_max_v(TILE_R)}
+
+    def operands(kind, B, E, V, shared):
+        bc = 1 if shared else B
+        if kind == "dense":
+            return randn(B, E, V), randn(B, E, V), randn(bc, V, V)
+        return (randn(B, E, V), randn(B, E, V), randn(B, E, TILE_R),
+                randn(bc, TILE_R, V), randn(bc, 1, V))
+
+    cases = []
+    for kind in ("dense", "structured"):
+        shapes = [(TILE_E, TILE_V)] + [(E, TILE_V) for E in TILE_ES] \
+            + [(TILE_E, V) for V in (*TILE_VS, vmax[kind])]
+        for shared in (True, False):
+            for E, V in shapes:
+                what = (f"B={TILE_B} E={E} V={V}"
+                        + ("" if kind == "dense" else f" R={TILE_R}")
+                        + f" shared={shared}")
+                cases.append((kind, what,
+                              operands(kind, TILE_B, E, V, shared)))
+    sync(torch, dev)
+    kernels.reset_launches()
+    outs = [route[kind](*args) for kind, _, args in cases]
+    sync(torch, dev)
+    launched = {names[k]: kernels.launches[names[k]] for k in names}
+    for kind, name in names.items():
+        n = sum(1 for k, _, _ in cases if k == kind)
+        check(launched[name] == n,
+              f"single_tile: {name} launched {launched[name]} times for "
+              f"{n} cases")
+    worst = {name: 0.0 for name in names.values()}
+    for (kind, what, args), out in zip(cases, outs):
+        name = names[kind]
+        check(torch.equal(out, blocked[kind](*args)),
+              f"{name} {what}: differs from the blocked kernel")
+        check(torch.equal(out, single[kind](*args)),
+              f"{name} {what}: repeat launch differs")
+        rel, _ = rel_err(out, plain[kind](*(a.double() for a in args)))
+        check(rel <= REL, f"{name} {what}: rel err {rel:.3e} > {REL}")
+        worst[name] = max(worst[name], rel)
+    for kind, name in names.items():
+        V = vmax[kind] + 1
+        try:
+            single[kind](*operands(kind, 1, 1, V, True))
+        except ValueError as e:
+            check("shared memory" in str(e), f"{name}: refusal says {e}")
+        else:
+            raise AssertionError(f"{name} accepted V={V} over its limit")
+    print(f"single_tile: {len(cases)} cases through the dispatch routes, "
+          f"launches {launched}; K4a == K1 and K4b == K2 bitwise, repeats "
+          f"bitwise, worst rel err to float64 " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; largest V accepted: K4a {vmax['dense']}, K4b "
+            f"{vmax['structured']} (R={TILE_R}); V+1 refused")
+
+    report = {}
+    B, E = TILE_TIMED
+    for kind, name in names.items():
+        for V in (TILE_V, vmax[kind]):
+            args = operands(kind, B, E, V, True)
+            out = single[kind](*args)
+            rel, err = rel_err(out, plain[kind](*(a.double() for a in args)))
+            check(rel <= REL, f"{name} timed B={B} E={E} V={V}: rel err "
+                              f"{rel:.3e} > {REL}")
+            if kind == "dense":
+                terms = edge_latency_single_tile_terms(B, E, V, 1)
+                xi, xj, com = args
+                lib = time_ms(lambda: (xi * torch.einsum(
+                    "buv,bev->beu", com, xj)).amax(-1), 10)
+            else:
+                terms = edge_latency_structured_single_tile_terms(
+                    B, E, V, TILE_R, 1)
+                lib = None
+            r = {"max_abs_err": err, "rel_err": rel,
+                 "ms": time_ms(lambda: single[kind](*args), 20),
+                 "blocked_ms": time_ms(lambda: blocked[kind](*args), 20),
+                 "plain_ms": time_ms(lambda: plain[kind](*args), 10),
+                 "library_ms": lib, "bound_ms": terms.step_time_s * 1e3,
+                 "bound_by": terms.bound_by,
+                 "shape": f"B={B} E={E} V={V}"
+                          + ("" if kind == "dense" else f" R={TILE_R}")
+                          + " shared"}
+            lib_s = "n/a" if lib is None else f"{lib:.4f}"
+            print(f"kernel {name} [{r['shape']}]: {r['ms']:.4f} ms, blocked "
+                  f"{r['blocked_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"library {lib_s} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)")
+            report[name] = r          # the largest V's numbers stay
+    return {"report": report, "launches": launched}
+
+
+def serve_multi_phase(torch, np, dev, phase: str, graph, pack, xs,
+                      rows: tuple, speed, kernel: str, oracle_fleet,
+                      profile: bool = True) -> dict:
+    """``WhatIfService`` with all five §3.1 objectives on ``pack`` (see
+    the module docstring, phases 3b/4b): four queries from three tenants
+    in one chunk, launches counted from 0 around submit → drain, every
+    served grid and score against a direct ``score_grid(objectives=)``
+    over the padded chunk, the oracle, the decision layer.  Returns the
+    launches, peak memory, the oracle's worst error, and the padded chunk,
+    evaluator and set for a caller's further checks."""
+    from repro_torch.core.objectives import (OBJECTIVES, ObjectiveGrids,
+                                             ObjectiveSet)
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.search.decision import (candidate_values,
+                                             epsilon_constraint,
+                                             joint_dq_scores, pareto_front,
+                                             split_dq_term)
+    from repro_torch.serve import (AdmissionConfig, QueryResult, WhatIfQuery,
+                                   WhatIfService)
+    from repro_torch.serve.bucketing import (dq_denominator, finish_scores,
+                                             next_pow2, pad_rows)
+    from repro_torch.sim import BatchedEvaluator
+
+    obj = ObjectiveSet.of(*OBJECTIVES)
+    svc = WhatIfService(graph, device=dev,
+                        admission=AdmissionConfig(p99_budget_s=1e6))
+    fids = {svc.register_fleet(t, pack, objectives=obj, speed=speed)
+            for t in set(MULTI_TENANTS)}
+    check(len(fids) == 1, f"{phase}: equal packs got different ids")
+    (fid,) = fids
+    n = sum(rows)
+    check(n <= svc.max_chunk_rows, f"{phase}: {n} rows are not one chunk")
+    cuts = np.cumsum((0,) + rows)
+    sl = [slice(int(cuts[i]), int(cuts[i + 1])) for i in range(len(rows))]
+    padded = pad_rows(xs[:n], next_pow2(n))           # the rows as dispatched
+    ev = BatchedEvaluator.shared(graph, device=dev)
+    direct = ev.score_grid(padded, pack, objectives=obj,
+                           speed=speed).to_host()
+    S = direct.scalarized.shape[0]
+
+    def raw_of(i):
+        return ObjectiveGrids(names=obj.names,
+                              grids={k: g[:, sl[i]]
+                                     for k, g in direct.grids.items()},
+                              scalarized=direct.scalarized[:, sl[i]],
+                              weights=obj.weights)
+
+    cap = float(np.median(candidate_values(raw_of(1))[
+        :, obj.names.index("network_movement_cost")]))
+    dqv = np.linspace(0.0, 1.0, 5)
+    queries = [
+        WhatIfQuery(kind="score", placements=xs[sl[0]], dq=0.3, beta=0.7),
+        WhatIfQuery(kind="rank", placements=xs[sl[1]],
+                    dq=np.linspace(0.1, 0.8, S), beta=1.3, top_k=5,
+                    minimize="latency_f",
+                    eps_caps={"network_movement_cost": cap}),
+        WhatIfQuery(kind="pareto", placements=xs[sl[2]]),
+        WhatIfQuery(kind="joint", placements=xs[sl[3]], dq_values=dqv,
+                    beta=0.5),
+    ]
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(t, fid, q) for t, q in zip(MULTI_TENANTS, queries)]
+    completed = svc.drain()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    buckets = svc.stats.snapshot()["buckets"]
+    n_disp = sum(b["dispatches"] for b in buckets)
+    check(completed == len(queries),
+          f"{phase}: {completed} queries completed")
+    check(n_disp == 1, f"{phase}: {n_disp} dispatches for one chunk")
+    check(launched[kernel] == S * n_disp,
+          f"{phase}: {kernel} launched {launched[kernel]} times, want "
+          f"{S} per dispatch")
+    mail = {t: svc.poll(t) for t in set(MULTI_TENANTS)}
+    results = []
+    for t, tk in zip(MULTI_TENANTS, tickets):
+        (res,) = [m for m in mail[t] if isinstance(m, QueryResult)
+                  and m.query_id == tk.query_id]
+        results.append(res)
+
+    for i, (q, res) in enumerate(zip(queries, results)):
+        raw = raw_of(i)
+        lat, rest, w_lat = split_dq_term(raw)
+        lat = np.asarray(lat, dtype=np.float32)
+        rest = np.asarray(rest, dtype=np.float32)
+        what = f"{phase} {q.kind}"
+        if q.kind == "joint":
+            want, want_idx = joint_dq_scores(lat, dqv, q.beta, rest=rest,
+                                             w_lat=w_lat)
+            check(np.array_equal(res.scores, want)
+                  and np.array_equal(res.dq_idx, want_idx),
+                  f"{what}: scores or dq choice differ from the direct grid")
+            finished = raw.grids
+        else:
+            check(np.array_equal(res.scores, finish_scores(
+                lat, rest, w_lat, q.dq, q.beta)),
+                f"{what}: scores differ from the direct grid's")
+            denom = dq_denominator(q.dq, q.beta, S)
+            finished = {k: g / denom if k == "latency_f" else g
+                        for k, g in raw.grids.items()}
+        for k in obj.names:
+            check(np.array_equal(res.grids[k], finished[k]),
+                  f"{what}: served {k} grid differs from the direct one")
+        og = ObjectiveGrids(names=obj.names, grids=finished,
+                            scalarized=res.scores, weights=obj.weights)
+        if q.kind == "pareto":
+            front = pareto_front(og)
+            check(np.array_equal(res.front.indices, front.indices)
+                  and np.array_equal(res.front.values, front.values),
+                  f"{what}: front differs from pareto_front")
+        if q.kind == "rank":
+            best, masked = epsilon_constraint(og, q.minimize, q.eps_caps)
+            check(res.best == best and np.array_equal(res.worst, masked)
+                  and np.array_equal(res.top, np.argsort(
+                      masked, kind="stable")[:q.top_k])
+                  and not res.infeasible,
+                  f"{what}: ε-rank differs from epsilon_constraint")
+    # the device's own dq/β finish of latency_f equals the host's
+    q = queries[0]
+    on_card = ev.score_grid(padded, pack, dq=q.dq, beta=q.beta,
+                            objectives=obj, speed=speed).to_host()
+    check(np.array_equal(results[0].grids["latency_f"],
+                         on_card.grids["latency_f"][:, sl[0]]),
+          f"{phase}: host and device dq/β finish of latency_f differ")
+    # float64 oracle: every objective on eight cells of the score query
+    worst_oracle = 0.0
+    rng = np.random.default_rng(SEED + 4)
+    for k in range(8):
+        s, p = k % S, int(rng.integers(0, rows[0]))
+        want = obj.scalar_values(graph, oracle_fleet(s),
+                                 xs[sl[0]][p].astype(np.float64),
+                                 dq=q.dq, beta=q.beta)
+        for name, v in want.items():
+            got = float(results[0].grids[name][s, p])
+            err = abs(got - v)
+            check(err <= max(REL * abs(v), 1e-6),
+                  f"{phase}: oracle {name} ({s}, {p}) {got} vs {v}")
+            worst_oracle = max(worst_oracle, err / max(abs(v), 1e-30))
+    cells = S * n
+    ms = [b["p50"] * 1e3 for b in buckets]
+    mem = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
+    print(f"{phase}: {completed} queries ({', '.join(q.kind for q in queries)}"
+          f"), {n} rows x {S} scenarios x {len(obj.names)} objectives in "
+          f"{n_disp} dispatch; {completed / wall:.2f} queries/s, "
+          f"{cells / wall:.0f} cells/s, wall {wall * 1e3:.1f} ms, "
+          f"ms/dispatch {', '.join(f'{m:.1f}' for m in ms)}; peak memory "
+          f"{mem}; launches {launched}; served grids and scores == direct "
+          f"bitwise; front, ε-rank, joint == decision layer; oracle worst "
+          f"rel err {worst_oracle:.3e}; ε cap network_movement_cost "
+          f"{cap:.6g}, front of {len(results[2].front)}")
+    if profile:
+        groups = {"K1": ("edge_latency_dense",),
+                  "K2": ("edge_latency_structured",),
+                  "movement SGEMM": GEMM + ("sgemm", "gemv"),
+                  "elementwise": ("elementwise", "vectorized", "unrolled",
+                                  "reduce", "cat", "index", "gather",
+                                  "scatter"),
+                  "copies": ("memcpy", "memset")}
+        prof = device_profile(torch, lambda: (
+            [svc.submit(t, fid, q) for t, q in zip(MULTI_TENANTS, queries)],
+            svc.drain()), groups)
+        print(f"{phase} profile (a second, profiled round): {prof}")
+    return {"launches": launched, "peak": peak, "oracle_rel": worst_oracle,
+            "padded": padded, "ev": ev, "obj": obj}
 
 
 def example_fleet(np, ExplicitFleet):
@@ -882,6 +1214,11 @@ def main() -> int:
               f"{r['bound_ms'] / r['ms']:.1%} of it), rel err "
               f"{r['rel_err']:.3e}, max abs err {r['max_abs_err']:.3e}")
 
+    # -- 2b. K4a / K4b against K1 / K2 ----------------------------------------
+    tile = single_tile_phase(torch, dev)
+    report.update(tile["report"])
+    torch.cuda.empty_cache()
+
     # -- 3./4. the serving phases ---------------------------------------------
     def serve(phase, pack, xs, rows, kernel, oracle_fleet, same_rows):
         svc = WhatIfService(graph, device=dev,
@@ -973,7 +1310,15 @@ def main() -> int:
         "edge_latency_dense",
         lambda s: ExplicitFleet(com_cost=dense_pack[s].astype(np.float64)),
         same_rows=False)
+    # -- 3b. the same instance with all five objectives -----------------------
+    speeds = rng.lognormal(0.0, 0.3, (S, DENSE_V)).astype(np.float32)
+    serve_multi_phase(
+        torch, np, dev, "serve_multi_dense", graph, dense_pack, dense_x,
+        MULTI_DENSE_ROWS, speeds, "edge_latency_dense",
+        lambda s: ExplicitFleet(com_cost=dense_pack[s].astype(np.float64),
+                                speed=speeds[s].astype(np.float64)))
     del dense_pack, dense_x
+    torch.cuda.empty_cache()
     _, ev, packed, struct_launched = serve(
         "serve_structured", fam, struct_x, STRUCT_ROWS,
         "edge_latency_structured", fam.fleet, same_rows=True)
@@ -984,8 +1329,23 @@ def main() -> int:
     check(bool(torch.isfinite(g1).all()) and g1.shape == (S, sum(STRUCT_ROWS)),
           "serve_structured: non-finite or mis-shaped grid")
     print("serve_structured: two score_grid calls bitwise equal")
-
     del ev, packed, g1, g2
+    torch.cuda.empty_cache()
+
+    # -- 4b. the same family with all five objectives -------------------------
+    multi = serve_multi_phase(
+        torch, np, dev, "serve_multi_structured", graph, fam, struct_x,
+        MULTI_STRUCT_ROWS, None, "edge_latency_structured", fam.fleet)
+    g1 = multi["ev"].score_grid(multi["padded"], fam, dq=0.2, beta=0.4,
+                                objectives=multi["obj"]).to_host()
+    g2 = multi["ev"].score_grid(multi["padded"], fam, dq=0.2, beta=0.4,
+                                objectives=multi["obj"]).to_host()
+    check(all(np.array_equal(g1.grids[k], g2.grids[k]) for k in g1.names)
+          and np.array_equal(g1.scalarized, g2.scalarized),
+          "serve_multi_structured: two score_grid(objectives=) calls differ")
+    print("serve_multi_structured: two score_grid(objectives=) calls "
+          "bitwise equal")
+    del multi, g1, g2, fam, struct_x
     torch.cuda.empty_cache()
 
     # -- 5./6. K5 and the LM-scoring streaming job ----------------------------
@@ -1015,7 +1375,8 @@ def main() -> int:
                     struct_launched["edge_latency_structured"],
                 "flash_attention": lm["launches"],
                 "ssd_scan": ssm["kernel_launches"]["ssd_scan"],
-                "rmsnorm": ssm["kernel_launches"]["rmsnorm"]}
+                "rmsnorm": ssm["kernel_launches"]["rmsnorm"],
+                **tile["launches"]}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],

@@ -85,11 +85,12 @@ def critical_path_dp(graph: OpGraph, elat: torch.Tensor) -> torch.Tensor:
 
 
 def make_edge_latencies_com_fn(graph: OpGraph, alpha: float = 0.0,
-                               nz_eps: float = 0.0, device="cpu"):
+                               nz_eps: float = 0.0, device=None):
     """Returns ``elat(x (B, n, V), com (Bc, V, V)) -> (B, E)``: both the
     placement batch and the com matrices are arguments, so one function
-    scores any dense scenario pack."""
-    src, dst, sel = _edge_tensors(graph, device)
+    scores any dense scenario pack.  ``device=None`` means the card and
+    raises without CUDA; pass ``device="cpu"`` for the plain versions."""
+    src, dst, sel = _edge_tensors(graph, dispatch.resolve_device(device))
 
     def elat(x: torch.Tensor, com: torch.Tensor) -> torch.Tensor:
         x_i, x_j = edge_endpoints(x, src, dst, sel)
@@ -146,11 +147,13 @@ def structured_edge_latency(x_i, x_j, inter, degrade, region_ix, onehot,
 def make_edge_latencies_region_fn(graph: OpGraph, region: np.ndarray,
                                   n_regions: int, self_cost: float = 0.0,
                                   alpha: float = 0.0, nz_eps: float = 0.0,
-                                  device="cpu"):
+                                  device=None):
     """Returns ``elat(x (B, n, V), inter (Sb, R, R), degrade (Sb, V)) ->
     (B, E)`` — the structured twin of :func:`make_edge_latencies_com_fn`.
     ``region``/``n_regions``/``self_cost`` are static family structure; no
-    (V, V) array exists anywhere."""
+    (V, V) array exists anywhere.  ``device`` as for
+    :func:`make_edge_latencies_com_fn`."""
+    device = dispatch.resolve_device(device)
     src, dst, sel = _edge_tensors(graph, device)
     region_ix = torch.as_tensor(np.asarray(region, dtype=np.int64),
                                 device=device)

@@ -43,6 +43,35 @@
 //   The running max lives in registers and is reduced across the CTA once at
 //   the end.
 //
+// K4a, edge_latency_dense_single_tile_kernel, replaces
+// repro.kernels.edge_latency.edge_latency_pallas_single_tile (body
+// _edge_latency_single_tile_kernel): K1's function with the whole (V, V)
+// com tile and the CTA's 8 x_j rows resident in shared memory, no u or v
+// blocking.  It is the bitwise reference K1 is held against at small V.
+//   Bound: operations, as K1 (2*B*E*V^2 FP32 multiply-adds).  It is a
+//   reference, not a fast path: one warp per edge row, each lane owning
+//   u = lane, lane + 32, ..., so every com row is read from shared memory
+//   once per warp.  The com tile's row pitch is odd (V or V + 1), so the
+//   32 lanes' rows fall in 32 different banks.
+//   Parity with K1: t[e, u] is ONE fmaf chain over ascending v from 0.0f
+//   (K1's chain, which reads its v >= V padding as fmaf(0, 0, acc) == acc),
+//   then x_i * t folds into a running fmaxf; nothing is split or
+//   reassociated, and there is no u padding to mask.
+//   Size: V*pitch + 8*V floats must fit the 227 KB a CTA can use, so
+//   V <= 237; the wrapper refuses larger V before any launch.
+//
+// K4b, edge_latency_structured_single_tile_kernel, replaces
+// repro.kernels.edge_latency.edge_latency_structured_pallas_single_tile
+// (body _edge_latency_structured_single_tile_kernel): K2's function with
+// a[c] (R, V), corr[c] (V) and the CTA's (8, R) mass rows resident.
+//   Bound: bytes, as K2.  Same thread layout as K4a; lanes read
+//   consecutive u of a[c], one bank each.
+//   Parity with K2: t is one fmaf chain over ascending r from 0.0f, and
+//   the epilogue is K2's own helper (structured_term), an explicit
+//   fmaf(c, x_j, t) times x_i, so no contraction choice of the compiler
+//   can differ between the two kernels.
+//   Size: (R + 1)*V + 8*R floats within 227 KB (V <= 6449 at R = 8).
+//
 // Summation order is fixed by the tiling, so a repeat launch on the same
 // inputs is bitwise identical.  Each entry point takes raw pointers, element
 // strides and the CUDA stream, launches on that stream and returns
@@ -54,6 +83,14 @@
 namespace {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// The structured epilogue x_i * (t + c * x_j), written once for K2 and K4b
+// with the multiply-add explicit: left to the compiler's contraction, the
+// two kernels could round it differently.
+__device__ __forceinline__ float structured_term(float x_i, float t, float c,
+                                                 float x_j) {
+  return x_i * fmaf(c, x_j, t);
+}
 
 // -- K1: dense ---------------------------------------------------------------
 //
@@ -269,7 +306,8 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
       }
 #pragma unroll
       for (int i = 0; i < S_ROWS; ++i)
-        if (i < nrows) m[i] = fmaxf(m[i], x_i[i] * (t[i] + c * x_j[i]));
+        if (i < nrows)
+          m[i] = fmaxf(m[i], structured_term(x_i[i], t[i], c, x_j[i]));
     }
   }
 
@@ -288,6 +326,117 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
     for (int w = 1; w < S_THREADS / 32; ++w) v = fmaxf(v, red[w][tid]);
     out[b * out_bs + row0 + tid] = v;
   }
+}
+
+// -- K4a / K4b: whole-V single-tile references --------------------------------
+
+constexpr int T_ROWS = 8;                 // edge rows per CTA, one warp each
+constexpr int T_THREADS = 32 * T_ROWS;
+
+// com row pitch: V rounded up to odd, so lane-strided rows hit 32 banks
+__host__ __device__ __forceinline__ int64_t single_tile_pitch(int64_t V) {
+  return V | 1;
+}
+
+__global__ void __launch_bounds__(T_THREADS)
+edge_latency_dense_single_tile_kernel(const float* __restrict__ xi,
+                                      const float* __restrict__ xj,
+                                      const float* __restrict__ com,
+                                      float* __restrict__ out,
+                                      int64_t E, int64_t V, int64_t x_bs,
+                                      int64_t com_bs, int64_t out_bs) {
+  extern __shared__ float smem[];
+  const int64_t pitch = single_tile_pitch(V);
+  float* com_s = smem;                     // [V][pitch]
+  float* xj_s = smem + V * pitch;          // [T_ROWS][V]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t b = blockIdx.y;
+  const int64_t e0 = (int64_t)blockIdx.x * T_ROWS;
+  const float* com_b = com + b * com_bs;
+  const float* xj_b = xj + b * x_bs;
+
+  for (int64_t idx = tid; idx < V * V; idx += T_THREADS)
+    com_s[(idx / V) * pitch + idx % V] = com_b[idx];
+  for (int64_t idx = tid; idx < T_ROWS * V; idx += T_THREADS) {
+    const int64_t e = e0 + idx / V;
+    xj_s[idx] = e < E ? xj_b[e * V + idx % V] : 0.f;
+  }
+  __syncthreads();
+
+  const int64_t e = e0 + warp;
+  if (e >= E) return;                      // no barrier follows
+  const float* xi_row = xi + b * x_bs + e * V;
+  const float* xj_row = xj_s + (int64_t)warp * V;
+  float m = neg_inf();
+  for (int64_t u = lane; u < V; u += 32) {
+    const float* com_row = com_s + u * pitch;
+    float t = 0.f;
+    for (int64_t v = 0; v < V; ++v) t = fmaf(com_row[v], xj_row[v], t);
+    m = fmaxf(m, xi_row[u] * t);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) out[b * out_bs + e] = m;
+}
+
+__global__ void __launch_bounds__(T_THREADS)
+edge_latency_structured_single_tile_kernel(const float* __restrict__ xi,
+                                           const float* __restrict__ xj,
+                                           const float* __restrict__ mass,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ corr,
+                                           float* __restrict__ out,
+                                           int64_t E, int64_t V, int64_t R,
+                                           int64_t x_bs, int64_t mass_bs,
+                                           int64_t a_bs, int64_t corr_bs,
+                                           int64_t out_bs) {
+  extern __shared__ float smem[];
+  float* a_s = smem;                       // [R][V]
+  float* corr_s = smem + R * V;            // [V]
+  float* mass_s = corr_s + V;              // [T_ROWS][R]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t b = blockIdx.y;
+  const int64_t e0 = (int64_t)blockIdx.x * T_ROWS;
+  const float* a_b = a + b * a_bs;
+  const float* corr_b = corr + b * corr_bs;
+  const float* mass_b = mass + b * mass_bs;
+
+  for (int64_t idx = tid; idx < R * V; idx += T_THREADS) a_s[idx] = a_b[idx];
+  for (int64_t idx = tid; idx < V; idx += T_THREADS) corr_s[idx] = corr_b[idx];
+  for (int64_t idx = tid; idx < T_ROWS * R; idx += T_THREADS) {
+    const int64_t e = e0 + idx / R;
+    mass_s[idx] = e < E ? mass_b[e * R + idx % R] : 0.f;
+  }
+  __syncthreads();
+
+  const int64_t e = e0 + warp;
+  if (e >= E) return;                      // no barrier follows
+  const float* xi_row = xi + b * x_bs + e * V;
+  const float* xj_row = xj + b * x_bs + e * V;
+  const float* mass_row = mass_s + (int64_t)warp * R;
+  float m = neg_inf();
+  for (int64_t u = lane; u < V; u += 32) {
+    float t = 0.f;
+    for (int64_t r = 0; r < R; ++r) t = fmaf(mass_row[r], a_s[r * V + u], t);
+    m = fmaxf(m, structured_term(xi_row[u], t, corr_s[u], xj_row[u]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) out[b * out_bs + e] = m;
+}
+
+// Opt in to more than 48 KB of dynamic shared memory before a launch that
+// needs it (the launch fails otherwise).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -329,17 +478,61 @@ int edge_latency_structured_launch(const float* xi, const float* xj,
       R < 1)
     return (int)cudaErrorInvalidConfiguration;
   const size_t smem = (size_t)S_ROWS * (size_t)R * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        edge_latency_structured_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_smem(edge_latency_structured_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)blocks, (unsigned)n_batch);
   edge_latency_structured_kernel<<<grid, S_THREADS, smem,
                                    (cudaStream_t)stream>>>(
       xi, xj, mass, a, corr, out, rows, V, R, x_bs, x_rs, mass_bs, mass_rs,
       a_bs, a_rs, corr_bs, out_bs);
+  return (int)cudaGetLastError();
+}
+
+// K4a.  Grid (ceil(E / 8), n_batch); com_bs = 0 shares one com across
+// batches.  Shared memory: V*pitch + 8*V floats (the wrapper refuses what
+// exceeds 227 KB; cudaFuncSetAttribute would refuse it too).
+int edge_latency_dense_single_tile_launch(const float* xi, const float* xj,
+                                          const float* com, float* out,
+                                          int64_t n_batch, int64_t E,
+                                          int64_t V, int64_t x_bs,
+                                          int64_t com_bs, int64_t out_bs,
+                                          void* stream) {
+  const int64_t blocks = (E + T_ROWS - 1) / T_ROWS;
+  if (n_batch < 1 || n_batch > 65535 || blocks < 1 || blocks > 0x7fffffff ||
+      V < 1)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem =
+      sizeof(float) * (size_t)(V * single_tile_pitch(V) + T_ROWS * V);
+  const cudaError_t err = allow_smem(edge_latency_dense_single_tile_kernel,
+                                     smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, (unsigned)n_batch);
+  edge_latency_dense_single_tile_kernel<<<grid, T_THREADS, smem,
+                                          (cudaStream_t)stream>>>(
+      xi, xj, com, out, E, V, x_bs, com_bs, out_bs);
+  return (int)cudaGetLastError();
+}
+
+// K4b.  a_bs = corr_bs = 0 shares one scenario across batches.  Shared
+// memory: (R + 1)*V + 8*R floats.
+int edge_latency_structured_single_tile_launch(
+    const float* xi, const float* xj, const float* mass, const float* a,
+    const float* corr, float* out, int64_t n_batch, int64_t E, int64_t V,
+    int64_t R, int64_t x_bs, int64_t mass_bs, int64_t a_bs, int64_t corr_bs,
+    int64_t out_bs, void* stream) {
+  const int64_t blocks = (E + T_ROWS - 1) / T_ROWS;
+  if (n_batch < 1 || n_batch > 65535 || blocks < 1 || blocks > 0x7fffffff ||
+      V < 1 || R < 1)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(float) * (size_t)((R + 1) * V + T_ROWS * R);
+  const cudaError_t err =
+      allow_smem(edge_latency_structured_single_tile_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, (unsigned)n_batch);
+  edge_latency_structured_single_tile_kernel<<<grid, T_THREADS, smem,
+                                               (cudaStream_t)stream>>>(
+      xi, xj, mass, a, corr, out, E, V, R, x_bs, mass_bs, a_bs, corr_bs,
+      out_bs);
   return (int)cudaGetLastError();
 }
 

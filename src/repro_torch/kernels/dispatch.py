@@ -14,7 +14,12 @@ There is no coercion and no fallback: a CUDA tensor reaches the kernel or
 raises.  Block sizes are fixed constants of the kernel sources.  Every
 decision is counted as ``kernels.dispatch.plans{kind, impl}`` in
 :mod:`repro_torch.obs` when the registry is enabled (kind ``dense``,
-``structured``, ``flash_attention``, ``rmsnorm`` or ``ssd_scan``).
+``structured``, ``dense_single_tile``, ``structured_single_tile``,
+``flash_attention``, ``rmsnorm`` or ``ssd_scan``).
+
+The single-tile routes (K4a, K4b) are the whole-V references the blocked
+kernels are held against; as in the reference, no path of the system
+reaches them.
 
 :func:`resolve_device` is the policy for the public entry points
 (``BatchedEvaluator``, ``WhatIfService``, ``build_model``): ``None`` means
@@ -34,8 +39,9 @@ from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import ssd_scan as ssd_kernel
 
 __all__ = ["resolve_device", "plan_edge_kernel", "plan_attention_kernel",
-           "edge_latency", "edge_latency_structured", "flash_attention",
-           "rmsnorm", "ssd_scan"]
+           "edge_latency", "edge_latency_structured",
+           "edge_latency_single_tile", "edge_latency_structured_single_tile",
+           "flash_attention", "rmsnorm", "ssd_scan"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,8 +81,8 @@ def _plan(kind: str, what: str, tensors) -> str:
 
 
 def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
-    """"cuda" or "plain" for edge-latency operands of ``kind`` ("dense" or
-    "structured")."""
+    """"cuda" or "plain" for edge-latency operands of ``kind`` ("dense",
+    "structured", "dense_single_tile" or "structured_single_tile")."""
     return _plan(kind, "edge-latency", tensors)
 
 
@@ -98,6 +104,26 @@ def edge_latency_structured(x_i, x_j, mass, a, corr) -> torch.Tensor:
     if plan_edge_kernel("structured", x_i, x_j, mass, a, corr) == "cuda":
         return kernels.edge_latency_structured(x_i, x_j, mass, a, corr)
     return ref.edge_latency_structured_plain(x_i, x_j, mass, a, corr)
+
+
+def edge_latency_single_tile(x_i, x_j, com) -> torch.Tensor:
+    """K1's function through the whole-V kernel (K4a) on the card, its
+    plain version on the CPU."""
+    if plan_edge_kernel("dense_single_tile", x_i, x_j, com) == "cuda":
+        return kernels.edge_latency_dense_single_tile(x_i, x_j, com)
+    return ref.edge_latency_dense_single_tile_plain(x_i, x_j, com)
+
+
+def edge_latency_structured_single_tile(x_i, x_j, mass, a,
+                                        corr) -> torch.Tensor:
+    """K2's function through the whole-V kernel (K4b) on the card, its
+    plain version on the CPU."""
+    if plan_edge_kernel("structured_single_tile", x_i, x_j, mass, a,
+                        corr) == "cuda":
+        return kernels.edge_latency_structured_single_tile(x_i, x_j, mass, a,
+                                                           corr)
+    return ref.edge_latency_structured_single_tile_plain(x_i, x_j, mass, a,
+                                                         corr)
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:

@@ -14,6 +14,14 @@ tiled.  In brief:
   bound by HBM bytes (x_i and x_j are read once; R ≪ V), so it streams u
   with coalesced loads and keeps each CTA's (8, R) ``mass`` tile in shared
   memory.
+* :func:`edge_latency_dense_single_tile` (K4a) and
+  :func:`edge_latency_structured_single_tile` (K4b) replace the whole-V
+  references ``edge_latency_pallas_single_tile`` and
+  ``edge_latency_structured_pallas_single_tile``: the same functions as K1
+  and K2 with every operand tile resident in shared memory, the bitwise
+  references K1 and K2 are held against at small V.  They refuse, before
+  any launch, operands whose tiles exceed the 227 KB a CTA can use
+  (:func:`single_tile_max_v`: V ≤ 237 for K4a; V ≤ 6449 for K4b at R = 8).
 
 Each wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to the plain versions
@@ -33,10 +41,20 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["KERNELS", "launches", "reset_launches", "edge_latency_dense",
-           "edge_latency_structured"]
+           "edge_latency_structured", "edge_latency_dense_single_tile",
+           "edge_latency_structured_single_tile", "SMEM_LIMIT",
+           "single_tile_smem_bytes", "single_tile_max_v",
+           "check_single_tile"]
 
-KERNELS = ("edge_latency_dense", "edge_latency_structured")
+KERNELS = ("edge_latency_dense", "edge_latency_structured",
+           "edge_latency_dense_single_tile",
+           "edge_latency_structured_single_tile")
 launches = {name: 0 for name in KERNELS}
+
+# the shared memory one CTA may opt in to on Hopper (227 KB), and the edge
+# rows a single-tile CTA stages (T_ROWS in csrc/edge_latency.cu)
+SMEM_LIMIT = 232_448
+TILE_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -57,6 +75,12 @@ def _lib() -> ctypes.CDLL:
         lib.edge_latency_structured_launch.argtypes = \
             [_P] * 6 + [_I] * 12 + [_P]
         lib.edge_latency_structured_launch.restype = ctypes.c_int
+        lib.edge_latency_dense_single_tile_launch.argtypes = \
+            [_P] * 4 + [_I] * 6 + [_P]
+        lib.edge_latency_dense_single_tile_launch.restype = ctypes.c_int
+        lib.edge_latency_structured_single_tile_launch.argtypes = \
+            [_P] * 6 + [_I] * 9 + [_P]
+        lib.edge_latency_structured_single_tile_launch.restype = ctypes.c_int
         lib.edge_latency_error_string.argtypes = [ctypes.c_int]
         lib.edge_latency_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -143,4 +167,89 @@ def edge_latency_structured(x_i: torch.Tensor, x_j: torch.Tensor,
     _launch("edge_latency_structured", (x_i, x_j, mass, a, corr, out),
             (n_batch, rows, V, R, E * V, V, E * R, R,
              0 if shared else R * V, V, 0 if shared else V, E))
+    return out
+
+
+def single_tile_smem_bytes(V: int, R: int | None = None) -> int:
+    """Shared memory of one single-tile CTA: K4a (``R is None``) holds com
+    (V rows at an odd pitch) and 8 x_j rows; K4b holds a (R, V), corr (V)
+    and 8 mass rows."""
+    if R is None:
+        return 4 * (V * (V | 1) + TILE_ROWS * V)
+    return 4 * ((R + 1) * V + TILE_ROWS * R)
+
+
+def single_tile_max_v(R: int | None = None) -> int:
+    """The largest V the single-tile kernel accepts (237 for K4a; for K4b
+    it depends on R: 6449 at R = 8)."""
+    V = 1
+    while single_tile_smem_bytes(V + 1, R) <= SMEM_LIMIT:
+        V += 1
+    return V
+
+
+def check_single_tile(V: int, R: int | None = None) -> None:
+    """Raise ValueError when the resident tiles for this V (and R) exceed
+    the 227 KB a CTA can use — the reference's "do not use for large V"."""
+    need = single_tile_smem_bytes(V, R)
+    if need > SMEM_LIMIT:
+        which = "K4a (dense)" if R is None else f"K4b (structured, R={R})"
+        raise ValueError(
+            f"single-tile {which} needs {need} bytes of shared memory at "
+            f"V={V}, over the {SMEM_LIMIT} a CTA can use; the largest V "
+            f"accepted is {single_tile_max_v(R)} — use the blocked kernel")
+
+
+def edge_latency_dense_single_tile(x_i: torch.Tensor, x_j: torch.Tensor,
+                                   com: torch.Tensor) -> torch.Tensor:
+    """K4a: K1's function (x_i, x_j (B, E, V), com (B|1, V, V) → (B, E))
+    with the whole com tile resident; bitwise equal to K1.  Raises
+    ValueError for V over :func:`single_tile_max_v` before any launch."""
+    B, E, V = x_i.shape
+    check_single_tile(V)
+    dev = x_i.device
+    bc = com.shape[0]
+    if bc not in (1, B):
+        raise ValueError(f"com batch dim {bc} must be 1 or {B}")
+    for name, t, shape in (("x_i", x_i, (B, E, V)), ("x_j", x_j, (B, E, V)),
+                           ("com", com, (bc, V, V))):
+        _check(name, t, shape, dev)
+    out = torch.empty((B, E), dtype=torch.float32, device=dev)
+    if E == 0:
+        return out
+    _launch("edge_latency_dense_single_tile", (x_i, x_j, com, out),
+            (B, E, V, E * V, 0 if bc == 1 else V * V, E))
+    return out
+
+
+def edge_latency_structured_single_tile(x_i: torch.Tensor,
+                                        x_j: torch.Tensor,
+                                        mass: torch.Tensor, a: torch.Tensor,
+                                        corr: torch.Tensor) -> torch.Tensor:
+    """K4b: K2's function (x_i, x_j (B, E, V); mass (B, E, R); a (Bc, R, V);
+    corr (Bc, 1, V) → (B, E)) with a, corr and the mass rows resident;
+    bitwise equal to K2.  Raises ValueError for tiles over 227 KB before
+    any launch."""
+    B, E, V = x_i.shape
+    R = mass.shape[-1]
+    if R < 1:
+        raise ValueError("structured kernel needs R >= 1 regions")
+    check_single_tile(V, R)
+    dev = x_i.device
+    bc = a.shape[0]
+    if bc not in (1, B) or corr.shape[0] != bc:
+        raise ValueError(f"scenario batch dims {bc}/{corr.shape[0]} must "
+                         f"match and be 1 or {B}")
+    for name, t, shape in (("x_i", x_i, (B, E, V)), ("x_j", x_j, (B, E, V)),
+                           ("mass", mass, (B, E, R)), ("a", a, (bc, R, V)),
+                           ("corr", corr, (bc, 1, V))):
+        _check(name, t, shape, dev)
+    out = torch.empty((B, E), dtype=torch.float32, device=dev)
+    if E == 0:
+        return out
+    shared = bc == 1
+    _launch("edge_latency_structured_single_tile",
+            (x_i, x_j, mass, a, corr, out),
+            (B, E, V, R, E * V, E * R, 0 if shared else R * V,
+             0 if shared else V, E))
     return out

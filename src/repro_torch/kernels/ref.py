@@ -3,7 +3,8 @@
 * The edge-latency maxes: the counterparts of
   ``repro.kernels.ref.edge_latency_ref`` and of the XLA routes in
   ``repro.kernels.dispatch`` (``_edge_latency_xla``,
-  ``_edge_latency_structured_xla``).  They compute in the dtype they are
+  ``_edge_latency_structured_xla``), also the plain versions of the
+  whole-V single-tile kernels, which compute the same functions.  They compute in the dtype they are
   given.  A shared scenario (batch 1) goes through one product against its
   single matrix, so it is never expanded to the placement batch.
 * Attention (:func:`flash_attention_plain`): the function
@@ -27,6 +28,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["edge_latency_dense_plain", "edge_latency_structured_plain",
+           "edge_latency_dense_single_tile_plain",
+           "edge_latency_structured_single_tile_plain",
            "check_attention_operands", "flash_attention_plain",
            "rmsnorm_plain", "check_ssd_operands", "ssd_scan_plain"]
 
@@ -58,6 +61,19 @@ def edge_latency_structured_plain(x_i: torch.Tensor, x_j: torch.Tensor,
     → (B, E) ``max_u x_i·(mass @ a + corr·x_j)``."""
     t = _batched_product(mass, a) + corr * x_j              # (B, E, V)
     return (x_i * t).amax(dim=-1)
+
+
+def edge_latency_dense_single_tile_plain(x_i, x_j, com) -> torch.Tensor:
+    """K4a's plain version.  The whole-V kernel computes K1's function, so
+    this is :func:`edge_latency_dense_plain` under K4a's name."""
+    return edge_latency_dense_plain(x_i, x_j, com)
+
+
+def edge_latency_structured_single_tile_plain(x_i, x_j, mass, a,
+                                              corr) -> torch.Tensor:
+    """K4b's plain version: K2's function, so this is
+    :func:`edge_latency_structured_plain` under K4b's name."""
+    return edge_latency_structured_plain(x_i, x_j, mass, a, corr)
 
 
 def check_attention_operands(q: torch.Tensor, k: torch.Tensor,

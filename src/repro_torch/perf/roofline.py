@@ -1,6 +1,8 @@
 """Roofline terms on one NVIDIA H100 — the port's own ``compute_terms``,
 which the serving layer's admission pricer runs its FLOP/byte counts
-through (``repro_torch.serve.admission``), and the LM kernels' bounds
+through (``repro_torch.serve.admission``), the single-tile edge-latency
+kernels' bounds (:func:`edge_latency_single_tile_terms`,
+:func:`edge_latency_structured_single_tile_terms`) and the LM kernels'
 (:func:`flash_attention_terms`, :func:`ssd_scan_terms`,
 :func:`rmsnorm_terms`).
 
@@ -30,7 +32,10 @@ PEAK_BF16_TC = 989e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
 
-__all__ = ["RooflineTerms", "compute_terms", "flash_attention_terms",
+__all__ = ["RooflineTerms", "compute_terms",
+           "edge_latency_single_tile_terms",
+           "edge_latency_structured_single_tile_terms",
+           "flash_attention_terms",
            "ssd_scan_terms", "rmsnorm_terms", "PEAK_FLOPS", "PEAK_BF16_TC",
            "HBM_BW"]
 
@@ -63,6 +68,30 @@ def compute_terms(flops: float, bytes_: float,
     ``bytes_`` of device memory traffic on one card."""
     return RooflineTerms(compute_s=flops / peak, memory_s=bytes_ / HBM_BW,
                          flops=flops, bytes=bytes_)
+
+
+def edge_latency_single_tile_terms(B: int, E: int, V: int,
+                                   com_batch: int) -> RooflineTerms:
+    """The least time for K4a (K1's function) on float32 operands:
+    ``2·B·E·V²`` operations (a multiply-add per (e, u, v)) at the FP32
+    rate; bytes: x_i and x_j (B, E, V) and the (com_batch, V, V) com read
+    once, the (B, E) output written once."""
+    flops = 2.0 * B * E * V * V
+    bytes_ = 4.0 * (2 * B * E * V + com_batch * V * V + B * E)
+    return compute_terms(flops, bytes_)
+
+
+def edge_latency_structured_single_tile_terms(B: int, E: int, V: int, R: int,
+                                              scen_batch: int
+                                              ) -> RooflineTerms:
+    """The least time for K4b (K2's function) on float32 operands:
+    ``2·B·E·R·V`` operations (mass @ a) at the FP32 rate; bytes: x_i, x_j
+    (B, E, V), mass (B, E, R), a (Bc, R, V) and corr (Bc, 1, V) read once,
+    the (B, E) output written once."""
+    flops = 2.0 * B * E * R * V
+    bytes_ = 4.0 * (2 * B * E * V + B * E * R + scen_batch * (R + 1) * V
+                    + B * E)
+    return compute_terms(flops, bytes_)
 
 
 _ATTN_OPERANDS = {"float32": (4, PEAK_FLOPS), "bfloat16": (2, PEAK_BF16_TC)}

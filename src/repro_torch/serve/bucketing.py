@@ -42,12 +42,16 @@ def next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def fleet_digest(pack) -> str:
+def fleet_digest(pack, speed=None) -> str:
     """Content digest of a packed scenario family (dense (S, V, V) stack or
-    :class:`RegionFleetFamily`).  Computed ONCE at fleet registration —
+    :class:`RegionFleetFamily`), and of a dense pack's (S, V) ``speed``
+    when one is registered with it.  Computed ONCE at fleet registration —
     queries then carry the fleet id — so coalescing across tenants keys on
     what the dispatch actually consumes, not on object identity."""
     h = hashlib.sha256()
+    if speed is not None:
+        h.update(b"speed")
+        h.update(np.ascontiguousarray(speed, dtype=np.float32).tobytes())
     if isinstance(pack, RegionFleetFamily):
         h.update(b"structured")
         h.update(np.ascontiguousarray(pack.region).tobytes())
@@ -73,7 +77,9 @@ class CoalesceKey:
     takes the place of the reference's two pallas flags), ``fleet`` (the
     registration-time content digest) pins the scenario operands,
     ``objectives`` the objective set (None = the single-objective latency
-    grid, the only one this slice serves).  dq/β are deliberately ABSENT —
+    grid); the fleet id of a set-registered fleet carries the set's hash
+    as well, so two sets on one pack never share a key.  dq/β are
+    deliberately ABSENT —
     they are applied analytically per query after the dispatch."""
 
     graph: tuple

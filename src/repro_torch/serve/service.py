@@ -10,23 +10,25 @@ Query lifecycle::
                                                         └── final QueryResult
 
 Tenants :meth:`~WhatIfService.register_fleet` scenario packs once (content
-digest → equal fleets coalesce across tenants), then
+digest → equal fleets coalesce across tenants), optionally with an
+:class:`~repro_torch.core.objectives.ObjectiveSet`, then
 :meth:`~WhatIfService.submit` queries — score a placement batch, rank
-candidates by worst-case score, co-optimize placement × dq.  The service
+candidates (weighted or ε-constraint), extract a Pareto front, co-optimize
+placement × dq.  The service
 prices each query against the p99 budget (:mod:`repro_torch.serve.admission`)
 and merges admitted rows across tenants into power-of-two-padded chunks.
 
 Every dispatch is RAW (dq = 0, β = 0) and makes ONE host transfer
-(``.cpu()`` on the chunk's grid); per-query dq/β are finished on the host,
-bitwise equal to a direct ``score_grid``.  A dense pack is moved to the
+(``.cpu()`` on the chunk's grid, or on the objective grids and their
+scalarization stacked on the device); per-query dq/β are finished on the
+host.  A single-objective score, and every finished per-objective grid,
+is bitwise what a direct ``score_grid`` with the same dq/β returns over
+the rows as dispatched; a multi-objective score recombines the raw
+scalarization on the host (:func:`split_dq_term`), as the reference
+does.  A dense pack is moved to the
 device once, at registration.  The CUDA kernels are built once when a
 service on the card is created and that time is recorded as
 ``stats.setup_s``, so no dispatch and no admission price ever includes it.
-
-This slice serves the single-objective latency-F grid: ``score``, ``rank``
-(weighted, worst-case) and ``joint``.  Objective sets and ``pareto``
-queries need the multi-objective grid and raise ``NotImplementedError``
-until that slice.
 """
 
 from __future__ import annotations
@@ -41,20 +43,24 @@ from repro_torch import obs
 from repro_torch.core.costmodel import CostConfig
 from repro_torch.core.devices import RegionFleetFamily
 from repro_torch.core.graph import OpGraph
+from repro_torch.core.objectives import (ObjectiveGrids, ObjectiveSet,
+                                         as_objective_set)
 from repro_torch.kernels import build, dispatch
-from repro_torch.search.decision import (dq_caps_mask, joint_dq_scores,
+from repro_torch.search.decision import (dq_caps_mask, epsilon_constraint,
+                                         joint_dq_scores, pareto_front,
                                          robust_select, split_dq_term)
 from repro_torch.serve.admission import (AdmissionConfig, Admitted, Degraded,
                                          DispatchPricer, Rejected, decide)
-from repro_torch.serve.bucketing import (CoalesceKey, finish_scores,
-                                         fleet_digest, next_pow2, pad_rows)
+from repro_torch.serve.bucketing import (CoalesceKey, dq_denominator,
+                                         finish_scores, fleet_digest,
+                                         next_pow2, pad_rows)
 from repro_torch.serve.cache import ServeStats
 from repro_torch.sim.batched import BatchedEvaluator
 
 __all__ = ["WhatIfQuery", "QueryTicket", "ResultChunk", "QueryResult",
            "WhatIfService"]
 
-_KINDS = ("score", "rank", "joint")
+_KINDS = ("score", "rank", "pareto", "joint")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,16 +68,20 @@ class WhatIfQuery:
     """One tenant question over a batch of candidate placements.
 
     ``kind`` picks the post-processing applied to the (scenario, candidate)
-    grid the shared dispatch produces:
+    grids the shared dispatch produces — the dispatch itself is identical:
 
-    * ``"score"``  — the finished (S, P) score grid, dq/β applied;
-    * ``"rank"``   — top-``top_k`` candidates by worst-case score;
+    * ``"score"``  — the finished (S, P) score grid(s), dq/β applied;
+    * ``"rank"``   — top-``top_k`` candidates by worst-case score; with
+      ``minimize`` (and ``eps_caps``) the ranking is ε-constraint (minimize
+      one objective subject to caps on the others) instead of the weighted
+      sum;
+    * ``"pareto"`` — the non-dominated front over the fleet's objectives
+      (requires the fleet to be registered with an ObjectiveSet);
     * ``"joint"``  — placement × dq co-optimization over ``dq_values``
       (optionally DQCoupling-masked), min–max selected.
 
-    The reference's ``"pareto"`` kind and ε-constraint ranking
-    (``minimize`` / ``eps_caps``) need objective sets: ``kind="pareto"``
-    raises NotImplementedError until the multi-objective slice.
+    ``scenario`` reduces grids across scenarios for pareto and ε-rank:
+    ``"worst"`` (the per-objective envelope) or a scenario index.
 
     ``dq`` may be a scalar or per-scenario (S,) column; dq/β never affect
     which super-batch the query coalesces into.
@@ -83,15 +93,15 @@ class WhatIfQuery:
     beta: float = 0.0
     # rank
     top_k: int = 1
+    minimize: str | None = None
+    eps_caps: dict | None = None
+    # pareto / rank reduction across scenarios
+    scenario: int | str = "worst"
     # joint
     dq_values: np.ndarray | None = None
     coupling: object | None = None
 
     def __post_init__(self):
-        if self.kind == "pareto":
-            raise NotImplementedError(
-                "pareto queries need objective sets, which come with the "
-                "multi-objective slice")
         if self.kind not in _KINDS:
             raise ValueError(f"kind must be one of {_KINDS}, "
                              f"got {self.kind!r}")
@@ -102,6 +112,8 @@ class WhatIfQuery:
         object.__setattr__(self, "placements", x)
         if self.kind == "joint" and self.dq_values is None:
             raise ValueError("joint queries need dq_values")
+        if self.eps_caps and self.minimize is None:
+            raise ValueError("eps_caps needs minimize=<objective name>")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,16 +149,21 @@ class QueryResult:
 
     ``scores`` is always the finished (S, P) scalar grid over the rows the
     query actually dispatched.  Kind-specific extras: ``top``/``worst``/
-    ``best`` (rank), ``best``/``dq_idx``/``worst`` (joint), ``infeasible``
-    (joint with no feasible (candidate, dq) pair)."""
+    ``best`` (rank), ``front`` (pareto), ``best``/``dq_idx``/``worst``
+    (joint), ``infeasible`` (joint with no feasible (candidate, dq) pair,
+    or ε-constraint with no candidate under the caps).  ``grids`` carries
+    the finished per-objective (S, P) grids when the fleet was registered
+    with an ObjectiveSet."""
 
     query_id: int
     tenant: str
     kind: str
     scores: np.ndarray
+    grids: dict | None = None
     degraded: Degraded | None = None
     top: np.ndarray | None = None
     worst: np.ndarray | None = None
+    front: object | None = None
     best: int | None = None
     dq_idx: np.ndarray | None = None
     infeasible: bool = False
@@ -158,6 +175,8 @@ class _Fleet:
     key: CoalesceKey
     n_scenarios: int
     n_devices: int
+    objectives: ObjectiveSet | None
+    speed: torch.Tensor | None      # dense (S, V) speeds, or None
     pricer: DispatchPricer
 
 
@@ -177,6 +196,7 @@ class _Pending:
     lat_cols: list = dataclasses.field(default_factory=list)
     rest_cols: list = dataclasses.field(default_factory=list)
     w_lat: float = 1.0
+    raw_cols: dict = dataclasses.field(default_factory=dict)
 
     @property
     def rows(self) -> int:
@@ -216,31 +236,48 @@ class WhatIfService:
             self.stats.setup_s = time.perf_counter() - t0
 
     # -- registration --------------------------------------------------------
-    def register_fleet(self, tenant: str, pack, objectives=None) -> str:
+    def register_fleet(self, tenant: str, pack, objectives=None,
+                       speed=None) -> str:
         """Register a scenario pack (dense (S, V, V) stack or
         RegionFleetFamily) and get back its fleet id — a content digest,
         so two tenants registering equal fleets receive the SAME id and
-        their queries coalesce into one dispatch stream."""
-        if objectives is not None:
-            raise NotImplementedError(
-                "objective sets need the multi-objective grid, which comes "
-                "with a later slice of the port")
+        their queries coalesce into one dispatch stream.  ``objectives``
+        fixes the multi-objective set for queries against this fleet (None
+        = single-objective latency-F); the id then carries the set's hash,
+        so two sets on one pack never share a dispatch.  ``speed`` ((V,) or
+        (S, V) effective speeds) feeds a dense pack's occupancy objectives,
+        as ``score_grid``'s ``speed`` does."""
+        obj_set = as_objective_set(objectives) if objectives is not None \
+            else None
+        structured = isinstance(pack, RegionFleetFamily)
+        if speed is not None and obj_set is None:
+            raise ValueError("speed only feeds the occupancy objectives "
+                             "— pass objectives= to use it")
+        if speed is not None and structured:
+            raise ValueError("structured families carry their own "
+                             "speeds; leave speed=None")
         if isinstance(pack, torch.Tensor):
             pack = pack.detach().cpu().numpy()
-        if not isinstance(pack, RegionFleetFamily):
+        if not structured:
             pack = np.asarray(pack, dtype=np.float32)
-        fid = fleet_digest(pack)
+        if speed is not None:
+            speed = self._ev._dense_speeds(int(pack.shape[0]),
+                                           int(pack.shape[1]), speed)
+        fid = fleet_digest(pack, None if speed is None
+                           else speed.cpu().numpy())
+        if obj_set is not None:
+            fid = f"{fid}:{abs(hash(obj_set)):x}"
         if fid in self._fleets:
             return fid
-        if isinstance(pack, RegionFleetFamily):
+        if structured:
             S, V, R = pack.n_scenarios, pack.n_devices, pack.n_regions
         else:
             S, V, R = int(pack.shape[0]), int(pack.shape[1]), None
             pack = torch.tensor(pack, device=self.device)   # a copy
         self._fleets[fid] = _Fleet(
             pack=pack, key=CoalesceKey.of(self.graph, self.cfg, self.device,
-                                          fid),
-            n_scenarios=S, n_devices=V,
+                                          fid, obj_set),
+            n_scenarios=S, n_devices=V, objectives=obj_set, speed=speed,
             pricer=DispatchPricer(len(self.graph.edges), V, R,
                                   cfg=self.admission))
         return fid
@@ -254,6 +291,14 @@ class WhatIfService:
         nothing is dispatched here; call :meth:`step` / :meth:`drain`."""
         fleet = self._fleets[fleet_id]
         q = query
+        if q.kind == "pareto" and fleet.objectives is None:
+            raise ValueError("pareto queries need the fleet registered "
+                             "with an ObjectiveSet")
+        if (q.eps_caps or q.minimize is not None) \
+                and fleet.objectives is None:
+            raise ValueError("ε-constraint ranking (minimize/eps_caps) "
+                             "needs the fleet registered with an "
+                             "ObjectiveSet")
         if q.placements.shape[2] != fleet.n_devices:
             raise ValueError(
                 f"placements have V={q.placements.shape[2]} devices; "
@@ -327,7 +372,7 @@ class WhatIfService:
         for start in range(0, batch.shape[0], self.max_chunk_rows):
             chunk = batch[start:start + self.max_chunk_rows]
             bucket = next_pow2(chunk.shape[0])
-            lat, rest, w_lat = self._dispatch(
+            lat, rest, w_lat, raw = self._dispatch(
                 fleet, pad_rows(chunk, bucket), bucket,
                 n_rows=chunk.shape[0],
                 n_queries=sum(1 for _, a, b in spans
@@ -341,6 +386,8 @@ class WhatIfService:
                 p.lat_cols.append(lat[:, sl])
                 p.rest_cols.append(rest[:, sl])
                 p.w_lat = w_lat
+                for name, g in raw.items():
+                    p.raw_cols.setdefault(name, []).append(g[:, sl])
                 if p.query.kind != "joint":
                     fin = finish_scores(p.lat_cols[-1], p.rest_cols[-1],
                                         w_lat, p.query.dq, p.query.beta)
@@ -350,7 +397,7 @@ class WhatIfService:
                 p.done_rows += hi - lo
                 if p.done_rows == p.rows:
                     self._mail.setdefault(p.tenant, []).append(
-                        self._finalize(p))
+                        self._finalize(fleet, p))
                     done += 1
         return done
 
@@ -372,11 +419,18 @@ class WhatIfService:
     def _dispatch(self, fleet: _Fleet, padded: np.ndarray, bucket: int,
                   n_rows: int, n_queries: int):
         """ONE raw score_grid call (dq = 0, β = 0) over the padded chunk and
-        ONE host transfer; returns host float32 (lat, rest, w_lat) with
-        padding rows already sliced off."""
+        ONE host transfer; returns host float32 (lat, rest, w_lat, raw
+        per-objective grids) with padding rows already sliced off."""
         t0 = time.perf_counter()
-        out = self._ev.score_grid(padded, fleet.pack, dq=0.0, beta=0.0)
-        out = out.cpu().numpy()
+        out = self._ev.score_grid(padded, fleet.pack, dq=0.0, beta=0.0,
+                                  objectives=fleet.objectives,
+                                  speed=fleet.speed)
+        if isinstance(out, ObjectiveGrids):
+            out = out.to_host()    # grids + scalarized, one transfer
+            raw = {n: g[:, :n_rows] for n, g in out.grids.items()}
+        else:
+            out = out.cpu().numpy()
+            raw = {}
         seconds = time.perf_counter() - t0
         lat, rest, w_lat = split_dq_term(out)
         lat = np.asarray(lat, dtype=np.float32)[:, :n_rows]
@@ -387,13 +441,15 @@ class WhatIfService:
             seconds, n_rows=n_rows, n_padded=bucket, n_queries=n_queries,
             n_recompiles=0, compile_s=0.0)
         fleet.pricer.observe(fleet.n_scenarios, bucket, seconds)
-        return lat, rest, w_lat
+        return lat, rest, w_lat, raw
 
     # -- per-kind finalization ----------------------------------------------
-    def _finalize(self, p: _Pending) -> QueryResult:
+    def _finalize(self, fleet: _Fleet, p: _Pending) -> QueryResult:
         q = p.query
         lat = np.concatenate(p.lat_cols, axis=1)     # (S, P) float32
         rest = np.concatenate(p.rest_cols, axis=1)
+        raw = {n: np.concatenate(cols, axis=1)
+               for n, cols in p.raw_cols.items()}
         if q.kind == "joint":
             feas = dq_caps_mask(p.placements, p.dq_values, q.coupling)
             scores, dq_idx = joint_dq_scores(
@@ -402,17 +458,41 @@ class WhatIfService:
             best, worst = robust_select(scores)
             return QueryResult(
                 query_id=p.query_id, tenant=p.tenant, kind=q.kind,
-                scores=scores, degraded=p.degraded, best=best,
-                dq_idx=dq_idx, worst=worst,
+                scores=scores, grids=raw or None, degraded=p.degraded,
+                best=best, dq_idx=dq_idx, worst=worst,
                 infeasible=bool(np.isinf(worst[best])))
         scores = finish_scores(lat, rest, p.w_lat, q.dq, q.beta)
+        # per-objective finished grids: only latency_f carries the dq term
+        grids = og = None
+        if raw:
+            denom = dq_denominator(q.dq, q.beta, lat.shape[0])
+            grids = {n: (g / denom if n == "latency_f" else g)
+                     for n, g in raw.items()}
+            og = ObjectiveGrids(names=fleet.objectives.names, grids=grids,
+                                scalarized=scores,
+                                weights=fleet.objectives.weights)
         if q.kind == "score":
             return QueryResult(query_id=p.query_id, tenant=p.tenant,
-                               kind=q.kind, scores=scores,
+                               kind=q.kind, scores=scores, grids=grids,
                                degraded=p.degraded)
-        # rank (weighted, worst case)
+        if q.kind == "pareto":
+            front = pareto_front(og, scenario=q.scenario)
+            return QueryResult(query_id=p.query_id, tenant=p.tenant,
+                               kind=q.kind, scores=scores, grids=grids,
+                               degraded=p.degraded, front=front)
+        # rank
+        if q.eps_caps or q.minimize is not None:
+            best, masked = epsilon_constraint(
+                og, q.minimize, q.eps_caps, scenario=q.scenario)
+            order = np.argsort(masked, kind="stable")[:q.top_k]
+            return QueryResult(
+                query_id=p.query_id, tenant=p.tenant, kind=q.kind,
+                scores=scores, grids=grids, degraded=p.degraded,
+                top=order, worst=masked, best=int(best),
+                infeasible=bool(np.isinf(masked[best])))
         best, worst = robust_select(scores)
         order = np.argsort(worst, kind="stable")[:q.top_k]
         return QueryResult(query_id=p.query_id, tenant=p.tenant,
-                           kind=q.kind, scores=scores, degraded=p.degraded,
-                           top=order, worst=worst, best=int(best))
+                           kind=q.kind, scores=scores, grids=grids,
+                           degraded=p.degraded, top=order, worst=worst,
+                           best=int(best))

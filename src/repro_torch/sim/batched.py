@@ -17,12 +17,18 @@ placements against one shared (1, V, V) com or one (1, R, R) + (1, V)
 family slice — the counterpart of the reference's ``lax.map``.  The
 critical-path DP then runs once over the stacked (S, P, E) latencies.
 
+With ``objectives=`` (an :class:`~repro_torch.core.objectives.ObjectiveSet`)
+the same call returns every objective's (S, P) grid and their weighted
+scalarization as an :class:`~repro_torch.core.objectives.ObjectiveGrids`.
+``latency_f`` keeps the launch pattern above (one K1/K2 launch per
+scenario, one DP); the other objectives score all P placements at once
+per scenario through their spec's batched twin, and dq/β (``finish``) and
+the weighted sum apply to the stacked grids.
+
 Tensors live on the evaluator's ``device``: ``None`` means the card and
 raises without CUDA; ``device="cpu"`` runs the kernels' plain versions
 (the tests' route).  Placements and packs may arrive as numpy arrays or
 tensors and are moved to the device once per call.
-
-The multi-objective grid (``objectives=``) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from repro_torch.core.costmodel import CostConfig
 from repro_torch.core.devices import ExplicitFleet, RegionFleet, \
     RegionFleetFamily
 from repro_torch.core.graph import OpGraph
+from repro_torch.core.objectives import (ObjectiveGrids, ObjectiveSet,
+                                         as_objective_set)
 from repro_torch.core.torchmodel import (_edge_tensors, critical_path_dp,
                                          edge_endpoints, links_term,
                                          make_edge_latencies_com_fn,
@@ -48,7 +56,7 @@ from repro_torch.sim.execache import ExecutableCache, executable_cache, \
     graph_key
 
 __all__ = ["BatchedEvaluator", "pack_fleets", "pack_placements",
-           "pack_region_fleets", "dq_denominator"]
+           "pack_region_fleets", "pack_speeds", "dq_denominator"]
 
 # instance memo behind BatchedEvaluator.shared(): one evaluator per
 # (graph content, cfg, device), so the serving layer and scripts converge on
@@ -79,6 +87,18 @@ def pack_region_fleets(fleets: list[RegionFleet]) -> RegionFleetFamily:
 def pack_placements(xs: list[np.ndarray]) -> np.ndarray:
     """(P, n_ops, V) float32 stacked candidate placements."""
     return np.stack([np.asarray(x) for x in xs]).astype(np.float32)
+
+
+def pack_speeds(fleets: list[Fleet]) -> np.ndarray:
+    """(S, V) float32 stacked *effective* device speeds — the dense-path
+    companion of :func:`pack_fleets` for the occupancy objectives (the com
+    stack carries link state only).  Structured families carry their own
+    speeds."""
+    sp = [np.asarray(f.effective_speed(), dtype=np.float64) for f in fleets]
+    shapes = {s.shape for s in sp}
+    if len(shapes) != 1:
+        raise ValueError(f"fleets disagree on device count: {sorted(shapes)}")
+    return np.stack(sp).astype(np.float32)
 
 
 def dq_denominator(dq, beta: float, n: int) -> np.ndarray:
@@ -217,16 +237,41 @@ class BatchedEvaluator:
                 f"scenario; got shape {arr.shape} for S={S}")
         return arr.astype(np.float32)
 
+    def _dense_speeds(self, S: int, V: int, speed) -> torch.Tensor:
+        """The dense path's optional speed operand as (S, V): None ⇒ unit
+        speeds (the paper-faithful 'communication dominates' default), (V,)
+        shared, or (S, V) per scenario (:func:`pack_speeds`)."""
+        if speed is None:
+            return torch.ones((S, V), dtype=torch.float32,
+                              device=self.device)
+        t = self._tensor(speed)
+        if tuple(t.shape) == (V,):
+            return t.expand(S, V)
+        if tuple(t.shape) != (S, V):
+            raise ValueError(f"speed must be (V,) or (S, V) = ({S}, {V}); "
+                             f"got shape {tuple(t.shape)}")
+        return t
+
     def score_grid(self, placements, coms, dq=0.0, beta: float = 0.0,
-                   objectives=None):
-        """Score every (scenario, placement) pair: (S, P) float32 latency-F
-        grid on the evaluator's device.  ``coms`` is a dense (S, V, V) pack
-        or a RegionFleetFamily; ``dq`` a scalar or exactly (S,)."""
-        if objectives is not None:
-            raise NotImplementedError(
-                "multi-objective grids (objectives=) come with a later "
-                "slice of the port; only the latency-F grid is served")
+                   objectives=None, speed=None):
+        """Score every (scenario, placement) pair on the evaluator's device.
+        ``coms`` is a dense (S, V, V) pack or a RegionFleetFamily; ``dq`` a
+        scalar or exactly (S,).
+
+        ``objectives=None`` returns the (S, P) float32 latency-F grid.  With
+        an :class:`ObjectiveSet` (or anything ``as_objective_set`` accepts)
+        it returns an :class:`ObjectiveGrids`: every objective's (S, P) grid
+        in the set's order and the weighted scalarization.  ``speed`` feeds
+        the occupancy objectives on the dense path ((V,) or (S, V), see
+        :func:`pack_speeds`; default unit speeds); structured families
+        carry their own speeds, so ``speed`` must stay None there."""
         structured = isinstance(coms, RegionFleetFamily)
+        if objectives is None and speed is not None:
+            raise ValueError("speed only feeds the occupancy objectives "
+                             "— pass objectives= to use it")
+        if structured and speed is not None:
+            raise ValueError("structured families carry their own "
+                             "speeds; leave speed=None")
         if not structured:
             coms = self._tensor(coms)
         S = coms.n_scenarios if structured else coms.shape[0]
@@ -241,13 +286,22 @@ class BatchedEvaluator:
             reg.counter("eval.score_grid.dispatches", path=path).add(1)
             reg.histogram("eval.score_grid.cells", lo=1.0).observe(
                 S * int(x.shape[0]))
+        multi = objectives is not None
         with obs.span("score_grid", S=S, P=int(x.shape[0]), path=path,
-                      multi=False) as sp:
-            lat = self._grid_latency(x, coms, structured)
-            out = lat / self._tensor(dq_denominator(dq_arr, beta, S))[:, None]
-            sp.sync(out)
+                      multi=multi) as sp:
+            if multi:
+                out = self._grid_multi(x, coms, structured,
+                                       as_objective_set(objectives), speed,
+                                       dq_arr, beta)
+                sp.sync(out.scalarized)
+            else:
+                lat = self._grid_latency(x, coms, structured)
+                out = lat / self._tensor(
+                    dq_denominator(dq_arr, beta, S))[:, None]
+                sp.sync(out)
         if san.enabled and san.nan_check:
-            sanitize.check_finite("score_grid", out)
+            sanitize.check_finite(
+                "score_grid", out.scalarized if multi else out)
         return out
 
     def _grid_latency(self, x: torch.Tensor, coms, structured: bool):
@@ -268,3 +322,71 @@ class BatchedEvaluator:
         if links is not None:
             elat = elat + links
         return critical_path_dp(self.graph, elat)
+
+    # -- multi-objective grids (ObjectiveSet, §3.1) --------------------------
+    #
+    # latency_f is carved out by name, as in the reference: it rides the
+    # evaluator's own edge machinery (K1/K2 on the card, one launch per
+    # scenario, one DP) instead of the spec's builders — a test pins both
+    # routes to the same oracle.  Every other objective runs its batched
+    # twin once per scenario over all P placements.
+
+    def _multi_builders(self, obj_set: ObjectiveSet, coms, structured: bool):
+        """{name: f} for the set's objectives other than latency_f, built
+        once per (evaluator, set[, family layout]) and cached."""
+        others = [s for s in obj_set.specs if s.name != "latency_f"]
+        if structured:
+            key = ("multi_structured", self._eval_key, coms.region.tobytes(),
+                   coms.n_regions, float(coms.self_cost), obj_set)
+
+            def build():
+                return {s.name: s.build_structured(
+                    self.graph, coms.region, coms.n_regions, coms.self_cost,
+                    self.cfg, self.device) for s in others}
+        else:
+            key = ("multi_dense", self._eval_key, obj_set)
+
+            def build():
+                return {s.name: s.build_dense(self.graph, self.cfg,
+                                              self.device) for s in others}
+
+        return executable_cache().get_or_build(key, build)
+
+    def _grid_multi(self, x: torch.Tensor, coms, structured: bool,
+                    obj_set: ObjectiveSet, speed, dq_arr, beta: float
+                    ) -> ObjectiveGrids:
+        builders = self._multi_builders(obj_set, coms, structured)
+        raw = {}
+        if "latency_f" in obj_set.names:
+            raw["latency_f"] = self._grid_latency(x, coms, structured)
+        if structured:
+            inter, degrade = self._family_args(coms)
+            # nominal speeds: the structured occupancy twin applies the
+            # scenario's degrade itself (effective = speed / degrade)
+            speeds = self._tensor(np.array(coms.speed_or_ones()))
+            for name, f in builders.items():
+                raw[name] = torch.stack([
+                    f(x, inter[s], degrade[s], speeds[s])
+                    for s in range(coms.n_scenarios)])
+        else:
+            S, V = coms.shape[0], coms.shape[1]
+            speeds = self._dense_speeds(S, V, speed)
+            for name, f in builders.items():
+                raw[name] = torch.stack([f(x, coms[s], speeds[s])
+                                         for s in range(S)])
+        return self._finish_multi(obj_set, raw, dq_arr, beta)
+
+    def _finish_multi(self, obj_set: ObjectiveSet, raw: dict, dq_arr,
+                      beta: float) -> ObjectiveGrids:
+        """spec.finish on every (S, P) grid (dq as an (S, 1) column), then
+        the weighted sum; grids in the set's declared order."""
+        S = next(iter(raw.values())).shape[0]
+        dq_col = self._tensor(np.full((S,), dq_arr) if np.ndim(dq_arr) == 0
+                              else dq_arr)[:, None]
+        grids = {s.name: s.finish(raw[s.name], dq_col, beta)
+                 for s in obj_set.specs}
+        stacked = torch.stack([grids[n] for n in obj_set.names])  # (K, S, P)
+        weights = self._tensor(np.asarray(obj_set.weights, np.float32))
+        scal = torch.einsum("k,ksp->sp", weights, stacked)
+        return ObjectiveGrids(names=obj_set.names, grids=grids,
+                              scalarized=scal, weights=obj_set.weights)

@@ -1,5 +1,7 @@
-"""Tests that need a CUDA card: the port's kernels (K5, K6, K7) against
-their plain versions on the card, and the smoke models' launches.  They skip without one; on the H100 run
+"""Tests that need a CUDA card: the port's kernels (K4a/K4b against
+K1/K2, K5, K6, K7 against their plain versions) on the card, the
+five-objective score grid on the card against the CPU, and the smoke
+models' launches.  They skip without one; on the H100 run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -12,11 +14,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import OBJECTIVES, ObjectiveSet, RegionFleet  # noqa: E402
+from repro_torch.core.graph import random_dag  # noqa: E402
+from repro_torch.core.placement import random_placement  # noqa: E402
+from repro_torch.kernels import edge_latency as ek  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rk  # noqa: E402
 from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.sim import (BatchedEvaluator, pack_fleets,  # noqa: E402
+                             pack_region_fleets, pack_speeds)
 
 # tests/test_kernels.py's shapes, a ragged S and every head dim K5 builds
 SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
@@ -201,3 +209,75 @@ def test_mamba2_smoke_model_runs_k6_and_k7_on_the_card(card):
         sk.ssd_scan, rk.rmsnorm = saved
     rel = (got - want).abs().max() / want.abs().max()
     assert float(rel) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_single_tile_kernels_equal_the_blocked_ones_on_the_card(card,
+                                                                shared):
+    """K4a == K1 and K4b == K2 bitwise at tests/test_kernel_blocking.py's
+    inputs (B 2, E 5, V 64, R 4), both within 1e-5 of float64."""
+    rng = np.random.default_rng(31)
+    bc = 1 if shared else 2
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(card)
+
+    d = (arr(2, 5, 64), arr(2, 5, 64), arr(bc, 64, 64))
+    st = (arr(2, 5, 64), arr(2, 5, 64), arr(2, 5, 4), arr(bc, 4, 64),
+          arr(bc, 1, 64))
+    got = ek.edge_latency_dense_single_tile(*d)
+    assert torch.equal(got, ek.edge_latency_dense(*d))
+    want = ref.edge_latency_dense_plain(*(t.double() for t in d))
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+    got = ek.edge_latency_structured_single_tile(*st)
+    assert torch.equal(got, ek.edge_latency_structured(*st))
+    want = ref.edge_latency_structured_plain(*(t.double() for t in st))
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_single_tile_size_refusal_on_the_card(card):
+    V = ek.single_tile_max_v() + 1
+    x = torch.zeros((1, 1, V), device=card)
+    before = ek.launches["edge_latency_dense_single_tile"]
+    with pytest.raises(ValueError, match="shared memory"):
+        ek.edge_latency_dense_single_tile(x, x, torch.zeros((1, V, V),
+                                                            device=card))
+    assert ek.launches["edge_latency_dense_single_tile"] == before
+
+
+@pytest.mark.cuda
+def test_five_objective_grid_on_the_card_matches_the_cpu(card):
+    """score_grid with all five objectives on the card (K1/K2, cuBLAS
+    products in full FP32) within 1e-5 relative (abs 1e-6) of the same
+    call with device="cpu", on a dense pack and on a family."""
+    rng = np.random.default_rng(32)
+    g = random_dag(6, 0.5, rng)
+    V, R = 40, 3
+    region = rng.integers(0, R, V)
+    fleets = []
+    for k in range(3):
+        inter = rng.uniform(0.1, 2.0, (R, R))
+        fleets.append(RegionFleet(
+            region=region, inter=(inter + inter.T) / 2,
+            degrade=None if k == 0 else rng.uniform(1.0, 3.0, V),
+            speed=rng.lognormal(0.0, 0.3, V)))
+    xs = np.stack([random_placement(6, np.ones((6, V), bool), rng, 0.5)
+                   for _ in range(16)]).astype(np.float32)
+    obj = ObjectiveSet.of(*OBJECTIVES)
+    dq = np.array([0.1, 0.4, 0.7])
+    for pack, speed in ((pack_fleets(fleets), pack_speeds(fleets)),
+                        (pack_region_fleets(fleets), None)):
+        got = BatchedEvaluator(g, device=card).score_grid(
+            xs, pack, dq=dq, beta=0.6, objectives=obj, speed=speed).to_host()
+        want = BatchedEvaluator(g, device="cpu").score_grid(
+            xs, pack, dq=dq, beta=0.6, objectives=obj, speed=speed).to_host()
+        for name in obj.names:
+            np.testing.assert_allclose(got[name], want[name], rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got.scalarized, want.scalarized,
+                                   rtol=1e-5, atol=1e-6)

@@ -64,7 +64,7 @@ def test_dense_edge_latencies_match_jax_and_oracle(alpha, seed):
     want = np.asarray(jax.vmap(jfn, in_axes=(0, None))(jnp.asarray(xs),
                                                        jnp.asarray(com32)))
     tfn = tm.make_edge_latencies_com_fn(_port_graph(g), alpha=alpha,
-                                        nz_eps=1e-3)
+                                        nz_eps=1e-3, device="cpu")
     got = tfn(torch.from_numpy(xs), torch.from_numpy(com32[None])).numpy()
     assert got.shape == (xs.shape[0], g.n_edges)
     assert _rel(got, want) <= REL
@@ -95,7 +95,7 @@ def test_structured_edge_latencies_match_jax_and_oracle(alpha, degraded):
         jnp.asarray(xs), jnp.asarray(inter32), jnp.asarray(deg32)))
     tfn = tm.make_edge_latencies_region_fn(_port_graph(g), region, R,
                                            self_cost, alpha=alpha,
-                                           nz_eps=1e-3)
+                                           nz_eps=1e-3, device="cpu")
     got = tfn(torch.from_numpy(xs), torch.from_numpy(inter32[None]),
               torch.from_numpy(deg32[None])).numpy()
     assert _rel(got, want) <= REL
@@ -159,3 +159,21 @@ def test_port_oracle_is_the_reference_oracle():
     tg = _port_graph(g)
     for x in xs.astype(np.float64):
         assert tcost.latency(tg, port_fleet, x) == latency(g, ref_fleet, x)
+
+
+def test_edge_latency_builders_default_to_the_card(monkeypatch):
+    """The public builders resolve ``device=None`` to the card, as every
+    entry point does: without CUDA they raise unless the caller passes
+    ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, g, xs = _instance(9)
+    tg = _port_graph(g)
+    region = np.zeros(xs.shape[2], dtype=np.int64)
+    for make in (lambda **k: tm.make_edge_latencies_com_fn(tg, **k),
+                 lambda **k: tm.make_edge_latencies_region_fn(
+                     tg, region, 1, **k)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(device="cuda")
+        make(device="cpu")

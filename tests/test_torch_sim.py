@@ -127,13 +127,19 @@ def test_per_scenario_com_batch_matches_pairwise():
 
 
 def test_score_grid_validation_and_unported_options():
-    g, dense, _, xs = _setup(6)
+    g, dense, structured, xs = _setup(6)
     coms = np.array(jax_pack_fleets(dense))
+    fam = _packs(dense, structured)[3]
     ev = BatchedEvaluator(_port_graph(g), device="cpu")
     with pytest.raises(ValueError, match="dq must be a scalar"):
         ev.score_grid(xs, coms, dq=np.zeros(1 + coms.shape[0]))
-    with pytest.raises(NotImplementedError, match="multi-objective"):
-        ev.score_grid(xs, coms, objectives=("latency_f",))
+    # the reference's validation of the multi-objective surface: speed
+    # feeds only the occupancy objectives, and only on dense packs
+    with pytest.raises(ValueError, match="pass objectives= to use it"):
+        ev.score_grid(xs, coms, speed=np.ones(coms.shape[1]))
+    with pytest.raises(ValueError, match="carry their own speeds"):
+        ev.score_grid(xs, fam, speed=np.ones(fam.n_devices),
+                      objectives=("occupancy_max",))
     with pytest.raises(NotImplementedError):
         BatchedEvaluator(_port_graph(g),
                          PortCostConfig(include_compute=True), device="cpu")
