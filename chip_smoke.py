@@ -18,7 +18,9 @@ Phases, each raising on a failed check:
    equal on a repeat launch — at the serving shapes, at V ∈ {7, 129, 300}
    × E ∈ {1, 33, 130, 0} × shared / per-scenario scenario batch (× R ∈
    {1, 8} for the structured kernel) and on all-negative operands; kernel,
-   plain and library times at the serving shapes beside the roofline bound;
+   plain and library times at the serving shapes beside the roofline bound
+   (for K1 the split-TF32 tensor-core bound of its route beside the FP32
+   CUDA-core one, and its error with and without the 32-deep stage sums);
 3. serve_dense: ``WhatIfService`` on a 12-operator DAG, dense fleets of
    V = 4096 devices, S = 4 scenarios; three tenants send score, rank and
    joint queries totalling 1024 rows (one full chunk);
@@ -64,9 +66,11 @@ bitwise equal.
    float32 result once) — causal and full, at the tests/test_kernels.py
    shapes, at ragged S ∈ {100, 1000} and at the serving shape (one
    lm_score shard: 11 rows × 2048 tokens × 16 heads of 128), bitwise equal
-   on a repeat launch; K5, plain, ``scaled_dot_product_attention`` (timed
-   as a yardstick only, never called by the port) and the roofline bound
-   at the serving shape;
+   on a repeat launch; the P·V numerics decision (the kernel's bf16 p
+   against p split into bf16 hi + lo, emulated in torch); K5's time and
+   TFLOP/s, plain, ``scaled_dot_product_attention`` (timed as a yardstick
+   only, never called by the port) and the roofline bound at the serving
+   shape;
 6. lm_score: the streaming job of ``examples/geo_placement.py`` (ingest →
    clean → dq_check → lm_score → window_mean; 12 devices in 3 regions,
    uniform placement) with OLMo-1B at its published widths
@@ -126,7 +130,8 @@ DEVICE = "cuda"
 REL = 1e-5
 SEED = 0
 # NVIDIA H100 SXM data sheet at its full 700 W limit: FP32 on the CUDA
-# cores (the kernels use no tensor cores) and HBM3 bandwidth
+# cores (K2's route) and HBM3 bandwidth; K1/K4a (split TF32) and K5
+# (bf16) are priced at their tensor-core rates by repro_torch.perf.roofline
 PEAK_FP32 = 67e12
 HBM_BW = 3.35e12
 
@@ -282,6 +287,24 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def attention_p_split(torch, q, k, v):
+    """Causal attention on bf16 (B, S, H, D) operands in float32 math with
+    each softmax weight p split into bf16 hi + lo and multiplied by v as
+    two products: what K5 would compute had it kept ~16 bits of p."""
+    D, S = q.shape[-1], q.shape[1]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) * D ** -0.5
+    s = s.masked_fill(torch.ones((S, S), dtype=torch.bool,
+                                 device=q.device).triu(1), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    del p
+    out = (hi @ vf + lo @ vf) / (hi + lo).sum(-1, keepdim=True)
+    return out.transpose(1, 2).bfloat16()
+
+
 def attention_phase(torch, dev, serving: tuple) -> dict:
     """K5 against its plain version at every case shape and at ``serving``
     (B, S, H, D); its times there.  Returns the kernel line's numbers."""
@@ -331,6 +354,15 @@ def attention_phase(torch, dev, serving: tuple) -> dict:
     del q, k, v
     q, k, v = operands(serving, torch.bfloat16)
     rel, err = hold(q, k, v, True, f"serving {serving} bfloat16")
+    # the P·V numerics decision at the serving shape: the kernel rounds each
+    # weight p to bf16 once; the alternative splits p into bf16 hi + lo (two
+    # P·V products), emulated here in torch on the same inputs
+    split_rel, _ = rel_err(attention_p_split(torch, q, k, v),
+                           ref.flash_attention_plain(q, k, v, causal=True))
+    print(f"flash_attention P·V: p rounded to bf16 once (one bf16 product, "
+          f"l sums the rounded weights), rel err {rel:.3e} at the serving "
+          f"shape; p as bf16 hi + lo (two products, emulated) "
+          f"{split_rel:.3e}; bar {BF16_REL}: the single product is taken")
     print(f"flash_attention: {cases} case shapes plus the serving shape "
           f"within bounds and bitwise on repeat; worst rel err float32 "
           f"{max(worst[torch.float32], rel32):.3e} (bar {REL}), bfloat16 "
@@ -1033,6 +1065,8 @@ def main() -> int:
                                              region_mass, region_onehot)
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.perf.roofline import (PEAK_TF32_TC,
+                                           edge_latency_dense_terms)
     from repro_torch.search.decision import joint_dq_scores
     from repro_torch.serve import (AdmissionConfig, QueryResult, WhatIfQuery,
                                    WhatIfService)
@@ -1165,8 +1199,16 @@ def main() -> int:
                     ref.edge_latency_dense_plain, (xi, xj, com),
                     "serving shape")
     B, V = xi.shape[0], xi.shape[2]
-    flops = 2.0 * B * E * V * V + B * E * V
-    bytes_ = 4.0 * (2 * B * E * V + V * V + B * E)
+    # the route K1 takes (split TF32 on the tensor cores) and the FP32
+    # CUDA-core route it replaced, for the same work
+    terms = edge_latency_dense_terms(B, E, V, 1)
+    fp32_terms = edge_latency_dense_terms(B, E, V, 1, route="fp32")
+    # what the 32-deep stage sums buy: the same products in one tensor-core
+    # accumulator over all of V
+    single_rel, _ = rel_err(
+        kernels.edge_latency_dense(xi, xj, com, stage_sums=False),
+        ref.edge_latency_dense_plain(xi.double(), xj.double(),
+                                     com.double()))
     report["edge_latency_dense"] = {
         "max_abs_err": err, "rel_err": rel,
         "ms": time_ms(lambda: kernels.edge_latency_dense(xi, xj, com), 5),
@@ -1174,10 +1216,16 @@ def main() -> int:
             lambda: ref.edge_latency_dense_plain(xi, xj, com), 5),
         "library_ms": time_ms(lambda: (xi * torch.einsum(
             "buv,bev->beu", com, xj)).amax(-1), 5),
-        "flops": flops, "bytes": bytes_,
-        "bound_ms": max(flops / PEAK_FP32, bytes_ / HBM_BW) * 1e3,
-        "bound_by": "operations" if flops / PEAK_FP32 > bytes_ / HBM_BW
-        else "bytes", "shape": f"B={B} E={E} V={V} com (1,V,V)"}
+        "flops": terms.flops, "bytes": terms.bytes,
+        "bound_ms": terms.step_time_s * 1e3, "bound_by": terms.bound_by,
+        "shape": f"B={B} E={E} V={V} com (1,V,V)"}
+    print(f"edge_latency_dense route: split TF32 on the tensor cores, bound "
+          f"{terms.step_time_s * 1e3:.3f} ms (3 TF32 products per "
+          f"multiply-add at {PEAK_TF32_TC / 1e12:.0f} TFLOP/s); the FP32 "
+          f"CUDA-core bound for the same work "
+          f"{fp32_terms.step_time_s * 1e3:.3f} ms; rel err to float64 with "
+          f"32-deep stage sums {rel:.3e}, with one accumulator "
+          f"{single_rel:.3e} (bar {REL})")
     del x, xi, xj, com
     # K2 at the serving shape: the 256-row chunk against one scenario
     x = torch.as_tensor(struct_x, device=dev)

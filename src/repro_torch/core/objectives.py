@@ -62,7 +62,8 @@ from repro_torch.core.graph import OpGraph
 from repro_torch.core.torchmodel import (_edge_tensors, critical_path_dp,
                                          make_edge_latencies_com_fn,
                                          make_edge_latencies_region_fn,
-                                         region_mass, region_onehot)
+                                         region_mass, region_onehot,
+                                         require_fp32_matmul)
 from repro_torch.kernels import dispatch
 
 __all__ = [
@@ -98,17 +99,6 @@ def _op_loads(graph: OpGraph) -> np.ndarray:
 
 def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
-
-
-def _require_fp32_matmul(t: torch.Tensor) -> None:
-    """The movement products must not run in TF32 on the card."""
-    if t.device.type == "cuda" and (
-            torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "the movement objectives need full-FP32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
 
 
 # -- latency-F ----------------------------------------------------------------
@@ -174,7 +164,7 @@ def _make_dense_movement(weighted: bool):
                 return _pair_mass(x, src, dst) @ w
             # price each OPERATOR's inbound transfer once (n·V² instead of
             # E·V²), then gather per edge
-            _require_fp32_matmul(x)
+            require_fp32_matmul(x, "the movement objectives")
             op_t = torch.matmul(x, com.T)                    # (P, n_ops, V)
             diag = torch.diagonal(com)
             x_i = x[:, src]                                  # (P, E, V)
@@ -202,7 +192,6 @@ def _make_structured_movement(weighted: bool):
             # Σ_{u≠v} d_u·d_v·inter[r_u,r_v]·x_iu·x_jv as a degrade-weighted
             # region-mass quadratic form minus the u == v diagonal, with the
             # (P, n_ops, R) masses formed ONCE per placement batch
-            _require_fp32_matmul(x)
             mass = region_mass(x, degrade[None], onehot)     # (P, n_ops, R)
             quad = torch.einsum("per,rq,peq->pe", mass[:, src], inter,
                                 mass[:, dst])

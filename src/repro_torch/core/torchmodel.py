@@ -36,7 +36,7 @@ from repro_torch.kernels import dispatch
 __all__ = ["edge_endpoints", "links_term", "critical_path_dp",
            "make_edge_latencies_com_fn", "region_factors", "region_onehot",
            "region_mass", "structured_edge_latency",
-           "make_edge_latencies_region_fn"]
+           "make_edge_latencies_region_fn", "require_fp32_matmul"]
 
 
 def _edge_arrays(graph: OpGraph):
@@ -122,12 +122,34 @@ def region_onehot(region_ix: torch.Tensor, n_regions: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(region_ix, n_regions).to(torch.float32)
 
 
+def require_fp32_matmul(t: torch.Tensor, what: str) -> None:
+    """Raise before a float32 matrix product on the card would run in TF32.
+
+    TF32 keeps about three decimal digits, far outside the 1e-5 bar, and
+    ``torch.backends.cuda.matmul.allow_tf32`` or
+    ``torch.set_float32_matmul_precision("high")`` switch every cuBLAS
+    float32 product of the process to it.  The port raises rather than
+    pinning the precision around the product: a process-wide switch is the
+    caller's, and flipping it here would change other threads' products.
+    CPU tensors never run in TF32, so they pass."""
+    if t.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} need full-FP32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
 def region_mass(x_j: torch.Tensor, degrade: torch.Tensor,
                 onehot: torch.Tensor) -> torch.Tensor:
     """(B, E, R) ``mass[b, e, r] = Σ_{v ∈ region r} degrade_v · x_j[b, e, v]``
     as ``x_j @ (onehot · degrade)``: each term is the same single-rounded
     product the reference's scatter adds, and the summation order is fixed,
-    so two calls give bitwise-equal masses.  ``degrade`` is (Sb, V)."""
+    so two calls give bitwise-equal masses.  ``degrade`` is (Sb, V).  The
+    product is cuBLAS on the card, so it raises when TF32 matmuls are on
+    (:func:`require_fp32_matmul`)."""
+    require_fp32_matmul(x_j, "the structured region masses")
     w = onehot[None] * degrade[:, :, None]                   # (Sb, V, R)
     if w.shape[0] == 1:
         return torch.matmul(x_j, w[0])

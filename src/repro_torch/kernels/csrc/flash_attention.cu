@@ -7,55 +7,572 @@
 //     o = softmax(q k^T * D^-1/2, masked k_pos <= q_pos when causal) v
 //
 // with q, k, v (B, S, H, D) in float32 or bfloat16 (kv already repeated to
-// H), all arithmetic in float32: scores, the running max m, the running
-// denominator l and the accumulator.  Masked scores take the reference's
-// value -1e30, the denominator is floored at 1e-30 before the division, and
-// the output is written in q's dtype (bfloat16 rounds to nearest even).
-// Key tiles entirely above the diagonal are never visited.
+// H): scores, the running max m and denominator l and the accumulator in
+// float32.  Masked scores take the reference's value -1e30, the denominator
+// is floored at 1e-30 before the division, and the output is written in
+// q's dtype (bfloat16 rounds to nearest even).  Key tiles entirely above
+// the diagonal are never loaded, and q tiles are launched heaviest first
+// (the last q tile has the most keys under a causal mask).  Rows and keys
+// past the end load as 0 (keys are masked, rows are not stored), so any S
+// works.  The operands are read in their strided (B, S, H, D) layout, never
+// transposed.
 //
 // Bound on this card: operations.  At the LM-scoring shape (a shard of 11
 // rows x 2048 tokens, 16 heads of 128, bf16) one launch does
 // 4*B*H*D*S(S+1)/2 ~ 1.9e11 operations against 4*B*S*H*D*2 ~ 369 MB of
 // inputs and output: ~500 operations per byte, above the card's bf16 ridge
-// (~295), so arithmetic is the limit.  The roofline in repro_torch.perf.roofline
-// prices it at the bf16 tensor-core peak, 0.19 ms.
+// (~295), so arithmetic is the limit.  The roofline in
+// repro_torch.perf.roofline prices it at the bf16 tensor-core peak, 0.19 ms.
 //
-// Design: the first, simple version -- right before fast.  It runs in
-// float32 on the CUDA cores (no tensor cores yet: bf16 mma would round the
-// softmax weights p to bf16, which the reference does not do), so it is
-// bounded by the FP32 FMA rate, far above the tensor-core bound.
-//   * One CTA of 256 threads (16 x 16) owns one (b, h) and a 64-row q tile;
-//     the q tile stays in shared memory (float32) for the whole key loop.
-//     Tiles are launched heaviest first (the last q tile has the most keys
-//     under a causal mask).
-//   * Per 64-key tile: K is staged in shared memory, each thread computes a
-//     4 x 4 block of scores (rows ty*4+i, keys tx+16c; float4 reads along
-//     D, conflict-free with a row pitch of D+4), scales and masks them, and
-//     the 16 threads of a row group agree on the row max with shuffles.
-//     The weights p = exp(s - m) go to shared memory, V replaces K in the
-//     same buffer, and each thread adds p v into its 4 x D/16 accumulator.
-//     One K/V buffer (not two) keeps shared memory at 83 KB at D = 128, so
-//     two CTAs share an SM and one hides the other's loads.
-//   * The denominator is kept per thread over its own keys and summed over
-//     the row group once at the end.
-//   * Ragged edges: q and key rows past the end load as 0, their scores are
-//     masked, and rows past Sq are not stored; any S works.
+// The route is chosen by dtype before the launch, never as a fallback:
+//
+// * bfloat16 operands: the tensor cores through wgmma, in the shape of
+//   FlashAttention-3.  A CTA owns one (b, h) and a 128-row q tile: two
+//   consumer warpgroups of 64 rows and one producer warp (288 threads, one
+//   CTA per SM).  Keys come in 64-key tiles.
+//   - Loads: the producer issues TMA copies of Q once and of a ring of
+//     STAGES K and V tiles, each completing on its own mbarrier; the
+//     consumers release a slot on an "empty" mbarrier once the products
+//     that read it are done.  Q, K and V are described to TMA as 4-D
+//     (D, S, H, B) tensor maps over the strided model layout (no
+//     transposes), in 64 d x 64 row boxes with the 128-byte swizzle, so
+//     shared memory holds [D / 64][rows][64] bf16 in wgmma's canonical
+//     layout.  Rows past S, and d past D for a head dim under 64, are
+//     TMA's zero fill.  cuTensorMapEncodeTiled is reached through the
+//     CUDA runtime's entry-point query (no -lcuda); a refused map or launch
+//     raises in the wrapper, with no fallback.
+//   - S_j = Q K_j^T is wgmma m64n64k16 with both operands in shared memory
+//     (K-major); products of bf16 values are exact in f32, so S differs
+//     from the reference only in summation order.  O += P_{j-1} V_{j-1} is
+//     wgmma m64n{64,128}k16 with P as the register A operand (the S
+//     accumulator layout of two n8 blocks is the A layout of one k16 step)
+//     and V read MN-major (the transpose bit).
+//   - Within a warpgroup the two are issued together and the online
+//     softmax of S_j runs on the CUDA cores while the tensor cores finish
+//     P_{j-1} V_{j-1}; O is rescaled once that product is in.  Between the
+//     warpgroups, named barriers pass the turn to issue products back and
+//     forth (ping-pong), so one's softmax meets the other's products.  Both
+//     walk the CTA's key tiles, so the first warpgroup also takes the tile
+//     wholly above its rows: fully masked, p = 0 and alpha = 1, an exact
+//     no-op.
+//   - P alternates between two register sets (the tile loop is unrolled by
+//     two), and every operand's registers are pinned around its wgmma
+//     group: a register of an in-flight wgmma written by another
+//     instruction makes ptxas serialize every wgmma of the kernel (a wait
+//     after each, with no diagnostic).
+//   - The softmax keeps the row max in raw units and folds D^-1/2 * log2 e
+//     into one fma before ex2; a row's max and sum reduce over the 4 lanes
+//     that share it.  Only tiles that cross the diagonal or the ragged end
+//     are masked (int32 bounds per warp).
+//   - Numerics decision: p is rounded once to bf16 (8 significant bits)
+//     and l sums the rounded weights, so the output is an exact convex
+//     combination of the rows of v with those weights.  The reference
+//     keeps p in f32.  At the serving shape (11 x 2048 x 16 x 128, causal,
+//     randn operands; chip_smoke.py on an H100 80GB HBM3) the kernel is
+//     3.4e-3 (max |err| / max |out|) from the plain version in f32 math,
+//     against the 1e-2 bar (BF16_REL), of which the output's own bf16
+//     rounding may spend up to 3.9e-3; p split into bf16 hi + lo (two P.V
+//     products, emulated there) gives 1.7e-3 at twice the P.V cost, so the
+//     single product is taken.  tests/test_torch_precision.py emulates this
+//     rounding against the reference on the CPU.
+// * float32 operands must stay within 1e-5 of float64, which no tensor-core
+//   format meets, so they run on the CUDA cores in float32 (the first
+//   version of this kernel): one CTA of 256 threads owns a 64-row q tile
+//   kept in shared memory; per 64-key tile K is staged, each thread
+//   computes a 4 x 4 block of scores with float4 reads, the 16 threads of a
+//   row group agree on the row max with shuffles, p goes to shared memory,
+//   V replaces K in the same buffer, and each thread adds p v into its
+//   4 x D/16 accumulator.
+//
 // The summation order is fixed by the tiling, so a repeat launch is
 // bitwise identical.  The entry point takes raw pointers, element strides
-// of the (B, S, H) axes (D must be contiguous) and the CUDA stream, launches
-// on that stream and returns cudaGetLastError().
+// of the (B, S, H) axes (D must be contiguous, the other strides 16-byte
+// multiples) and the CUDA stream, launches on that stream and returns
+// cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float NEG = -1e30f;
+constexpr float L_FLOOR = 1e-30f;
+
+// -- bfloat16: tensor cores (wgmma) -------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;       // q rows per CTA: two consumer warpgroups
+constexpr int BK = 64;        // keys per tile
+constexpr int STAGES = 3;     // K and V tiles in flight
+constexpr int NT = 288;       // 8 consumer warps + 1 producer warp
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the head dim padded to whole 64-element (128-byte) swizzle rows
+template <int D>
+__host__ __device__ constexpr int dpad() { return D < 64 ? 64 : D; }
+
+// ex2.approx: ~2 ulp, far inside the bf16 rounding p gets next
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);    // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Pin a wgmma operand's registers in program order: no instruction that
+// reads or writes them moves across this point, so none lands inside a
+// wgmma pipeline stage (ptxas serializes every wgmma of a kernel in which
+// one does).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// d (m64n64, f32) = a (smem, K-major) b (smem, K-major) + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n64, f32) += a (registers, bf16) b (smem, MN-major, bf16)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64n128, f32) += a (registers, bf16) b (smem, MN-major, bf16)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One online-softmax step on a 64-key tile's S fragment (raw q.k, the
+// m64n64 accumulator layout: s[j*4 + c] is row g + 8*(c/2), key
+// 8j + 2t + c%2 of the warp's 16 rows).  Keys at or past lim_k, and under
+// a causal mask keys past row + diag (diag = the warp's first row minus
+// the tile's first key), take the reference's -1e30; only tiles that need
+// it are masked.  m is kept in raw units: m_new = max(m, row max), alpha =
+// exp2((m - m_new) * scale_log2), p = exp2(s * scale_log2 - m_new *
+// scale_log2), rounded to bf16 once and packed as the P.V A fragments; ls
+// sums the rounded weights.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
+                                             float scale_log2, bool mask,
+                                             int lim_k, int diag, bool causal,
+                                             int g, int t,
+                                             uint32_t (&pa)[BK / 16][4],
+                                             float (&alpha)[2],
+                                             float (&ls)[2]) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kc = j * 8 + 2 * t + (c % 2), rl = g + 8 * (c / 2);
+        if (kc >= lim_k || (causal && kc > rl + diag)) s[j * 4 + c] = NEG;
+      }
+  }
+  float mt[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mt[c / 2] = fmaxf(mt[c / 2], s[j * 4 + c]);
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    alpha[r] = fast_exp2((m[r] - mt[r]) * scale_log2);
+    m[r] = mt[r];
+    ms[r] = mt[r] * scale_log2;
+    ls[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t u = pack_bf16(
+          fast_exp2(fmaf(s[j * 4 + 2 * r], scale_log2, -ms[r])),
+          fast_exp2(fmaf(s[j * 4 + 2 * r + 1], scale_log2, -ms[r])));
+      pa[j / 2][(j % 2) * 2 + r] = u;
+      ls[r] += __uint_as_float(u << 16) + __uint_as_float(u & 0xffff0000u);
+    }
+}
+
+// The tile's masking bounds for a warp whose first row is q0 + wrow:
+// lim_k = keys left before Skv (capped at BK), diag = (q0 + wrow) - k0
+// (capped so it fits an int), mask = whether any of its entries is masked.
+__device__ __forceinline__ bool tile_bounds(int64_t k0, int64_t q0, int wrow,
+                                            int64_t Skv, bool causal,
+                                            int& lim_k, int& diag) {
+  const int64_t left = Skv - k0, d = q0 + wrow - k0;
+  lim_k = left < BK ? (int)left : BK;
+  diag = d > BK ? BK : d < -2 * BK ? -2 * BK : (int)d;
+  return lim_k < BK || (causal && diag < BK - 1);
+}
+
+// Issue O += P V for one 64-key tile (P in registers, V MN-major at v_s)
+// as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[dpad<D>() / 2],
+                                         uint32_t (&pa)[BK / 16][4],
+                                         uint32_t v_s) {
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv = make_desc(v_s + kk * 16 * 128, BK * 128, 1024);
+    if constexpr (dpad<D>() == 64)
+      wgmma_rs_n64(acc, pa[kk], dv);
+    else
+      wgmma_rs_n128(acc, pa[kk], dv);
+  }
+  wgmma_commit();
+}
+
+// Issue S = Q K^T for one 64-key tile as one wgmma group: Q and K K-major
+// in shared memory (the warpgroup's Q rows at q_s, 64-wide d blocks BQ rows
+// apart; K at k_s); the first product overwrites s.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[32], uint32_t q_s,
+                                        uint32_t k_s) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss_n64(s,
+                 make_desc(q_s + (ks / 4) * (BQ * 128) + (ks % 4) * 32, 16,
+                           1024),
+                 make_desc(k_s + (ks / 4) * (BK * 128) + (ks % 4) * 32, 16,
+                           1024),
+                 ks > 0);
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.  The
+// spin is bounded: a lost arrival traps (a launch error) instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1u << 26)) __trap();
+  }
+}
+// One (64 d x 64 rows) box of a (D, S, H, B) bf16 tensor map into shared
+// memory at dst, completing on bar.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int d, int row, int h,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+         "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Q, then STAGES K and STAGES V tiles, each [D / 64][rows][64] bf16 in the
+// 128-byte swizzle (what TMA writes and wgmma reads), 1024 bytes of slack
+// to align the base to a swizzle atom, and the mbarriers
+template <int D>
+constexpr size_t smem_bytes() {
+  return (size_t)(dpad<D>() / 64) * 128 * (BQ + 2 * STAGES * BK) + 1024 +
+         8 * (1 + 3 * STAGES);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            __nv_bfloat16* __restrict__ o, int64_t H,
+                            int64_t Sq, int64_t Skv, int64_t o_sb,
+                            int64_t o_ss, int64_t o_sh, float scale_log2,
+                            int causal) {
+  constexpr int DP = dpad<D>(), NB = DP / 64;
+  constexpr uint32_t Q_BYTES = NB * BQ * 128, KV_BYTES = NB * BK * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t Ks = Qs + Q_BYTES, Vs = Ks + STAGES * KV_BYTES;
+  const uint32_t bars = Vs + STAGES * KV_BYTES;   // 8 bytes each
+  const uint32_t qfull = bars;
+  auto kfull = [&](int i) { return bars + 8 * (1 + i); };
+  auto vfull = [&](int i) { return bars + 8 * (1 + STAGES + i); };
+  auto empty = [&](int i) { return bars + 8 * (1 + 2 * STAGES + i); };
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t q0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t kend = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
+  const int ntiles = (int)((kend + BK - 1) / BK);
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(kfull(i), 1);
+      mbar_init(vfull(i), 1);
+      mbar_init(empty(i), 8);          // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                     // the producer
+    if (lane == 0) {
+      mbar_expect_tx(qfull, Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int db = 0; db < NB; ++db)
+          tma_box(Qs + db * (BQ * 128) + w * 64 * 128, &qmap, qfull,
+                  db * 64, (int)(q0 + w * 64), (int)h, (int)b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int slot = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty(slot), ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(kfull(slot), KV_BYTES);
+        for (int db = 0; db < NB; ++db)
+          tma_box(Ks + slot * KV_BYTES + db * (BK * 128), &kmap, kfull(slot),
+                  db * 64, j * BK, (int)h, (int)b);
+        mbar_expect_tx(vfull(slot), KV_BYTES);
+        for (int db = 0; db < NB; ++db)
+          tma_box(Vs + slot * KV_BYTES + db * (BK * 128), &vmap, vfull(slot),
+                  db * 64, j * BK, (int)h, (int)b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 q rows
+  const int g = lane / 4, t = lane % 4, wgi = warp / 4;
+  const int wrow = wgi * 64 + (warp % 4) * 16;
+  const int64_t qr0 = q0 + wrow + g, qr1 = qr0 + 8;
+  // both warpgroups walk all ntiles tiles (the first one's last tile is
+  // then fully masked: p = 0, alpha = 1, an exact no-op) so that they take
+  // the same number of turns in the ping-pong below
+  const int nt = ntiles;
+  const uint32_t Qw = Qs + wgi * 64 * 128;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  uint32_t pa[BK / 16][4], pb[BK / 16][4];
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  auto release = [&](int j) {          // K_j and V_j are read
+    if (lane == 0) mbar_arrive(empty(j % STAGES));
+  };
+  mbar_wait(qfull, 0);
+  if (nt > 0) {
+    mbar_wait(kfull(0), 0);
+    issue_s<D>(s, Qw, Ks);
+    wgmma_wait<0>();
+    fence_regs(s);
+    int lim_k, diag;
+    const bool mask = tile_bounds(0, q0, wrow, Skv, causal, lim_k, diag);
+    float alpha[2], ls[2];
+    softmax_tile(s, m, scale_log2, mask, lim_k, diag, causal, g, t, pa,
+                 alpha, ls);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = ls[r];
+  }
+  // Ping-pong: a warpgroup issues its tile's products only on its turn and
+  // then hands the turn to the other, so one's softmax runs while the
+  // other's products keep the tensor cores busy (named barriers 1 and 2).
+  const int my_bar = 1 + wgi, other_bar = 2 - wgi;
+  if (wgi == 1) named_arrive(1, 256);          // the first turn is WG 0's
+  auto step = [&](int it, uint32_t (&pp)[BK / 16][4],
+                  uint32_t (&pn)[BK / 16][4]) {
+    const int slot = it % STAGES, prev = (it - 1) % STAGES;
+    mbar_wait(kfull(slot), (it / STAGES) & 1);
+    mbar_wait(vfull(prev), ((it - 1) / STAGES) & 1);
+    named_sync(my_bar, 256);
+    issue_s<D>(s, Qw, Ks + slot * KV_BYTES);
+    issue_pv<D>(acc, pp, Vs + prev * KV_BYTES);
+    named_arrive(other_bar, 256);
+    wgmma_wait<1>();                 // S_it is in; P_{it-1} V_{it-1} flies
+    fence_regs(s);
+    int lim_k, diag;
+    const bool mask = tile_bounds((int64_t)it * BK, q0, wrow, Skv, causal,
+                                  lim_k, diag);
+    float alpha[2], ls[2];
+    softmax_tile(s, m, scale_log2, mask, lim_k, diag, causal, g, t, pn,
+                 alpha, ls);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(it - 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[j * 4] *= alpha[0];
+      acc[j * 4 + 1] *= alpha[0];
+      acc[j * 4 + 2] *= alpha[1];
+      acc[j * 4 + 3] *= alpha[1];
+    }
+  };
+  int it = 1;
+  for (; it + 1 < nt; it += 2) {
+    step(it, pa, pb);
+    step(it + 1, pb, pa);
+  }
+  if (nt > 0) {
+    const int last = (nt - 1) % STAGES;
+    const uint32_t lastp = ((nt - 1) / STAGES) & 1;
+    if (it < nt) {                     // one tile left: P_{nt-1} lands in pb
+      step(it, pa, pb);
+      mbar_wait(vfull(last), lastp);
+      issue_pv<D>(acc, pb, Vs + last * KV_BYTES);
+    } else {
+      mbar_wait(vfull(last), lastp);
+      issue_pv<D>(acc, pa, Vs + last * KV_BYTES);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(nt - 1);
+  }
+  if (wgi == 0) named_sync(1, 256);   // WG 1's last hand-over
+
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], L_FLOOR);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t qp = r == 0 ? qr0 : qr1;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* orow = ob + qp * o_ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(acc[j * 4 + 2 * r] / l[r],
+                                acc[j * 4 + 2 * r + 1] / l[r]);
+  }
+}
+
+}  // namespace tc
+
+// -- float32: CUDA cores --------------------------------------------------------
+
+namespace fp32 {
+
 constexpr int BQ = 64;     // q rows per CTA
 constexpr int BK = 64;     // keys per tile
 constexpr int NT = 256;    // threads: 16 row groups x 16 lanes
-constexpr float NEG = -1e30f;
-constexpr float L_FLOOR = 1e-30f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -76,26 +593,6 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
     if (row0 + r < n)
       val = *reinterpret_cast<const float4*>(src + (row0 + r) * rs + c * 4);
     *reinterpret_cast<float4*>(dst + r * (D + 4) + c * 4) = val;
-  }
-}
-
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int64_t rs, int64_t row0,
-                                          int64_t n) {
-  constexpr int CH = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
-    const int r = idx / CH, c = idx % CH;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      raw = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c * 8);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    float* d = dst + r * (D + 4) + c * 8;
-    *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
   }
 }
 
@@ -123,28 +620,17 @@ __device__ __forceinline__ void store_vec(float* p, const float* x) {
   }
 }
 
-template <int VW>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* x) {
-  if constexpr (VW >= 2) {
-#pragma unroll
-    for (int e = 0; e < VW; e += 2)
-      reinterpret_cast<__nv_bfloat162*>(p)[e / 2] =
-          __floats2bfloat162_rn(x[e], x[e + 1]);
-  } else {
-    p[0] = __float2bfloat16(x[0]);
-  }
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int64_t H, int64_t Sq, int64_t Skv,
-                       int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                       int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                       int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                       int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                       float scale, int causal) {
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int64_t H, int64_t Sq, int64_t Skv,
+                           int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                           int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                           int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                           int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                           float scale, int causal) {
   constexpr int PITCH = D + 4, PPITCH = BK + 4;
   constexpr int CPT = D / 16;                   // output columns per thread
   constexpr int VW = CPT < 4 ? CPT : 4;         // ... read/written VW at once
@@ -157,9 +643,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int64_t b = blockIdx.y / H, h = blockIdx.y % H;
   const int64_t q0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
 
   load_tile<D, BQ>(Qs, qb, q_ss, q0, Sq);
 
@@ -266,7 +752,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * o_sb + h * o_sh;
+  float* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float lt = l[i];
@@ -276,7 +762,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lt = fmaxf(lt, L_FLOOR);
     const int64_t qp = q0 + ty * 4 + i;
     if (qp < Sq) {
-      T* orow = ob + qp * o_ss + tx * VW;
+      float* orow = ob + qp * o_ss + tx * VW;
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         float out[VW];
@@ -288,35 +774,113 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t B, int64_t H, int64_t Sq, int64_t Skv,
-                   const int64_t* st, float scale, int causal,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
+}  // namespace fp32
+
+// cuTensorMapEncodeTiled, a CUDA driver API function, looked up through the
+// runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess
+        && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// A (D, S, H, B) bf16 tensor map of x with element strides (sb, ss, sh),
+// boxes of 64 d x 64 rows in the 128-byte swizzle; d past D and rows past S
+// read as 0.
+bool make_map(CUtensorMap* map, const void* x, int64_t B, int64_t S,
+              int64_t H, int64_t D, int64_t sb, int64_t ss, int64_t sh) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+             dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                       int64_t B, int64_t H, int64_t Sq, int64_t Skv,
+                       const int64_t* st, double scale, int causal,
+                       cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, Sq, H, D, st[0], st[1], st[2]) ||
+      !make_map(&km, k, B, Skv, H, D, st[3], st[4], st[5]) ||
+      !make_map(&vm, v, B, Skv, H, D, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = tc::smem_bytes<D>();
+  auto kern = tc::flash_attention_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Sq, Skv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
+  const dim3 grid((unsigned)((Sq + tc::BQ - 1) / tc::BQ), (unsigned)(B * H));
+  kern<<<grid, tc::NT, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Sq, Skv, st[9], st[10],
+      st[11], (float)(scale * 1.4426950408889634), causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <bool BF16, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int64_t B, int64_t H, int64_t Sq, int64_t Skv,
+                   const int64_t* st, double scale, int causal,
+                   cudaStream_t stream) {
+  if constexpr (BF16) {
+    return launch_bf16<D>(q, k, v, o, B, H, Sq, Skv, st, scale, causal,
+                          stream);
+  } else {
+    constexpr size_t smem = fp32::smem_bytes<D>();
+    auto kern = fp32::flash_attention_f32_kernel<D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((Sq + fp32::BQ - 1) / fp32::BQ),
+                    (unsigned)(B * H));
+    kern<<<grid, fp32::NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Skv,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[9], st[10], st[11], (float)scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+template <bool BF16>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int64_t B, int64_t H, int64_t Sq, int64_t Skv,
-                     int64_t D, const int64_t* st, float scale, int causal,
+                     int64_t D, const int64_t* st, double scale, int causal,
                      cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
+    case 16: return launch<BF16, 16>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
+    case 32: return launch<BF16, 32>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
+    case 64: return launch<BF16, 64>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
+    case 128: return launch<BF16, 128>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -326,8 +890,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o: (B, S, H, D) with element strides (batch, seq, head) each and
-// a contiguous D in {16, 32, 64, 128}; bf16 != 0 means bfloat16 operands,
-// else float32.  Grid: (ceil(Sq / 64), B * H).
+// a contiguous D in {16, 32, 64, 128}; bf16 != 0 means bfloat16 operands
+// (tensor cores, grid (ceil(Sq / 128), B * H)), else float32 (CUDA cores,
+// grid (ceil(Sq / 64), B * H)).  scale is D^-1/2.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int64_t B, int64_t H, int64_t Sq,
                            int64_t Skv, int64_t D,
@@ -335,7 +900,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int64_t k_sb, int64_t k_ss, int64_t k_sh,
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                           int64_t bf16, int64_t causal, float scale,
+                           int64_t bf16, int64_t causal, double scale,
                            void* stream) {
   if (B * H > 65535 || B * H < 1 || Sq < 1)
     return (int)cudaErrorInvalidValue;
@@ -343,9 +908,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, B, H, Sq, Skv, D, st, scale,
-                                     causal != 0, s)
-           : launch_d<float>(q, k, v, o, B, H, Sq, Skv, D, st, scale,
+      bf16 ? launch_d<true>(q, k, v, o, B, H, Sq, Skv, D, st, scale,
+                            causal != 0, s)
+           : launch_d<false>(q, k, v, o, B, H, Sq, Skv, D, st, scale,
                              causal != 0, s);
   return (int)err;
 }

@@ -4,11 +4,14 @@
 tiled.  In brief:
 
 * :func:`edge_latency_dense` (K1) replaces the Pallas kernel
-  ``repro.kernels.edge_latency.edge_latency_pallas``.  It is bound by FP32
-  operations (``2·B·E·V²`` multiply-adds; TF32 tensor cores would miss the
-  1e-5 bar), so it is a shared-memory SGEMM tile with the row max fused
-  into the epilogue — the (B, E, V) product ``com @ x_j`` never reaches
-  device memory.
+  ``repro.kernels.edge_latency.edge_latency_pallas``.  It is bound by
+  operations (``2·B·E·V²`` multiply-adds).  Plain TF32 would miss the 1e-5
+  bar, so it runs on the tensor cores (wgmma) in split TF32 (three TF32
+  products per multiply-add, each 32-deep v stage in a fresh accumulator),
+  a GEMM tile with the row max fused into the epilogue — the (B, E, V)
+  product ``com @ x_j`` never reaches device memory.  The wrapper allocates
+  its scratch: com's TF32 hi and lo parts (split once per launch) and a
+  partial max per 128-wide u tile, which a finish kernel reduces.
 * :func:`edge_latency_structured` (K2) replaces
   ``repro.kernels.edge_latency.edge_latency_structured_pallas``.  It is
   bound by HBM bytes (x_i and x_j are read once; R ≪ V), so it streams u
@@ -51,10 +54,12 @@ KERNELS = ("edge_latency_dense", "edge_latency_structured",
            "edge_latency_structured_single_tile")
 launches = {name: 0 for name in KERNELS}
 
-# the shared memory one CTA may opt in to on Hopper (227 KB), and the edge
-# rows a single-tile CTA stages (T_ROWS in csrc/edge_latency.cu)
+# the shared memory one CTA may opt in to on Hopper (227 KB), the edge
+# rows a single-tile CTA stages (T_ROWS in csrc/edge_latency.cu) and K1's
+# u tile (K1_BN), one partial max per row and u tile
 SMEM_LIMIT = 232_448
 TILE_ROWS = 8
+DENSE_TILE_U = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -70,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = build.load("edge_latency")
-        lib.edge_latency_dense_launch.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        lib.edge_latency_dense_launch.argtypes = [_P] * 7 + [_I] * 10 + [_P]
         lib.edge_latency_dense_launch.restype = ctypes.c_int
         lib.edge_latency_structured_launch.argtypes = \
             [_P] * 6 + [_I] * 12 + [_P]
@@ -117,11 +122,14 @@ def _launch(name: str, tensors: tuple, ints: tuple) -> None:
 
 
 def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
-                       com: torch.Tensor) -> torch.Tensor:
+                       com: torch.Tensor, *,
+                       stage_sums: bool = True) -> torch.Tensor:
     """K1: x_i, x_j (B, E, V) with selectivity folded into x_i; com
     (B, V, V) or (1, V, V) → (B, E) ``max_u x_i·(com @ x_j)_u``.  A shared
     com (batch 1) is read with batch stride 0 and the (B, E) rows are
-    flattened into one row axis, so it is never replicated."""
+    flattened into one row axis, so it is never replicated.
+    ``stage_sums=False`` launches the single-accumulator variant, which
+    only ``chip_smoke.py`` calls, to measure what the stage sums buy."""
     B, E, V = x_i.shape
     dev = x_i.device
     bc = com.shape[0]
@@ -135,8 +143,13 @@ def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
         return out
     shared = bc == 1
     n_batch, rows = (1, B * E) if shared else (B, E)
-    _launch("edge_latency_dense", (x_i, x_j, com, out),
-            (n_batch, rows, V, E * V, V, 0 if shared else V * V, V, E))
+    com_hi, com_lo = torch.empty_like(com), torch.empty_like(com)
+    partial = torch.empty((n_batch, -(-V // DENSE_TILE_U), rows),
+                          dtype=torch.float32, device=dev)
+    _launch("edge_latency_dense",
+            (x_i, x_j, com, com_hi, com_lo, partial, out),
+            (n_batch, rows, V, E * V, V, 0 if shared else V * V, V, E,
+             com.numel(), int(stage_sums)))
     return out
 
 

@@ -3,9 +3,12 @@
 :func:`flash_attention` replaces the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``;
 ``csrc/flash_attention.cu``'s header says what bounds it and how it is
-tiled.  It reads the (B, S, H, D) operands through their strides (no
-transposes), takes any S (the ragged tile is masked inside the kernel) and
-writes a new contiguous (B, S, H, D) output in q's dtype.
+tiled: bfloat16 operands run on the tensor cores (wgmma, TMA loads from a
+producer warp), float32 operands on the CUDA cores, chosen by dtype before
+the launch.  It reads the (B, S, H, D) operands through their strides (no
+transposes; the bf16 route describes them to TMA as 4-D tensor maps),
+takes any S (the ragged tile is masked inside the kernel) and writes a new
+contiguous (B, S, H, D) output in q's dtype.
 
 The wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to
@@ -45,7 +48,7 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = build.load("flash_attention")
         lib.flash_attention_launch.argtypes = \
-            [_P] * 4 + [_I] * 19 + [ctypes.c_float, _P]
+            [_P] * 4 + [_I] * 19 + [ctypes.c_double, _P]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p

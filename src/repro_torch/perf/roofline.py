@@ -9,9 +9,14 @@ kernels' bounds (:func:`edge_latency_single_tile_terms`,
   compute_s = FLOPs / peak (FP32 by default)
   memory_s  = bytes / HBM_BW
 
-The edge-latency kernels compute in full FP32 on the CUDA cores (TF32
-tensor cores miss the 1e-5 accuracy bar), so their compute peak is the
-FP32 non-tensor rate.  Attention on bf16 operands is priced at the bf16
+The dense edge-latency kernels (K1, K4a) run on the tensor cores in split
+TF32 — three TF32 products per multiply-add, since one TF32 product misses
+the 1e-5 accuracy bar — so their least time is three times their
+operations at the TF32 tensor-core rate (:func:`edge_latency_dense_terms`;
+``route="fp32"`` prices the same work on the CUDA cores, the route they
+replaced).  The structured ones compute in FP32 on the CUDA cores.  The
+admission pricer keeps its FP32 prior for every kernel: its calibration
+absorbs the gap.  Attention on bf16 operands is priced at the bf16
 tensor-core rate, the least time the card could take for it, and so is
 the SSD scan on bf16 operands.  RMSNorm is priced at the FP32 rate: its
 few operations per element never reach a tensor core.  The rates
@@ -29,15 +34,17 @@ import dataclasses
 PEAK_FLOPS = 67e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): dense bf16 tensor cores
 PEAK_BF16_TC = 989e12
+# NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): dense TF32 tensor cores
+PEAK_TF32_TC = 495e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
 
-__all__ = ["RooflineTerms", "compute_terms",
+__all__ = ["RooflineTerms", "compute_terms", "edge_latency_dense_terms",
            "edge_latency_single_tile_terms",
            "edge_latency_structured_single_tile_terms",
            "flash_attention_terms",
            "ssd_scan_terms", "rmsnorm_terms", "PEAK_FLOPS", "PEAK_BF16_TC",
-           "HBM_BW"]
+           "PEAK_TF32_TC", "HBM_BW"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,15 +77,27 @@ def compute_terms(flops: float, bytes_: float,
                          flops=flops, bytes=bytes_)
 
 
-def edge_latency_single_tile_terms(B: int, E: int, V: int,
-                                   com_batch: int) -> RooflineTerms:
-    """The least time for K4a (K1's function) on float32 operands:
-    ``2·B·E·V²`` operations (a multiply-add per (e, u, v)) at the FP32
-    rate; bytes: x_i and x_j (B, E, V) and the (com_batch, V, V) com read
-    once, the (B, E) output written once."""
+def edge_latency_dense_terms(B: int, E: int, V: int, com_batch: int,
+                             route: str = "split_tf32") -> RooflineTerms:
+    """The least time for K1's function on float32 operands: ``2·B·E·V²``
+    operations (a multiply-add per (e, u, v)), priced for ``route``
+    "split_tf32" (three TF32 products each, at the TF32 tensor-core rate)
+    or "fp32" (at the FP32 CUDA-core rate); bytes: x_i and x_j (B, E, V)
+    and the (com_batch, V, V) com read once, the (B, E) output written
+    once."""
+    peaks = {"split_tf32": PEAK_TF32_TC / 3, "fp32": PEAK_FLOPS}
+    if route not in peaks:
+        raise ValueError(f"unknown route {route!r}; known: {sorted(peaks)}")
     flops = 2.0 * B * E * V * V
     bytes_ = 4.0 * (2 * B * E * V + com_batch * V * V + B * E)
-    return compute_terms(flops, bytes_)
+    return compute_terms(flops, bytes_, peak=peaks[route])
+
+
+def edge_latency_single_tile_terms(B: int, E: int, V: int,
+                                   com_batch: int) -> RooflineTerms:
+    """The least time for K4a, which runs K1's split-TF32 arithmetic:
+    :func:`edge_latency_dense_terms`."""
+    return edge_latency_dense_terms(B, E, V, com_batch)
 
 
 def edge_latency_structured_single_tile_terms(B: int, E: int, V: int, R: int,

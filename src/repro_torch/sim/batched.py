@@ -49,7 +49,7 @@ from repro_torch.core.objectives import (ObjectiveGrids, ObjectiveSet,
 from repro_torch.core.torchmodel import (_edge_tensors, critical_path_dp,
                                          edge_endpoints, links_term,
                                          make_edge_latencies_com_fn,
-                                         region_onehot,
+                                         region_onehot, require_fp32_matmul,
                                          structured_edge_latency)
 from repro_torch.kernels import dispatch
 from repro_torch.sim.execache import ExecutableCache, executable_cache, \
@@ -387,6 +387,8 @@ class BatchedEvaluator:
                  for s in obj_set.specs}
         stacked = torch.stack([grids[n] for n in obj_set.names])  # (K, S, P)
         weights = self._tensor(np.asarray(obj_set.weights, np.float32))
+        # a cuBLAS product on the card: refused while TF32 matmuls are on
+        require_fp32_matmul(stacked, "the objective-set scalarization")
         scal = torch.einsum("k,ksp->sp", weights, stacked)
         return ObjectiveGrids(names=obj_set.names, grids=grids,
                               scalarized=scal, weights=obj_set.weights)

@@ -281,3 +281,126 @@ def test_five_objective_grid_on_the_card_matches_the_cpu(card):
                                        atol=1e-6, err_msg=name)
         np.testing.assert_allclose(got.scalarized, want.scalarized,
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_attention_routes_at_every_head_dim_on_the_card(card, dtype, D):
+    """K5's route for the dtype (bf16: tensor cores; float32: CUDA cores)
+    at every head dim it builds, at ragged S (one partial key tile, and a
+    partial q tile under several key tiles), on strided views of one
+    (B, S, 3H, D) tensor, causal and full: within the bar of its plain
+    version, equal to its contiguous copies and bitwise on a repeat."""
+    rng = np.random.default_rng(40 + D)
+    dt = getattr(torch, dtype)
+    for S in (37, 300):
+        big = torch.from_numpy(rng.standard_normal((2, S, 6, D))
+                               .astype(np.float32)).to(card).to(dt)
+        q, k, v = big[:, :, 0:2], big[:, :, 2:4], big[:, :, 4:6]
+        for causal in (True, False):
+            got = fa.flash_attention(q, k, v, causal=causal)
+            if dtype == "float32":
+                want = ref.flash_attention_plain(q.double(), k.double(),
+                                                 v.double(), causal=causal)
+                bar = 1e-5
+            else:
+                want = ref.flash_attention_plain(q, k, v, causal=causal)
+                bar = 1e-2
+            err = (got.double() - want.double()).abs().max()
+            assert float(err / want.double().abs().max()) <= bar, (S, causal)
+            assert torch.equal(got, fa.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal))
+            assert torch.equal(got, fa.flash_attention(q, k, v,
+                                                       causal=causal))
+
+
+@pytest.mark.cuda
+def test_dense_kernel_at_serving_v_on_the_card(card):
+    """K1 (split TF32, 32-deep stage sums) at V 4096 on 64 rows of
+    placements and a region-cost com, shared and per-scenario: within 1e-5
+    of float64 and bitwise on a repeat."""
+    rng = np.random.default_rng(41)
+    V, E = 4096, 16
+
+    def place(B):
+        w = rng.exponential(1.0, (B, E, V)) * (rng.random((B, E, V)) < 0.05)
+        w[..., 0] += 1e-3
+        return torch.from_numpy((w / w.sum(-1, keepdims=True))
+                                .astype(np.float32)).to(card)
+
+    region = rng.integers(0, 8, V)
+    base = rng.uniform(0.5, 4.0, (8, 8))
+    com = torch.from_numpy((base[region][:, region]
+                            * rng.lognormal(0.0, 0.25, (V, V)))
+                           .astype(np.float32)).to(card)
+    for B, c in ((4, com[None]), (2, torch.stack([com, com.flip(0)]))):
+        x_i, x_j = place(B) * 0.7, place(B)
+        got = ek.edge_latency_dense(x_i, x_j, c)
+        want = ref.edge_latency_dense_plain(x_i.double(), x_j.double(),
+                                            c.double())
+        assert float((got.double() - want).abs().max()
+                     / want.abs().max()) <= 1e-5
+        assert torch.equal(got, ek.edge_latency_dense(x_i, x_j, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_single_tile_dense_equals_k1_across_single_tile_shapes(card, shared):
+    """K4a == K1 bitwise at every V class of a single tile (below one n8
+    tile, ragged stages, one full stage, the largest V K4a accepts) and at
+    E that leaves a partial CTA of rows."""
+    rng = np.random.default_rng(42)
+    bc = 1 if shared else 3
+    for V in (1, 7, 31, 32, 33, 100, 129, ek.single_tile_max_v()):
+        for E in (1, 9):
+            d = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(card) for s in ((3, E, V), (3, E, V), (bc, V, V))]
+            got = ek.edge_latency_dense_single_tile(*d)
+            assert torch.equal(got, ek.edge_latency_dense(*d)), (V, E)
+
+
+@pytest.mark.cuda
+def test_tf32_switches_cannot_change_structured_or_scalarized_grids(card):
+    """With TF32 matmuls switched on (either switch), a structured
+    score_grid and a multi-objective scalarization raise instead of
+    running their cuBLAS products in TF32; with both off they run; the
+    switches are restored afterwards."""
+    rng = np.random.default_rng(43)
+    g = random_dag(5, 0.5, rng)
+    region = rng.integers(0, 3, 30)
+    fleets = [RegionFleet(region=region, inter=np.full((3, 3), 0.5),
+                          degrade=rng.uniform(1.0, 2.0, 30))
+              for _ in range(2)]
+    xs = np.stack([random_placement(5, np.ones((5, 30), bool), rng, 0.5)
+                   for _ in range(4)]).astype(np.float32)
+    ev = BatchedEvaluator(g, device=card)
+    pack = pack_region_fleets(fleets)
+    obj = ObjectiveSet.of("latency_f", "occupancy_max")
+    was_tf32 = torch.backends.cuda.matmul.allow_tf32
+    was_prec = torch.get_float32_matmul_precision()
+    try:
+        for switch in ("allow_tf32", "precision"):
+            # "highest" also clears allow_tf32, so it is set first
+            torch.set_float32_matmul_precision(
+                "high" if switch == "precision" else "highest")
+            if switch == "allow_tf32":
+                torch.backends.cuda.matmul.allow_tf32 = True
+            with pytest.raises(RuntimeError, match="region masses"):
+                ev.score_grid(xs, pack)
+            # latency_f and an occupancy need no guarded product of their
+            # own, so the scalarization is the one that refuses
+            with pytest.raises(RuntimeError, match="scalarization"):
+                ev.score_grid(xs, pack_fleets(fleets), objectives=obj)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        assert np.isfinite(ev.score_grid(xs, pack).cpu().numpy()).all()
+        assert np.isfinite(ev.score_grid(xs, pack_fleets(fleets),
+                                         objectives=obj).to_host()
+                           .scalarized).all()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was_tf32
+        torch.set_float32_matmul_precision(was_prec)
+    assert torch.backends.cuda.matmul.allow_tf32 == was_tf32
+    assert torch.get_float32_matmul_precision() == was_prec
