@@ -12,7 +12,9 @@ Phases, each raising on a failed check:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every ``src/repro_torch/kernels/csrc/*.cu`` (``edge_latency.cu``,
    ``flash_attention.cu``, ``ssd_scan.cu``, ``rmsnorm.cu``) compiled with
-   ``nvcc`` for ``sm_90a``, all in parallel, ptxas register / spill lines;
+   ``nvcc`` for ``sm_90a``, all in parallel; per kernel its ptxas
+   registers and spills and, from ``cuobjdump -sass``, its tensor-core
+   instructions and warpgroup syncs;
 2. kernels: each CUDA kernel against its plain PyTorch version computed in
    float64 on the card, ≤1e-5 relative (max |err| / max |want|), bitwise
    equal on a repeat launch — at the serving shapes, at V ∈ {7, 129, 300}
@@ -20,7 +22,7 @@ Phases, each raising on a failed check:
    {1, 8} for the structured kernel) and on all-negative operands; kernel,
    plain and library times at the serving shapes beside the roofline bound
    (for K1 the split-TF32 tensor-core bound of its route beside the FP32
-   CUDA-core one, and its error with and without the 32-deep stage sums);
+   CUDA-core one, and its error with the 32-deep stage sums);
 3. serve_dense: ``WhatIfService`` on a 12-operator DAG, dense fleets of
    V = 4096 devices, S = 4 scenarios; three tenants send score, rank and
    joint queries totalling 1024 rows (one full chunk);
@@ -119,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -195,6 +198,58 @@ GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def kernel_label(sym: str) -> str:
+    """``name<args>`` for a mangled kernel symbol: the last source name of
+    its nested name and its integer / bool template arguments."""
+    i, name = (3 if sym.startswith("_ZN") else 2), sym
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+    if not sym.startswith("I", i):
+        return name
+    args = re.findall(r"L[ib](\d+)E", sym[i:sym.find("EE", i) + 2])
+    return f"{name}<{', '.join(args)}>"
+
+
+def kernel_resources(log: str, sass: str) -> dict[str, dict]:
+    """Per kernel of one library, from its ``ptxas -v`` log and its
+    ``cuobjdump -sass`` listing: registers, spill bytes (stores + loads),
+    the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) and the
+    warpgroup syncs (WARPGROUP.ARRIVE before a wgmma batch reads
+    registers, WARPGROUP.DEPBAR where a thread waits for wgmmas), and any
+    ptxas remark on wgmma (serialized wgmmas are reported so)."""
+    out: dict[str, dict] = {}
+
+    def entry(sym):
+        return out.setdefault(kernel_label(sym), {
+            "registers": None, "spill_bytes": None, "HGMMA": 0, "HMMA": 0,
+            "WARPGROUP.ARRIVE": 0, "WARPGROUP.DEPBAR": 0, "remarks": []})
+
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
+                      line.strip())
+        if m:
+            cur = entry(m.group(1))
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)) and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and cur:
+            cur["registers"] = int(m.group(1))
+        if "wgmma" in line:
+            sym = re.search(r"'(_Z\w+)'", line)
+            (entry(sym.group(1)) if sym else cur or entry("?"))[
+                "remarks"].append(line.strip())
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        sym, _, body = block.partition("\n")
+        k = entry(sym.strip())
+        for op in ("HGMMA", "HMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR"):
+            k[op] = len(re.findall(rf"\b{re.escape(op)}\b", body))
+    return out
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -1086,10 +1141,18 @@ def main() -> int:
     print(f"build: {build_s:.1f} s for "
           + ", ".join(f"{r.path.name} (nvcc {r.seconds:.1f} s)"
                       for r in built))
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     for r in built:
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{r.name}]: {line.strip()}")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(r.path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for k, use in kernel_resources(r.log, sass).items():
+            tc = ", ".join(f"{op} {n}" for op, n in use.items()
+                           if op != "remarks" and op.isupper() and n)
+            print(f"  ptxas[{r.name}] {k}: {use['registers']} registers, "
+                  f"{use['spill_bytes']} spill bytes"
+                  + (f"; SASS {tc}" if tc else "")
+                  + "".join(f"; {m}" for m in use["remarks"]))
     print("kernels: " + "; ".join(
         f"{k} (cuda, {SOURCES[k]}, replaces {REPLACES[k]})"
         for k in SOURCES))
@@ -1203,12 +1266,6 @@ def main() -> int:
     # CUDA-core route it replaced, for the same work
     terms = edge_latency_dense_terms(B, E, V, 1)
     fp32_terms = edge_latency_dense_terms(B, E, V, 1, route="fp32")
-    # what the 32-deep stage sums buy: the same products in one tensor-core
-    # accumulator over all of V
-    single_rel, _ = rel_err(
-        kernels.edge_latency_dense(xi, xj, com, stage_sums=False),
-        ref.edge_latency_dense_plain(xi.double(), xj.double(),
-                                     com.double()))
     report["edge_latency_dense"] = {
         "max_abs_err": err, "rel_err": rel,
         "ms": time_ms(lambda: kernels.edge_latency_dense(xi, xj, com), 5),
@@ -1224,8 +1281,7 @@ def main() -> int:
           f"multiply-add at {PEAK_TF32_TC / 1e12:.0f} TFLOP/s); the FP32 "
           f"CUDA-core bound for the same work "
           f"{fp32_terms.step_time_s * 1e3:.3f} ms; rel err to float64 with "
-          f"32-deep stage sums {rel:.3e}, with one accumulator "
-          f"{single_rel:.3e} (bar {REL})")
+          f"32-deep stage sums {rel:.3e} (bar {REL})")
     del x, xi, xj, com
     # K2 at the serving shape: the 256-row chunk against one scenario
     x = torch.as_tensor(struct_x, device=dev)

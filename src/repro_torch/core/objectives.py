@@ -191,7 +191,9 @@ def _make_structured_movement(weighted: bool):
                 return _pair_mass(x, src, dst) @ w
             # Σ_{u≠v} d_u·d_v·inter[r_u,r_v]·x_iu·x_jv as a degrade-weighted
             # region-mass quadratic form minus the u == v diagonal, with the
-            # (P, n_ops, R) masses formed ONCE per placement batch
+            # (P, n_ops, R) masses formed ONCE per placement batch; the
+            # quadratic form is a cuBLAS float32 product too
+            require_fp32_matmul(x, "the movement objectives")
             mass = region_mass(x, degrade[None], onehot)     # (P, n_ops, R)
             quad = torch.einsum("per,rq,peq->pe", mass[:, src], inter,
                                 mass[:, dst])

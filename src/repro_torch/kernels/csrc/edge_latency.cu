@@ -20,9 +20,11 @@
 //   consumer warpgroups, 128 x 128 CTA tiles, a 4-deep cp.async ring in the
 //   swizzled layout, a persistent grid, partial maxima per u tile and a
 //   finish kernel).  The tensor cores' own f32 accumulation is
-//   undocumented; measured on the H100 at the serving shape, one
-//   accumulator over V = 4096 misses the bar (1.05e-5 of float64) while
-//   32-deep stage sums reach 5.3e-7.  So each 32-deep v stage accumulates
+//   undocumented, so v is summed in stages wherever one accumulator over V
+//   drifts past ~3e-6 of float64 at the serving shape.  Measured on an
+//   H100 80GB HBM3 (700 W) at B 1024, E 21, V 4096, one accumulator read
+//   1.05e-5 and 9.1e-6 of float64 in two runs, 32-deep stage sums 5.3e-7
+//   and 3.5e-7 (PERF.md).  So each 32-deep v stage accumulates
 //   in a fresh accumulator and the stages are added on the CUDA cores in
 //   ascending v with round-to-nearest fadd.  A shared com (com batch 1,
 //   the (1, V, V) scenario the score grid sends) has batch stride 0 and
@@ -287,10 +289,10 @@ __global__ void edge_latency_dense_split_kernel(const float* __restrict__ x,
   }
 }
 
-// STAGED: the 32-deep stage sums of the design; false accumulates the whole
-// v range in the tensor cores' accumulator (kept to measure what the stage
-// sums buy).  VEC: 16-byte copies (V % 4 == 0).
-template <bool STAGED, bool VEC>
+// Each 32-deep v stage accumulates in a fresh accumulator (acc) that is
+// added to the running sum on the CUDA cores.  VEC: 16-byte copies
+// (V % 4 == 0).
+template <bool VEC>
 __global__ void __launch_bounds__(K1_THREADS, 1)
 edge_latency_dense_kernel(const float* __restrict__ xi,
                           const float* __restrict__ xj,
@@ -400,18 +402,14 @@ edge_latency_dense_kernel(const float* __restrict__ xi,
       for (int kk = 0; kk < STAGE_V / 8; ++kk) {
         const uint64_t dh = make_desc(st + K1_TILE + kk * 32);
         const uint64_t dl = make_desc(st + 2 * K1_TILE + kk * 32);
-        const int fresh = STAGED ? kk == 0 : kt == 0 && kk == 0;
-        float (&d)[64] = STAGED ? acc : sum;
-        wgmma_tf32_n128(d, alo[kk], dh, !fresh);
-        wgmma_tf32_n128(d, ahi[kk], dl, 1);
-        wgmma_tf32_n128(d, ahi[kk], dh, 1);
+        wgmma_tf32_n128(acc, alo[kk], dh, kk != 0);
+        wgmma_tf32_n128(acc, ahi[kk], dl, 1);
+        wgmma_tf32_n128(acc, ahi[kk], dh, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
-      if constexpr (STAGED) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sum[i] += acc[i];
-      }
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
     }
     cp_async_wait<0>();
 
@@ -692,7 +690,7 @@ extern "C" {
 // gives com_hi and com_lo, scratch of com's n_com floats, and partial, a
 // (n_batch, ceil(V / 128), rows) float32 scratch.  Three launches: the
 // split of com, a persistent grid of (CTAs per SM) x (SMs) over the tiles,
-// and the finish.  stage_sums = 0 selects the single-accumulator variant.
+// and the finish.
 int edge_latency_dense_launch(const float* xi, const float* xj,
                               const float* com, float* com_hi, float* com_lo,
                               float* partial, float* out,
@@ -700,19 +698,15 @@ int edge_latency_dense_launch(const float* xi, const float* xj,
                               int64_t x_bs, int64_t x_rs,
                               int64_t com_bs, int64_t com_rs,
                               int64_t out_bs, int64_t n_com,
-                              int64_t stage_sums, void* stream) {
+                              void* stream) {
   if (n_batch < 1 || rows < 1 || V < 1 || n_com < 1)
     return (int)cudaErrorInvalidConfiguration;
   const bool vec = V % 4 == 0 && x_rs % 4 == 0 && x_bs % 4 == 0 &&
                    com_rs % 4 == 0 && com_bs % 4 == 0 &&
                    (uintptr_t)xj % 16 == 0 && (uintptr_t)com_hi % 16 == 0 &&
                    (uintptr_t)com_lo % 16 == 0;
-  using K1Fn = decltype(&edge_latency_dense_kernel<true, true>);
-  const K1Fn kern = stage_sums
-      ? (vec ? edge_latency_dense_kernel<true, true>
-             : edge_latency_dense_kernel<true, false>)
-      : (vec ? edge_latency_dense_kernel<false, true>
-             : edge_latency_dense_kernel<false, false>);
+  const auto kern = vec ? edge_latency_dense_kernel<true>
+                        : edge_latency_dense_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K1_SMEM);
   if (err != cudaSuccess) return (int)err;

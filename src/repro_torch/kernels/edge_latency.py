@@ -75,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = build.load("edge_latency")
-        lib.edge_latency_dense_launch.argtypes = [_P] * 7 + [_I] * 10 + [_P]
+        lib.edge_latency_dense_launch.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.edge_latency_dense_launch.restype = ctypes.c_int
         lib.edge_latency_structured_launch.argtypes = \
             [_P] * 6 + [_I] * 12 + [_P]
@@ -122,14 +122,11 @@ def _launch(name: str, tensors: tuple, ints: tuple) -> None:
 
 
 def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
-                       com: torch.Tensor, *,
-                       stage_sums: bool = True) -> torch.Tensor:
+                       com: torch.Tensor) -> torch.Tensor:
     """K1: x_i, x_j (B, E, V) with selectivity folded into x_i; com
     (B, V, V) or (1, V, V) → (B, E) ``max_u x_i·(com @ x_j)_u``.  A shared
     com (batch 1) is read with batch stride 0 and the (B, E) rows are
-    flattened into one row axis, so it is never replicated.
-    ``stage_sums=False`` launches the single-accumulator variant, which
-    only ``chip_smoke.py`` calls, to measure what the stage sums buy."""
+    flattened into one row axis, so it is never replicated."""
     B, E, V = x_i.shape
     dev = x_i.device
     bc = com.shape[0]
@@ -149,7 +146,7 @@ def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
     _launch("edge_latency_dense",
             (x_i, x_j, com, com_hi, com_lo, partial, out),
             (n_batch, rows, V, E * V, V, 0 if shared else V * V, V, E,
-             com.numel(), int(stage_sums)))
+             com.numel()))
     return out
 
 

@@ -235,3 +235,59 @@ def test_roofline_and_pricer_use_the_h100_rates():
     s = DispatchPricer(n_edges=10, n_devices=131072, n_regions=8)
     assert roofline.compute_terms(1.0, 1.0).dominant == "memory"
     assert s.roofline_bound_s(4, 256) > 0.0
+
+
+_BF16 = ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea72tc27"
+         "flash_attention_bf16_kernelILi128EEEvPK13__nv_bfloat16S4_S4_PS2_"
+         "lllllllllllllllfi")
+_K1 = ("_ZN48_GLOBAL__N__a36f002b_15_edge_latency_cu_2a88329e25"
+       "edge_latency_dense_kernelILb1EEEvPKfS2_S2_S2_Pflllllll")
+_SPLIT = ("_ZN48_GLOBAL__N__a36f002b_15_edge_latency_cu_2a88329e31"
+          "edge_latency_dense_split_kernelEPKfPfS2_l")
+_PLAIN = "_Z14rmsnorm_kernelPKvPKfPvllf"
+
+
+@pytest.mark.parametrize("sym, label", [
+    (_BF16, "flash_attention_bf16_kernel<128>"),
+    (_K1, "edge_latency_dense_kernel<1>"),
+    (_SPLIT, "edge_latency_dense_split_kernel"),
+    (_PLAIN, "rmsnorm_kernel")])
+def test_chip_smoke_labels_mangled_kernels(sym, label):
+    assert _chip_smoke().kernel_label(sym) == label
+
+
+def test_chip_smoke_reads_kernel_resources_from_ptxas_and_sass():
+    """The build report: registers and spills from ``ptxas -v``, the
+    tensor-core instructions and warpgroup syncs from ``cuobjdump -sass``,
+    and ptxas's wgmma remarks, per kernel."""
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{_BF16}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_BF16}",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+        f"instructions are serialized in the function '{_BF16}'",
+        f"ptxas info    : Compiling entry function '{_SPLIT}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {_SPLIT}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 12 registers, used 0 barriers"])
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {_BF16}",
+        "  /*0100*/  WARPGROUP.ARRIVE ;",
+        "  /*0110*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], RZ, !UPT, gsb0 ;",
+        "  /*0120*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;",
+        "  /*0130*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;",
+        f"\t\tFunction : {_SPLIT}",
+        "  /*0000*/  FADD R2, R0, -R1 ;"])
+    res = _chip_smoke().kernel_resources(log, sass)
+    fa = res["flash_attention_bf16_kernel<128>"]
+    assert (fa["registers"], fa["spill_bytes"]) == (168, 12)
+    assert (fa["HGMMA"], fa["WARPGROUP.ARRIVE"],
+            fa["WARPGROUP.DEPBAR"], fa["HMMA"]) == (2, 1, 1, 0)
+    assert len(fa["remarks"]) == 1 and "serialized" in fa["remarks"][0]
+    split = res["edge_latency_dense_split_kernel"]
+    assert (split["registers"], split["spill_bytes"], split["HGMMA"],
+            split["remarks"]) == (12, 0, 0, [])
+    assert set(res) == {"flash_attention_bf16_kernel<128>",
+                        "edge_latency_dense_split_kernel"}

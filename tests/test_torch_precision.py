@@ -23,9 +23,10 @@ float64 oracle:
   (1e-2 relative, ``BF16_REL``) of the Pallas kernel in interpret mode and
   of ``flash_attention_plain``.
 
-And the FP32 guard of the structured path (C1): the region-mass product
-and the objective-set scalarization ask :func:`require_fp32_matmul`, which
-refuses card tensors while TF32 matmuls are on.
+And the FP32 guard of the structured path (C1): the region-mass product,
+the structured movement's quadratic form and the objective-set
+scalarization ask :func:`require_fp32_matmul`, which refuses card tensors
+while TF32 matmuls are on.
 
 The emulation helpers live here, on no path of the port.
 """
@@ -43,6 +44,7 @@ from repro.kernels import ops  # noqa: E402
 from repro.kernels.edge_latency import edge_latency_pallas  # noqa: E402
 from repro_torch.core import OBJECTIVES, ObjectiveSet, RegionFleet  # noqa: E402
 from repro_torch.core import torchmodel  # noqa: E402
+from repro_torch.core import objectives as objectives_module  # noqa: E402
 from repro_torch.core.graph import random_dag  # noqa: E402
 from repro_torch.core.placement import random_placement  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -290,6 +292,17 @@ def test_scalarization_consults_the_fp32_guard(monkeypatch):
         xs, pack_region_fleets(fleets),
         objectives=ObjectiveSet.of(*OBJECTIVES))
     assert seen == ["the objective-set scalarization"]
+
+
+def test_structured_movement_consults_the_fp32_guard(monkeypatch):
+    """The weighted movement's quadratic form asks the guard itself, not
+    only through the region masses it reads."""
+    seen = _recorder(monkeypatch, objectives_module)
+    g, fleets, xs = _structured_instance(3)
+    BatchedEvaluator(g, device="cpu").score_grid(
+        xs, pack_region_fleets(fleets),
+        objectives=ObjectiveSet.of(*OBJECTIVES))
+    assert "the movement objectives" in seen
 
 
 def test_fp32_guard_refuses_card_tensors_while_tf32_is_on():
