@@ -94,10 +94,19 @@ bitwise equal.
    differences lose digits over a 256-row chunk), bfloat16 inputs at ≤1e-2
    against the plain version in float32 math — bitwise equal on a repeat
    launch.  K6 at the tests/test_kernels.py shapes, ragged L (in one chunk
-   and over several chunks at P = 64, N = 128, chunk 256) and the serving
-   shape of one lm_score shard (b 11, L 2048, H 64, P 64, N 128, chunk
-   256; x, B, C read as strided views of one conv output, as the model
-   passes them); K7 at vectorised, scalar and unaligned rows and at the
+   and over several chunks at P = 64, N = 128, chunk 256), with slow decay
+   at L 2048 (8 chunks) and a ragged L 1900, and the serving shape of one
+   lm_score shard (b 11, L 2048, H 64, P 64, N 128, chunk 256; x, B, C read
+   as strided views of one conv output, as the model passes them), once
+   more with slow decay.  For each slow-decay input it prints the share of
+   y that states older than one chunk carry (the plain version against
+   itself on two-chunk windows), so a kernel that lost them would fail.
+   Every bfloat16 case must take K6's tensor-core route; at the serving
+   shape it prints the launches per pass, the CTAs, each pass's device
+   time, the bytes the design moves beside the bound, and the numerics
+   candidates (w⊙x, M, S rounded to bf16 once, as bf16 hi + lo, or to
+   TF32, emulated in torch) against the plain version; K7 at vectorised,
+   scalar and unaligned rows and at the
    serving shapes (22 528 rows × 2048, the block norm, and × 4096, the gate
    norm).  Kernel, plain and bound times at the serving shapes, and
    ``torch.nn.functional.rms_norm`` for K7 (timed as a yardstick only,
@@ -186,6 +195,15 @@ SSM_ARCH = "mamba2_1_3b"
 SSD_CASES = [(2, 64, 8, 16, 16, 16), (1, 128, 4, 32, 8, 16),
              (2, 32, 2, 8, 4, 16), (1, 20, 5, 8, 16, 8),
              (2, 300, 6, 64, 128, 256), (1, 700, 3, 64, 128, 256)]
+# K6 cases with slow decay (dt = softplus(z - 6), A = -0.05 (1 + jitter)),
+# where states older than one chunk carry a large share of y: 8 chunks at
+# the model's P, N, chunk, and a ragged L
+SSD_SLOW_CASES = [(1, 2048, 4, 64, 128, 256), (2, 1900, 3, 64, 128, 256)]
+# the operand roundings K6's tensor-core route could take (emulated)
+SSD_CANDIDATES = ("bf16", "bf16_hilo", "tf32")
+# K6's chunk-parallel grid at the serving shape: at least this many CTAs
+# (the sequential design had one per (batch, 4 heads): 176)
+SSD_MIN_CTAS = 1000
 # K7 cases (rows, D, offset): vectorised and scalar rows (D % 8 != 0 for
 # bf16, D = 37), and an offset of one element (rows not 16-byte aligned)
 RMS_CASES = [(1, 64, 0), (3, 100, 0), (7, 2048, 0), (5, 128, 0),
@@ -442,13 +460,16 @@ def attention_phase(torch, dev, serving: tuple) -> dict:
     return r
 
 
-def ssd_operands(torch, gen, dev, b, L, H, P, N, dtype, model_like=False):
+def ssd_operands(torch, gen, dev, b, L, H, P, N, dtype, model_like=False,
+                 slow=False):
     """x (b, L, H, P) and B, C (b, L, N) in ``dtype``, dt (b, L, H), A, D
     (H,) float32.  Case inputs follow tests/test_kernels.py (dt =
     softplus(z)/2, A = −exp(0.3 z)); ``model_like`` ones follow the Mamba2
     forward (dt = softplus(z − 2), A = −linspace(1, 16, H)) and are read as
     views of one (b, L, H·P + 2N) tensor, the conv output the model
-    slices them from."""
+    slices them from.  ``slow``: dt = softplus(z − 6), A = −0.05·(1 + 0.1u),
+    so states older than one chunk still carry weight (with the other
+    decays exp(total) over a chunk is below 1e-14)."""
     import torch.nn.functional as F
 
     def randn(*shape):
@@ -465,7 +486,101 @@ def ssd_operands(torch, gen, dev, b, L, H, P, N, dtype, model_like=False):
         B, C = (randn(b, L, N) * 0.5).to(dtype), (randn(b, L, N) * 0.5).to(dtype)
         dt = F.softplus(randn(b, L, H)) * 0.5
         A = -torch.exp(randn(H) * 0.3)
+    if slow:
+        dt = F.softplus(randn(b, L, H) - 6.0)
+        A = -0.05 * (1.0 + 0.1 * torch.rand(H, generator=gen, device=dev))
     return x, B, C, dt, A, randn(H)
+
+
+def older_state_share(torch, plain, args) -> float:
+    """How much of y the states older than one chunk carry: max |y − y₂| /
+    max |y| in float64, with y₂ the plain version run on two-chunk windows
+    (chunk c's rows from a run over chunks c − 1 and c).  A kernel that
+    dropped those states would be this far off."""
+    x, B, C, dt, A, D, chunk = args
+    L = x.shape[1]
+    Q = min(chunk, L)
+    f64 = [t.double() for t in (x, B, C, dt, A, D)]
+    y = plain(*f64, chunk)
+    y2 = y.clone()
+    for c0 in range(Q, L, Q):
+        w = slice(c0 - Q, min(c0 + Q, L))
+        y2[:, c0:w.stop] = plain(*(t[:, w] for t in f64[:4]), *f64[4:],
+                                 chunk)[:, Q:]
+    return float((y - y2).abs().max() / y.abs().max())
+
+
+def ssd_three_pass(torch, x, B, C, dt, A, D, chunk, operand=None):
+    """K6's tensor-core route in torch: chunk states s_c = Bᵀ(w ⊙ x), state
+    passing S_{c+1} = exp(total_c)·S_c + s_c, output M·x + exp(cum_i)·C·S_c
+    + D·x, in x's promoted dtype (float32 for bf16).  ``operand`` rounds
+    the three tensor-core operands that are not inputs (w ⊙ x, M and S)
+    before their products: "bf16" (the kernel's choice), "bf16_hilo" (hi +
+    lo, two products) or "tf32"; None keeps them exact.  Returns y in x's
+    dtype."""
+    dtype, ct = x.dtype, torch.promote_types(x.dtype, torch.float32)
+
+    def rnd(t):
+        if operand is None:
+            return t
+        if operand == "tf32":     # cvt.rna: half an ulp up, low 13 bits off
+            b = t.float().contiguous().view(torch.int32)
+            return ((b + 0x1000) & ~0x1FFF).view(torch.float32).to(ct)
+        hi = t.to(torch.bfloat16).to(ct)
+        if operand == "bf16":
+            return hi
+        return hi + (t - hi).to(torch.bfloat16).to(ct)
+
+    F = torch.nn.functional
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    n = -(-L // Q)
+    pad = n * Q - L
+    x, B, C, dt = (F.pad(t.to(ct), (0, 0) * (t.dim() - 2) + (0, pad))
+                   for t in (x, B, C, dt))
+    A, D = A.to(ct), D.to(ct)
+    xs, Bs, Cs = x.view(b, n, Q, H, P), B.view(b, n, Q, N), C.view(b, n, Q, N)
+    dts = dt.view(b, n, Q, H)
+    dA = dts * A
+    cum = torch.cumsum(dA, 2)
+    rev = torch.flip(torch.cumsum(torch.flip(dA, [2]), 2), [2]) - dA
+    s = torch.einsum("bcjN,bcjhp->bchNp", Bs,
+                     rnd((torch.exp(rev) * dts)[..., None] * xs))
+    S = torch.zeros((b, n, H, N, P), dtype=ct, device=x.device)
+    for c in range(1, n):
+        S[:, c] = torch.exp(cum[:, c - 1, -1])[..., None, None] \
+            * S[:, c - 1] + s[:, c - 1]
+    del s
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c in range(n):
+        CB = torch.einsum("biN,bjN->bij", Cs[:, c], Bs[:, c])
+        M = CB[..., None] * torch.where(
+            mask[None, :, :, None],
+            torch.exp(cum[:, c, :, None, :] - cum[:, c, None, :, :]), 0.0) \
+            * dts[:, c, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", rnd(M), xs[:, c])
+        del M
+        y = y + torch.exp(cum[:, c])[..., None] * torch.einsum(
+            "biN,bhNp->bihp", Cs[:, c], rnd(S[:, c]))
+        ys.append(y + D[:, None] * xs[:, c])
+    return torch.cat(ys, 1)[:, :L].to(dtype)
+
+
+def ssd_design_bytes(b, L, H, P, N, Q) -> float:
+    """Bytes K6's three bf16 passes move at (b, L, H, P, N, Q): pass 1 reads
+    x, B and dt and writes the float32 chunk states and the cumsums; pass 2
+    reads the states and the chunk totals and writes the bf16 carried-in
+    states (N rounded up to 16, 64 columns); pass 3 reads x, B, C, dt and
+    the cumsums, the carried-in states once per 64-row tile, and writes
+    y."""
+    n = -(-L // Q)
+    x, bc, d = 2.0 * b * L * H * P, 2.0 * b * L * N, 4.0 * b * L * H
+    cum, s = 4.0 * b * n * H * Q, 4.0 * b * (n - 1) * H * N * P
+    sb = 2.0 * b * (n - 1) * H * (-(-N // 16) * 16) * 64
+    return (x + bc + d + s + cum) + (s + 4.0 * b * n * H + sb) \
+        + (x + 2 * bc + d + cum + sb * -(-Q // 64) + x)
 
 
 def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
@@ -481,11 +596,18 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst = {}
+    routes = {}                   # K6's route for each dtype, over all cases
 
     def hold(name, kernel, plain, args, widen, what):
         """``widen``: the f32 bar becomes the plain version's own float32
         error against float64 on these inputs where that is larger."""
+        before = dict(sk.route_launches)
         out, again = kernel(*args), kernel(*args)
+        if name == "ssd_scan":
+            took = [k for k in sk.ROUTES
+                    if sk.route_launches[k] - before[k] == 2]
+            check(len(took) == 1, f"ssd_scan {what}: routes {took}")
+            routes.setdefault(str(args[0].dtype), set()).add(took[0])
         f32 = args[0].dtype == torch.float32
         if f32:
             want = plain(*(a.double() if torch.is_tensor(a) else a
@@ -514,6 +636,18 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
             hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args, True,
                  f"(b={b} L={L} H={H} P={P} N={N} Q={Q}) {dtype}")
             cases += 1
+    for b, L, H, P, N, Q in SSD_SLOW_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (*ssd_operands(torch, gen, dev, b, L, H, P, N, dtype,
+                                  slow=True), Q)
+            what = f"(b={b} L={L} H={H} P={P} N={N} Q={Q}) {dtype} slow decay"
+            rel, _, bar = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain,
+                               args, True, what)
+            print(f"ssd_scan {what}: rel err {rel:.3e} (bar {bar:.3e}); "
+                  f"states older than one chunk carry "
+                  f"{older_state_share(torch, ref.ssd_scan_plain, args):.3e}"
+                  f" of y")
+            cases += 1
     for rows, D, offset in RMS_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             flat = torch.randn(rows * D + offset, generator=gen,
@@ -533,23 +667,78 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
     rel32, _, bar32 = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args,
                            True, f"serving {serving} float32")
     del args
+    print(f"ssd_scan serving float32: rel err {rel32:.3e} against float64, "
+          f"bar {bar32:.3e} (1e-5, or the plain float32 version's own error "
+          f"on the same inputs where larger)")
+    args = (*ssd_operands(torch, gen, dev, *serving, torch.bfloat16,
+                          model_like=True, slow=True), Q)
+    rel, _, _ = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args,
+                     False, f"serving {serving} bfloat16 slow decay")
+    print(f"ssd_scan serving bfloat16, slow decay: rel err {rel:.3e} (bar "
+          f"{BF16_REL}); states older than one chunk carry "
+          f"{older_state_share(torch, ref.ssd_scan_plain, args):.3e} of y")
+    del args
     args = (*ssd_operands(torch, gen, dev, *serving, torch.bfloat16,
                           model_like=True), Q)
+    before = dict(sk.route_launches)
     rel, err, _ = hold("ssd_scan", sk.ssd_scan, ref.ssd_scan_plain, args,
                        False, f"serving {serving} bfloat16")
+    per_call = {k: (sk.route_launches[k] - before[k]) // 2
+                for k in sk.route_launches}
+    check(per_call["tensor_cores"] == 1 and per_call["output"] == 1,
+          f"ssd_scan serving bfloat16 took {per_call}, not the tensor cores")
+    b_, n_, hb_ = shard_rows, -(-seq // Q), -(-H // 2)
+    ctas = {"chunk_states": b_ * n_ * hb_,
+            "output": b_ * n_ * hb_ * -(-Q // 64)}
+    check(ctas["output"] >= SSD_MIN_CTAS,
+          f"ssd_scan output grid {ctas['output']} < {SSD_MIN_CTAS} CTAs")
+    # the numerics decision at the serving shape: the operands the tensor
+    # cores multiply (w ⊙ x, M, S) rounded as each candidate would, in
+    # torch on the same inputs, against the plain version in float32 math
+    # (no output rounding on either side)
+    f32_args = [t.float() for t in args[:6]]
+    want32 = ref.ssd_scan_plain(*f32_args, Q)
+    cand = {op: rel_err(ssd_three_pass(torch, *f32_args, Q, op), want32)[0]
+            for op in SSD_CANDIDATES}
+    out_round = rel_err(want32.bfloat16(), want32)[0]
+    del f32_args, want32
     terms = ssd_scan_terms(*serving, Q, torch.bfloat16)
+    design = ssd_design_bytes(*serving, Q)
     out["ssd_scan"] = {
         "max_abs_err": err, "rel_err": rel,
-        "ms": time_ms(lambda: sk.ssd_scan(*args), 5),
+        "ms": time_ms(lambda: sk.ssd_scan(*args), 10),
         "plain_ms": time_ms(lambda: ref.ssd_scan_plain(*args), 3),
         "library_ms": None, "bound_ms": terms.step_time_s * 1e3,
         "bound_by": terms.bound_by, "flops": terms.flops,
         "bytes": terms.bytes,
         "shape": "b={} L={} H={} P={} N={} Q={} bf16 x/B/C (views of one "
                  "conv output), f32 dt".format(*serving, Q)}
-    print(f"ssd_scan serving float32: rel err {rel32:.3e} against float64, "
-          f"bar {bar32:.3e} (1e-5, or the plain float32 version's own error "
-          f"on the same inputs where larger)")
+    # each pass's device time, over three warm calls
+    _, per_pass = device_events(
+        torch, lambda: [sk.ssd_scan(*args) for _ in range(3)])
+    pass_ms = {}
+    for name, (t, _) in per_pass.items():
+        m = re.search(r"ssd_scan_[a-z0-9]+_kernel", name)
+        key = m.group(0) if m else name[:40]
+        pass_ms[key] = pass_ms.get(key, 0.0) + t / 3
+    print(f"ssd_scan serving bfloat16: route tensor_cores; launches per call "
+          f"{ {k: per_call[k] for k in sk.PASSES} }; CTAs {ctas}; device ms "
+          f"per pass " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   pass_ms.items()))
+    print(f"ssd_scan serving bfloat16: the design moves "
+          f"{design / 1e6:.1f} MB ({design / HBM_BW * 1e3:.3f} ms at "
+          f"{HBM_BW / 1e12:.2f} TB/s) beside the function's "
+          f"{terms.bytes / 1e6:.1f} MB bound ({terms.step_time_s * 1e3:.3f}"
+          f" ms, {terms.bound_by})")
+    print(f"ssd_scan numerics at the serving shape, against the plain version"
+          f" in float32 math, operands w⊙x, M, S rounded as: " + ", ".join(
+              f"{op} {v:.3e}" for op, v in cand.items())
+          + f" (emulated); the output's own bf16 rounding {out_round:.3e}; "
+          f"the kernel (bf16 once, bf16 output) {rel:.3e}, bar {BF16_REL}")
+    print("ssd_scan routes over every case: " + ", ".join(
+        f"{d} -> {sorted(r)}" for d, r in sorted(routes.items())))
+    check(routes.get("torch.bfloat16") == {"tensor_cores"},
+          f"ssd_scan: a bfloat16 case left the tensor cores: {routes}")
     del args
     # K7 at the serving shapes: the block norm (d) and the gate norm (d_inner)
     times = {}
@@ -1017,6 +1206,8 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
         peaks.append(torch.cuda.max_memory_allocated(dev)
                      if dev.type == "cuda" else None)
     launched = {k: lm_launches()[k] for k in want_per_call}
+    from repro_torch.kernels import ssd_scan as sk
+    k6_routes = {k: v for k, v in sk.route_launches.items() if v}
 
     calls = len(shards)
     check(calls > 0, f"{phase}: the scoring operator never ran")
@@ -1079,7 +1270,8 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
           f"{width}, vocab {cfg.vocab_padded}) weights made in {init_s:.1f} "
           f"s; {calls} shard calls, launches {launched} ({want_per_call} "
           f"per call); {what} on a shard of {len(shard_rows)} rows: rel "
-          f"err {ref_rel:.3e} (bar {LM_REF_REL})")
+          f"err {ref_rel:.3e} (bar {LM_REF_REL})"
+          + (f"; K6 routes and passes {k6_routes}" if ssm else ""))
     if profile:
         groups = {"K6": ("ssd_scan",), "K7": ("rmsnorm",),
                   "K5": ("flash_attention",),

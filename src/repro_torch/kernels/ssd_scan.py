@@ -9,12 +9,26 @@ output), takes any L (the ragged last chunk is masked in the kernel), any
 H and the chunk Q from the caller, and writes a new contiguous y in x's
 dtype.
 
+The route is the dtype, stated here and nowhere else:
+
+* bfloat16 operands take the tensor cores (route ``"tensor_cores"``), in
+  three chunk-parallel passes: chunk states (``"chunk_states"``), state
+  passing (``"state_passing"``, only when there is more than one chunk)
+  and output (``"output"``).  The wrapper allocates their scratch with
+  :func:`torch.empty`: the in-chunk cumsums (b, n, H, Q) and the chunk
+  states (b, n − 1, H, N, P) in float32, the carried-in states
+  (b, n − 1, H, N rounded up to 16, 64) in bfloat16, n = ceil(L / Q).
+* float32 operands take the CUDA cores (route ``"cuda_cores_f32"``), one
+  kernel that walks the chunks in order: no tensor-core format keeps
+  float32's 1e-5.
+
 The wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to
 :func:`repro_torch.kernels.ref.ssd_scan_plain` — checks device, dtype,
-shape, strides and the kernel's limits (P ≤ 64, N ≤ 128, shared memory),
-launches on the current stream and raises if the launch was refused.
-``launches["ssd_scan"]`` counts launches.
+shape, strides and the kernels' limits (P ≤ 64, N ≤ 128, shared memory),
+launches on the current stream and raises if a launch was refused; nothing
+falls back.  ``launches["ssd_scan"]`` counts calls of K6;
+``route_launches`` counts each route's calls and each pass's launches.
 """
 
 from __future__ import annotations
@@ -25,43 +39,78 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["KERNELS", "MAX_P", "MAX_N", "SMEM_LIMIT", "launches",
-           "reset_launches", "smem_bytes", "ssd_scan"]
+__all__ = ["KERNELS", "ROUTES", "PASSES", "MAX_P", "MAX_N", "SMEM_LIMIT",
+           "launches", "route_launches", "reset_launches", "route",
+           "smem_bytes", "ssd_scan"]
 
 KERNELS = ("ssd_scan",)
+ROUTES = ("tensor_cores", "cuda_cores_f32")
+PASSES = ("chunk_states", "state_passing", "output")
 MAX_P, MAX_N = 64, 128
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may use
 launches = {name: 0 for name in KERNELS}
+route_launches = {name: 0 for name in (*ROUTES, *PASSES)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_ENTRIES = {"cuda_cores_f32": "ssd_scan_f32_launch",
+            "chunk_states": "ssd_scan_states_launch",
+            "state_passing": "ssd_scan_pass_launch",
+            "output": "ssd_scan_output_launch"}
 _bound: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    for name in route_launches:
+        route_launches[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = build.load("ssd_scan")
-        lib.ssd_scan_launch.argtypes = [_P] * 7 + [_I] * 17 + [_P]
-        lib.ssd_scan_launch.restype = ctypes.c_int
+        for entry in _ENTRIES.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [_P] * 10 + [_I] * 16 + [_P]
+            fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
 
 
-def smem_bytes(N: int, P: int, Q: int) -> int:
-    """Shared memory one CTA takes for (N, P, Q), in bytes: the layout of
-    ``csrc/ssd_scan.cu`` (4 heads' states, C/B tiles of 32 rows with a
-    pitch of N+1, the x tile, the C·Bᵀ tile and three (4, Q) scan rows)."""
+def route(dtype: torch.dtype) -> str:
+    """The route K6 takes for operands of ``dtype``."""
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores_f32"
+
+
+def smem_bytes(N: int, P: int, Q: int) -> dict[str, int]:
+    """Shared memory one CTA of each kernel takes for (N, P, Q), in bytes,
+    by the layouts of ``csrc/ssd_scan.cu``.
+
+    * ``cuda_cores_f32``: 4 heads' float32 states, C/B tiles of 32 rows
+      with a pitch of N+1, the x tile, the C·Bᵀ tile and three (4, Q) scan
+      rows;
+    * ``chunk_states``: two stages of a B tile and 2 heads' x tiles (64
+      rows × 64 bf16 per swizzle block, N in two blocks of 64) and the
+      (2, Q) weights, plus 1 KB to align the swizzle atoms;
+    * ``output``: the C tile, two stages of a B tile and 2 heads' x tiles
+      (the second holds the carried-in states before the key loop), the
+      (2, Q) cumsums and dt and (2, 64) column decays, plus the same 1 KB.
+    The state-passing pass takes none."""
     T, HB = 32, 4
-    return 4 * (HB * N * P + T * (N + 1) + max(T * (N + 1), HB * T * (T + 1))
-                + T * HB * P + T * (T + 1) + 3 * HB * Q)
+    tile, nblk = 64 * 128, MAX_N // 64
+    return {
+        "cuda_cores_f32": 4 * (HB * N * P + T * (N + 1)
+                               + max(T * (N + 1), HB * T * (T + 1))
+                               + T * HB * P + T * (T + 1) + 3 * HB * Q),
+        "chunk_states": 1024 + 2 * (nblk + 2) * tile
+                        + 4 * 2 * (-(-Q // 64) * 64),
+        "output": 1024 + nblk * tile + 2 * (nblk + 2) * tile
+                  + 4 * 2 * (2 * (-(-Q // 64) * 64) + 64),
+    }
 
 
 def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -92,23 +141,44 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if P > MAX_P or N > MAX_N:
         raise ValueError(f"head dim {P} / state {N} above the kernel's "
                          f"{MAX_P} / {MAX_N}")
-    if smem_bytes(N, P, Q) > SMEM_LIMIT:
-        raise ValueError(f"chunk {Q} needs {smem_bytes(N, P, Q)} bytes of "
-                         f"shared memory, above {SMEM_LIMIT}")
+    way = route(x.dtype)
+    need = smem_bytes(N, P, Q)
+    for k in ((way,) if way == "cuda_cores_f32" else ("chunk_states",
+                                                       "output")):
+        if need[k] > SMEM_LIMIT:
+            raise ValueError(f"chunk {Q} needs {need[k]} bytes of shared "
+                             f"memory in {k}, above {SMEM_LIMIT}")
     A, D = A.contiguous(), D.contiguous()
     y = torch.empty((b, L, H, P), dtype=x.dtype, device=dev)
     if y.numel() == 0:
         return y
+    n = -(-L // Q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if way == "tensor_cores":
+        cum = torch.empty((b, n, H, Q), **f32)
+        s = torch.empty((b, n - 1, H, N, P), **f32)
+        Sb = torch.empty((b, n - 1, H, -(-N // 16) * 16, 64),
+                         dtype=torch.bfloat16, device=dev)
+        passes = ("chunk_states",) + (("state_passing",) if n > 1 else ()) \
+            + ("output",)
+    else:                            # the float32 kernel takes no scratch
+        cum = s = Sb = y
+        passes = ("cuda_cores_f32",)
     lib = _lib()
     with torch.cuda.device(dev):     # launch on the operands' card
-        rc = lib.ssd_scan_launch(
-            x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
-            A.data_ptr(), D.data_ptr(), y.data_ptr(), b, L, H, P, N, Q,
-            *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
-            *dt.stride(), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("ssd_scan launch failed: "
-                           f"{lib.ssd_scan_error_string(rc).decode()}")
+        args = (x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), D.data_ptr(), y.data_ptr(), cum.data_ptr(),
+                s.data_ptr(), Sb.data_ptr(), b, L, H, P, N, Q,
+                *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
+                *dt.stride(), torch.cuda.current_stream(dev).cuda_stream)
+        for p in passes:
+            rc = getattr(lib, _ENTRIES[p])(*args)
+            if rc != 0:
+                raise RuntimeError(
+                    f"ssd_scan {p} launch failed: "
+                    f"{lib.ssd_scan_error_string(rc).decode()}")
+            if p in PASSES:
+                route_launches[p] += 1
+    route_launches[way] += 1
     launches["ssd_scan"] += 1
     return y

@@ -8,6 +8,9 @@ models' launches.  They skip without one; on the H100 run
 This file imports nothing of JAX (the card's machine has none), and the
 card is looked for inside a fixture, never at import."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -25,6 +28,12 @@ from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.sim import (BatchedEvaluator, pack_fleets,  # noqa: E402
                              pack_region_fleets, pack_speeds)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+try:
+    import chip_smoke  # noqa: E402
+finally:
+    sys.path.pop(0)
 
 # tests/test_kernels.py's shapes, a ragged S and every head dim K5 builds
 SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
@@ -107,9 +116,16 @@ def test_smoke_model_routes_agree_on_the_card(card):
 SSD_CASES = [(2, 64, 8, 16, 16, 16), (1, 128, 4, 32, 8, 16),
              (2, 32, 2, 8, 4, 16), (1, 20, 5, 8, 16, 8),
              (2, 300, 6, 64, 128, 256)]
+# slow decay: 8 chunks at the model's P, N, chunk, a ragged L, and one
+# lm_score shard of Mamba2-1.3B (b 11, L 2048, H 64)
+SSD_SLOW_CASES = [(1, 2048, 4, 64, 128, 256), (2, 1900, 3, 64, 128, 256),
+                  (11, 2048, 64, 64, 128, 256)]
 
 
-def _ssd_operands(card, rng, b, L, H, P, N, dtype):
+def _ssd_operands(card, rng, b, L, H, P, N, dtype, slow=False):
+    """tests/test_kernels.py's distributions; ``slow``: dt = softplus(z −
+    6), A = −0.05·(1 + 0.1u), where states older than one chunk still
+    carry a large share of y."""
     t = getattr(torch, dtype)
 
     def arr(*shape, scale=1.0):
@@ -118,8 +134,39 @@ def _ssd_operands(card, rng, b, L, H, P, N, dtype):
 
     x, B, C = arr(b, L, H, P).to(t), arr(b, L, N, scale=0.5).to(t), \
         arr(b, L, N, scale=0.5).to(t)
-    dt = torch.nn.functional.softplus(arr(b, L, H)) * 0.5
-    return x, B, C, dt, -torch.exp(arr(H) * 0.3), arr(H)
+    if slow:
+        dt = torch.nn.functional.softplus(arr(b, L, H) - 6.0)
+        A = -0.05 * (1.0 + 0.1 * torch.from_numpy(
+            rng.random(H).astype(np.float32)).to(card))
+    else:
+        dt = torch.nn.functional.softplus(arr(b, L, H)) * 0.5
+        A = -torch.exp(arr(H) * 0.3)
+    return x, B, C, dt, A, arr(H)
+
+
+def _hold_ssd(args, chunk, dtype):
+    """K6 against its plain version (float32: the float64 plain version at
+    ≤1e-5; bfloat16: the plain version in float32 math at ≤1e-2), bitwise
+    on a repeat, through the dtype's route: bfloat16 on the tensor cores
+    in three passes, float32 on the CUDA cores."""
+    before = dict(sk.route_launches)
+    got = sk.ssd_scan(*args, chunk=chunk)
+    if dtype == "float32":
+        want = ref.ssd_scan_plain(*(a.double() for a in args), chunk=chunk)
+        bar = 1e-5
+    else:
+        want = ref.ssd_scan_plain(*args, chunk=chunk)
+        bar = 1e-2
+    err = (got.double() - want.double()).abs().max()
+    assert float(err / want.double().abs().max()) <= bar
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, sk.ssd_scan(*args, chunk=chunk))
+    way = sk.route(getattr(torch, dtype))
+    assert way == ("tensor_cores" if dtype == "bfloat16" else
+                   "cuda_cores_f32")
+    assert sk.route_launches[way] - before[way] == 2
+    if way == "tensor_cores":
+        assert sk.route_launches["output"] - before["output"] == 2
 
 
 @pytest.mark.cuda
@@ -130,17 +177,21 @@ def test_ssd_kernel_matches_plain_on_the_card(card, dtype):
     version in float32 math at ≤1e-2; bitwise on a repeat."""
     rng = np.random.default_rng(21)
     for b, L, H, P, N, Q in SSD_CASES:
-        args = _ssd_operands(card, rng, b, L, H, P, N, dtype)
-        got = sk.ssd_scan(*args, chunk=Q)
-        if dtype == "float32":
-            want = ref.ssd_scan_plain(*(a.double() for a in args), chunk=Q)
-            bar = 1e-5
-        else:
-            want = ref.ssd_scan_plain(*args, chunk=Q)
-            bar = 1e-2
-        err = (got.double() - want.double()).abs().max()
-        assert float(err / want.double().abs().max()) <= bar, (b, L, H, Q)
-        assert torch.equal(got, sk.ssd_scan(*args, chunk=Q))
+        _hold_ssd(_ssd_operands(card, rng, b, L, H, P, N, dtype), Q, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_carries_old_states_on_the_card(card, dtype):
+    """K6 on slow-decay inputs, where the states older than one chunk
+    carry more than 5 % of y (so a kernel that lost the carry across
+    chunks would fail), with the bars of the test above."""
+    rng = np.random.default_rng(25)
+    for b, L, H, P, N, Q in SSD_SLOW_CASES:
+        args = _ssd_operands(card, rng, b, L, H, P, N, dtype, slow=True)
+        assert chip_smoke.older_state_share(torch, ref.ssd_scan_plain,
+                                              (*args, Q)) > 0.05
+        _hold_ssd(args, Q, dtype)
 
 
 @pytest.mark.cuda

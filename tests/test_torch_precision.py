@@ -23,6 +23,16 @@ float64 oracle:
   (1e-2 relative, ``BF16_REL``) of the Pallas kernel in interpret mode and
   of ``flash_attention_plain``.
 
+* K6 (the SSD scan) on bf16 operands runs three chunk-parallel passes
+  (chunk states, state passing, output) on the tensor cores and rounds the
+  three operands that are not inputs (w ⊙ x, M and S) to bf16 once each
+  (``csrc/ssd_scan.cu``).  ``chip_smoke.ssd_three_pass`` emulates that
+  design in torch: in float64 with no rounding it must equal
+  ``ssd_scan_plain`` within 1e-12 (fast and slow decay, ragged L), and
+  with the kernel's rounding it must stay within 1e-2 of the plain version
+  and of the Pallas kernel in interpret mode.  The three candidates (bf16
+  once, bf16 hi + lo, TF32) are reported at a serving-like shape.
+
 And the FP32 guard of the structured path (C1): the region-mass product,
 the structured movement's quadratic form and the objective-set
 scalarization ask :func:`require_fp32_matmul`, which refuses card tensors
@@ -31,7 +41,9 @@ while TF32 matmuls are on.
 The emulation helpers live here, on no path of the port.
 """
 
+import sys
 import types
+from pathlib import Path
 
 import pytest
 
@@ -50,6 +62,12 @@ from repro_torch.core.placement import random_placement  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.sim import BatchedEvaluator, pack_region_fleets  # noqa: E402
 from repro_torch.sim import batched  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+try:
+    import chip_smoke  # noqa: E402
+finally:
+    sys.path.pop(0)
 
 REL = 1e-5
 BF16_REL = 1e-2
@@ -247,6 +265,84 @@ def test_k5_rounded_p_stays_within_bf16_bar(B, S, H, D, causal):
     assert got.shape == plain.shape and got.dtype == torch.bfloat16
     assert _rel(got.float(), plain.float()) <= BF16_REL
     assert _rel(got.float(), np.asarray(pallas, np.float32)) <= BF16_REL
+
+
+# -- K6: the chunk-parallel passes and their bf16 operands ------------------------
+
+def _ssd_args(b, L, H, P, N, seed, slow, dtype=torch.float32):
+    """x, B, C (b, L, ·) rounded to ``dtype``, dt, A, D float32, from numpy:
+    tests/test_kernels.py's distributions, or with ``slow`` decay (dt =
+    softplus(z − 6), A = −0.05·(1 + 0.1u))."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, L, H, P))
+    B, C = (rng.standard_normal((b, L, N)) * 0.5 for _ in range(2))
+    if slow:
+        dt = np.logaddexp(rng.standard_normal((b, L, H)) - 6.0, 0)
+        A = -0.05 * (1.0 + 0.1 * rng.random(H))
+    else:
+        dt = np.logaddexp(rng.standard_normal((b, L, H)), 0) * 0.5
+        A = -np.exp(rng.standard_normal(H) * 0.3)
+    D = rng.standard_normal(H)
+    t = [torch.from_numpy(a.astype(np.float32)) for a in (x, B, C, dt, A, D)]
+    return [*(a.to(dtype) for a in t[:3]), *t[3:]]
+
+
+@pytest.mark.parametrize("slow", [False, True])
+@pytest.mark.parametrize("b,L,H,P,N,chunk", [
+    (2, 128, 3, 8, 16, 16), (1, 250, 2, 16, 32, 32), (1, 100, 2, 8, 8, 256),
+    (2, 20, 5, 8, 16, 8)])
+def test_k6_three_passes_equal_the_plain_version(b, L, H, P, N, chunk,
+                                                 slow):
+    """Chunk states, state passing and output in float64 give the plain
+    version's y within 1e-12 (ragged L = 250, 20; one chunk at L = 100)."""
+    args = [a.double() for a in _ssd_args(b, L, H, P, N, L + H, slow)]
+    got = chip_smoke.ssd_three_pass(torch, *args, chunk)
+    want = ref.ssd_scan_plain(*args, chunk)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("slow", [False, True])
+def test_k6_rounded_operands_stay_within_bf16_bar(slow):
+    """bf16 inputs over 8 chunks of 16 rows: the kernel's rounding (w ⊙ x,
+    M, S to bf16 once, y to bf16) within 1e-2 of the plain version in
+    float32 math and of the Pallas kernel in interpret mode."""
+    args = _ssd_args(1, 128, 4, 16, 16, 7, slow, torch.bfloat16)
+    got = chip_smoke.ssd_three_pass(torch, *args, 16, "bf16")
+    plain = ref.ssd_scan_plain(*args, 16)
+    pallas = ops.ssd_scan(*(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                            for a in args[:3]),
+                          *(jnp.asarray(a.numpy()) for a in args[3:]),
+                          chunk=16, head_block=2, interpret=True)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got.float(), plain.float()) <= BF16_REL
+    assert _rel(got.float(), np.asarray(pallas, np.float32)) <= BF16_REL
+
+
+@pytest.mark.parametrize("slow", [False, True])
+def test_k6_numerics_candidates_at_a_serving_like_shape(slow):
+    """b 1, L 2048 (8 chunks of 256), 8 heads of 64, N 128, x/B/C in bf16:
+    each candidate for the three rounded operands against the plain
+    version, both in float32 math (no output rounding), and, rounded to a
+    bf16 y as the kernel writes it, against the plain version's bf16 y
+    within the 1e-2 bar.  hi + lo and TF32 are never worse than bf16
+    once.  The numbers are printed (csrc/ssd_scan.cu's header quotes
+    them)."""
+    args = _ssd_args(1, 2048, 8, 64, 128, 3, slow, torch.bfloat16)
+    f32 = [a.float() for a in args]
+    want32 = ref.ssd_scan_plain(*f32, 256)
+    want = want32.bfloat16().float()
+    errs, rounded = {}, {}
+    for op in chip_smoke.SSD_CANDIDATES:
+        got = chip_smoke.ssd_three_pass(torch, *f32, 256, op)
+        errs[op] = _rel(got, want32)
+        rounded[op] = _rel(got.bfloat16().float(), want)
+    print(f"K6 candidates ({'slow' if slow else 'fast'} decay), float32 y: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; bf16 y: " + ", ".join(f"{k} {v:.3e}"
+                                     for k, v in rounded.items()))
+    assert max(rounded.values()) <= BF16_REL
+    assert errs["bf16_hilo"] <= errs["bf16"] and errs["tf32"] <= errs["bf16"]
 
 
 # -- C1: the FP32 guard of the structured path ------------------------------------

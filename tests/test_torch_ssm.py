@@ -7,7 +7,9 @@ Inputs are drawn with numpy and handed to both sides.  Tolerances:
 
 * ``ssd_scan_plain`` against ``repro.models.mamba2.ssd_chunked`` at the
   same chunk, float32: ≤1e-5 relative (max |err| / max |want|); the two
-  compute the same chunked form op for op.
+  compute the same chunked form op for op.  Also on slow-decay inputs over
+  ≥ 8 chunks, where the states older than one chunk carry more than 5 %
+  of y, so a scan that lost them would fail.
 * ``ssd_scan_plain`` against the Pallas kernel in interpret mode
   (``ops.ssd_scan(chunk=16, head_block=2)``) and against the per-token
   oracle ``ref.ssd_ref``: tests/test_kernels.py's own bars (atol 2e-3 for
@@ -24,6 +26,8 @@ Inputs are drawn with numpy and handed to both sides.  Tolerances:
 
 import dataclasses
 import functools
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -53,6 +57,12 @@ from repro_torch.models import (analytic_flops, build_model,  # noqa: E402
 from repro_torch.models.api import ModelConfig  # noqa: E402
 from repro_torch.models.mamba2 import Mamba2LM, causal_conv  # noqa: E402
 from repro_torch.perf import roofline  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+try:
+    import chip_smoke  # noqa: E402
+finally:
+    sys.path.pop(0)
 
 REL = {"float32": 1e-5, "bfloat16": 2e-2}
 # tests/test_kernels.py's SSD shapes (b, L, H, P, N)
@@ -118,6 +128,34 @@ def test_ssd_plain_matches_pallas_interpret_and_oracle(b, L, H, P, N, dtype):
     for want in (kernel, oracle):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), **tol)
+
+
+def _slow_decay(arrs, seed):
+    """dt = softplus(z − 6), A = −0.05·(1 + 0.1u): over a chunk exp(total)
+    stays near 1, so states older than one chunk carry weight."""
+    x, B, C, dt, A, D = arrs
+    rng = np.random.default_rng(seed)
+    dt = np.logaddexp(rng.standard_normal(dt.shape) - 6.0, 0) \
+        .astype(np.float32)
+    A = (-0.05 * (1.0 + 0.1 * rng.random(A.shape))).astype(np.float32)
+    return x, B, C, dt, A, D
+
+
+@pytest.mark.parametrize("b,L,H,P,N,chunk", [
+    (1, 256, 3, 16, 32, 32), (2, 250, 2, 8, 16, 32), (1, 1024, 2, 16, 32, 128)])
+def test_ssd_plain_matches_ssd_chunked_with_slow_decay(b, L, H, P, N, chunk):
+    """float32 over ≥ 8 chunks (ragged at L = 250) with slow decay, where
+    the states older than one chunk carry more than 5 % of y: the two
+    still agree within 1e-5."""
+    arrs = _slow_decay(_ssd_inputs(b, L, H, P, N, "float32", seed=L),
+                       seed=L + 1)
+    assert -(-L // chunk) >= 8
+    args = _torch_ssd(arrs, "float32")
+    assert chip_smoke.older_state_share(torch, ref.ssd_scan_plain,
+                                       (*args, chunk)) > 0.05
+    want, _ = ssd_chunked(*map(jnp.asarray, arrs), chunk=chunk)
+    got = ref.ssd_scan_plain(*args, chunk=chunk)
+    assert _rel(got.numpy(), want) <= 1e-5
 
 
 def test_ssd_plain_ragged_length_matches_the_oracle():
@@ -222,10 +260,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         dispatch.rmsnorm(torch.zeros((2, 8)), meta[0])
     with pytest.raises(ValueError, match="no rmsnorm route"):
         dispatch.rmsnorm(meta, meta[0])
-    # the serving shape fits one CTA's shared memory; a 1024-row chunk not
-    assert sk.smem_bytes(128, 64, 256) == 213_760 <= sk.SMEM_LIMIT
-    assert sk.smem_bytes(128, 64, 1024) > sk.SMEM_LIMIT
+    # per kernel, the shared memory of csrc/ssd_scan.cu's layouts: the
+    # serving shape fits every CTA (two chunk-state and two output CTAs per
+    # SM); the float32 route refuses a 1024-row chunk, the bf16 passes a
+    # chunk of 16 384 rows
+    assert sk.smem_bytes(128, 64, 256) == {
+        "cuda_cores_f32": 213_760, "chunk_states": 68_608,
+        "output": 87_552}
+    assert 2 * max(sk.smem_bytes(128, 64, 256)[k]
+                   for k in ("chunk_states", "output")) <= 228 * 1024
+    assert sk.smem_bytes(128, 64, 1024)["cuda_cores_f32"] > sk.SMEM_LIMIT
+    assert sk.smem_bytes(128, 64, 1024)["output"] <= sk.SMEM_LIMIT
+    assert sk.smem_bytes(128, 64, 16_384)["output"] > sk.SMEM_LIMIT
     assert sk.launches == {"ssd_scan": 0} and rk.launches == {"rmsnorm": 0}
+    assert not any(sk.route_launches.values())
+
+
+def test_ssd_route_is_the_dtype():
+    """bfloat16 operands take the tensor-core passes, float32 the CUDA
+    cores; every route and pass has a counter."""
+    assert sk.route(torch.bfloat16) == "tensor_cores"
+    assert sk.route(torch.float32) == "cuda_cores_f32"
+    assert set(sk.route_launches) == {*sk.ROUTES, *sk.PASSES}
 
 
 def test_roofline_terms_of_the_serving_shapes():
