@@ -42,7 +42,10 @@ that its kernel launched; the structured phase also checks that two
    kernel accepts}, shared and per-scenario: K4a bitwise equal to K1 and
    K4b to K2, both ≤1e-5 relative to the float64 plain version, bitwise
    on a repeat launch, and the size refusal above the largest V; kernel
-   and plain times at V 64 and at the largest V;
+   (also alone, from the profiler), blocked and plain times at V 64 and
+   at the largest V (K4b also with a
+   per-batch scenario, and at its largest V for R 8), each timed case
+   bitwise equal to the blocked kernel;
 3b. serve_multi_dense: the serve_dense instance registered with all five
    §3.1 objectives (``ObjectiveSet.of(*OBJECTIVES)``, unit weights) and
    per-scenario speeds; four queries (score; rank by ε-constraint,
@@ -106,9 +109,10 @@ bitwise equal.
    time, the bytes the design moves beside the bound, and the numerics
    candidates (w⊙x, M, S rounded to bf16 once, as bf16 hi + lo, or to
    TF32, emulated in torch) against the plain version; K7 at vectorised,
-   scalar and unaligned rows and at the
-   serving shapes (22 528 rows × 2048, the block norm, and × 4096, the gate
-   norm).  Kernel, plain and bound times at the serving shapes, and
+   scalar and unaligned rows, at the widths of other Mamba2 sizes, and at
+   the serving shapes (22 528 rows × 2048, the block norm, and × 4096, the
+   gate norm).  Kernel (K7 also alone, from the profiler), plain and bound
+   times at the serving shapes, and
    ``torch.nn.functional.rms_norm`` for K7 (timed as a yardstick only,
    never called by the port; there is no single PyTorch call for the scan);
 8. lm_score_mamba2: the job of phase 6 with Mamba2-1.3B at its published
@@ -159,6 +163,7 @@ MULTI_STRUCT_ROWS = (96, 64, 64, 32)
 TILE_B, TILE_E, TILE_V, TILE_R = 2, 5, 64, 4
 TILE_ES, TILE_VS = (1, 33), (1, 37, 128)       # + the largest V accepted
 TILE_TIMED = (4, 1024)          # (B, E) of the timed calls: 4096 edge rows
+TILE_R8 = 8                     # K4b also timed at its largest V for R = 8
 SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "edge_latency_structured":
                "src/repro_torch/kernels/csrc/edge_latency.cu",
@@ -205,9 +210,13 @@ SSD_CANDIDATES = ("bf16", "bf16_hilo", "tf32")
 # (the sequential design had one per (batch, 4 heads): 176)
 SSD_MIN_CTAS = 1000
 # K7 cases (rows, D, offset): vectorised and scalar rows (D % 8 != 0 for
-# bf16, D = 37), and an offset of one element (rows not 16-byte aligned)
+# bf16, D = 37), an offset of one element (rows not 16-byte aligned), and
+# the widths of other Mamba2 sizes (780m 1536 / 3072, 2.7B 2560 / 5120)
+# and 8192, which the rows kernel takes at 6 to 32 vectors per lane (more
+# rows than one pass of its grid at 3072)
 RMS_CASES = [(1, 64, 0), (3, 100, 0), (7, 2048, 0), (5, 128, 0),
-             (33, 4096, 0), (9, 37, 0), (4, 256, 1)]
+             (33, 4096, 0), (9, 37, 0), (4, 256, 1), (6, 1536, 0),
+             (5, 2560, 0), (9001, 3072, 0), (3, 5120, 0), (2, 8192, 0)]
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -280,7 +289,10 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up.
+    Each call sits between its own two events, so a small kernel's time
+    includes the part of its wrapper's host time (the checks, the launch)
+    that the device waits for; :func:`kernel_device_ms` leaves it out."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -314,6 +326,17 @@ def device_events(torch, fn) -> tuple[float, dict[str, list]]:
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
     return wall_ms, per_name
+
+
+def kernel_device_ms(torch, fn, reps: int, key: str) -> float:
+    """Device ms per call of ``fn`` spent in the kernels whose names hold
+    ``key``, from one profiled run of ``reps`` calls after a warm-up: the
+    kernel's own time, without the host time :func:`time_ms` includes."""
+    fn()
+    _, per_name = device_events(torch, lambda: [fn() for _ in range(reps)])
+    total = sum(t for name, (t, _) in per_name.items() if key in name)
+    check(total > 0, f"the profiler recorded no {key} kernel")
+    return total / reps
 
 
 def device_profile(torch, fn, groups: dict | None = None) -> str:
@@ -763,6 +786,8 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
         times[what] = {
             "max_abs_err": err, "rel_err": rel,
             "ms": time_ms(lambda: rk.rmsnorm(x, w), 20),
+            "device_ms": kernel_device_ms(torch, lambda: rk.rmsnorm(x, w),
+                                          20, "rmsnorm"),
             "plain_ms": time_ms(lambda: ref.rmsnorm_plain(x, w), 10),
             "library_ms": time_ms(lambda: F.rms_norm(
                 x, (D,), weight=wl, eps=1e-6), 20),
@@ -782,9 +807,12 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
     for k, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.3f} ({r['library']})"
-        print(f"kernel {k} [{r['shape']}]: {r['ms']:.3f} ms, plain "
+        dev_t = "" if "device_ms" not in r else \
+            (f" (the kernel alone {r['device_ms']:.4f} ms, "
+             f"{r['bound_ms'] / r['device_ms']:.1%} of the bound)")
+        print(f"kernel {k} [{r['shape']}]: {r['ms']:.4f} ms{dev_t}, plain "
               f"{r['plain_ms']:.3f} ms, library {lib} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({r['bound_by']}; "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
               f"{r['bound_ms'] / r['ms']:.1%} of it), rel err "
               f"{r['rel_err']:.3e}")
     return out
@@ -794,8 +822,10 @@ def single_tile_phase(torch, dev) -> dict:
     """K4a/K4b through their dispatch routes at every case shape (the
     phase's main path, launches counted from 0), then held against K1/K2
     bitwise, against the float64 plain version at ≤1e-5 and against a
-    repeat launch; the size refusal; times at V 64 and at the largest V.
-    Returns each kernel's line numbers and the launches."""
+    repeat launch; the size refusal; times at V 64 and at the largest V
+    (K4b also with a per-batch scenario, and at its largest V for R 8),
+    each timed case bitwise equal to the blocked kernel.  Returns each
+    kernel's line numbers (the largest V, shared) and the launches."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import edge_latency as kernels
     from repro_torch.perf.roofline import (
@@ -820,12 +850,12 @@ def single_tile_phase(torch, dev) -> dict:
     vmax = {"dense": kernels.single_tile_max_v(),
             "structured": kernels.single_tile_max_v(TILE_R)}
 
-    def operands(kind, B, E, V, shared):
+    def operands(kind, B, E, V, shared, R=TILE_R):
         bc = 1 if shared else B
         if kind == "dense":
             return randn(B, E, V), randn(B, E, V), randn(bc, V, V)
-        return (randn(B, E, V), randn(B, E, V), randn(B, E, TILE_R),
-                randn(bc, TILE_R, V), randn(bc, 1, V))
+        return (randn(B, E, V), randn(B, E, V), randn(B, E, R),
+                randn(bc, R, V), randn(bc, 1, V))
 
     cases = []
     for kind in ("dense", "structured"):
@@ -873,39 +903,55 @@ def single_tile_phase(torch, dev) -> dict:
           + f"; largest V accepted: K4a {vmax['dense']}, K4b "
             f"{vmax['structured']} (R={TILE_R}); V+1 refused")
 
+    # timed: (kind, V, R, shared scenario, the kernel line's case); each
+    # also held bitwise against the blocked kernel
     report = {}
     B, E = TILE_TIMED
-    for kind, name in names.items():
-        for V in (TILE_V, vmax[kind]):
-            args = operands(kind, B, E, V, True)
-            out = single[kind](*args)
-            rel, err = rel_err(out, plain[kind](*(a.double() for a in args)))
-            check(rel <= REL, f"{name} timed B={B} E={E} V={V}: rel err "
-                              f"{rel:.3e} > {REL}")
-            if kind == "dense":
-                terms = edge_latency_single_tile_terms(B, E, V, 1)
-                xi, xj, com = args
-                lib = time_ms(lambda: (xi * torch.einsum(
-                    "buv,bev->beu", com, xj)).amax(-1), 10)
-            else:
-                terms = edge_latency_structured_single_tile_terms(
-                    B, E, V, TILE_R, 1)
-                lib = None
-            r = {"max_abs_err": err, "rel_err": rel,
-                 "ms": time_ms(lambda: single[kind](*args), 20),
-                 "blocked_ms": time_ms(lambda: blocked[kind](*args), 20),
-                 "plain_ms": time_ms(lambda: plain[kind](*args), 10),
-                 "library_ms": lib, "bound_ms": terms.step_time_s * 1e3,
-                 "bound_by": terms.bound_by,
-                 "shape": f"B={B} E={E} V={V}"
-                          + ("" if kind == "dense" else f" R={TILE_R}")
-                          + " shared"}
-            lib_s = "n/a" if lib is None else f"{lib:.4f}"
-            print(f"kernel {name} [{r['shape']}]: {r['ms']:.4f} ms, blocked "
-                  f"{r['blocked_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {lib_s} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)")
-            report[name] = r          # the largest V's numbers stay
+    r8_max = kernels.single_tile_max_v(TILE_R8)
+    timed = [("dense", TILE_V, None, True, False),
+             ("dense", vmax["dense"], None, True, True),
+             ("structured", TILE_V, TILE_R, True, False),
+             ("structured", vmax["structured"], TILE_R, True, True),
+             ("structured", vmax["structured"], TILE_R, False, False),
+             ("structured", r8_max, TILE_R8, True, False)]
+    for kind, V, R, shared, line in timed:
+        name = names[kind]
+        args = operands(kind, B, E, V, shared, R)
+        out = single[kind](*args)
+        shape = (f"B={B} E={E} V={V}" + ("" if R is None else f" R={R}")
+                 + (" shared" if shared else " per-batch"))
+        check(torch.equal(out, blocked[kind](*args)),
+              f"{name} timed {shape}: differs from the blocked kernel")
+        rel, err = rel_err(out, plain[kind](*(a.double() for a in args)))
+        check(rel <= REL, f"{name} timed {shape}: rel err {rel:.3e} > {REL}")
+        if kind == "dense":
+            terms = edge_latency_single_tile_terms(B, E, V, 1)
+            xi, xj, com = args
+            lib = time_ms(lambda: (xi * torch.einsum(
+                "buv,bev->beu", com, xj)).amax(-1), 10)
+        else:
+            terms = edge_latency_structured_single_tile_terms(
+                B, E, V, R, 1 if shared else B)
+            lib = None
+        r = {"max_abs_err": err, "rel_err": rel,
+             "ms": time_ms(lambda: single[kind](*args), 20),
+             "device_ms": kernel_device_ms(
+                 torch, lambda: single[kind](*args), 20, "single_tile"),
+             "blocked_ms": time_ms(lambda: blocked[kind](*args), 20),
+             "plain_ms": time_ms(lambda: plain[kind](*args), 10),
+             "library_ms": lib, "bound_ms": terms.step_time_s * 1e3,
+             "bound_by": terms.bound_by, "shape": shape}
+        lib_s = "n/a" if lib is None else f"{lib:.4f}"
+        print(f"kernel {name} [{shape}]: {r['ms']:.4f} ms (the kernel "
+              f"alone {r['device_ms']:.4f}), blocked "
+              f"{r['blocked_ms']:.4f} ms (bitwise equal), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.1%} of it, the kernel alone "
+              f"{r['bound_ms'] / r['device_ms']:.1%})")
+        if line:
+            report[name] = r
+        del args, out
     return {"report": report, "launches": launched}
 
 

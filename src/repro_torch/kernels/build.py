@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is one shared library with a plain C interface.
 The first :func:`load` of a process compiles every source that has no
 up-to-date library yet — one ``nvcc`` per source, all started together —
 into ``_build/`` beside this module (listed in ``.gitignore``).  A library's
-file name carries a hash of its source and the compiler flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is built when the
+file name carries a hash of its source, the shared headers (``csrc/*.cuh``)
+and the compiler flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  Nothing is built when the
 module is imported: the CPU test suite imports it on machines without
 ``nvcc``.
 """
@@ -64,6 +65,8 @@ def find_nvcc() -> str | None:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 

@@ -75,9 +75,16 @@
 // K4b, edge_latency_structured_single_tile_kernel, replaces
 // repro.kernels.edge_latency.edge_latency_structured_pallas_single_tile
 // (body _edge_latency_structured_single_tile_kernel): K2's function with
-// a[c] (R, V), corr[c] (V) and the CTA's (8, R) mass rows resident.
-//   Bound: bytes, as K2.  Same thread layout as K4a; lanes read
-//   consecutive u of a[c], one bank each.
+// a[c] (R, V) and corr[c] (V) resident in shared memory, the whole V in
+// one tile.
+//   Bound: bytes, as K2: x_i and x_j are read once.
+//   Design: one CTA per SM (the tile takes up to all 227 KB) on a
+//   persistent grid that walks the (b, e) rows in order, so each CTA
+//   copies the tile once for a shared scenario and again only when b
+//   changes for a per-batch one; its 8 warps take a row each and stream
+//   x_i and x_j in 16-byte loads, two steps of four chunks in flight per
+//   lane (4-byte loads where V % 4 != 0 or an operand is not 16-byte
+//   aligned).  See the K4b section below.
 //   Parity with K2: t is one fmaf chain over ascending r from 0.0f, and
 //   the epilogue is K2's own helper (structured_term), an explicit
 //   fmaf(c, x_j, t) times x_i, so no contraction choice of the compiler
@@ -91,6 +98,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "grid.cuh"
 
 namespace {
 
@@ -536,7 +544,7 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
 
 // -- K4a / K4b: whole-V single-tile references --------------------------------
 
-constexpr int T_ROWS = 8;                 // edge rows per CTA (K4b: one warp each)
+constexpr int T_ROWS = 8;   // K4a: edge rows per CTA; K4b: warps, a row each
 constexpr int T_THREADS = 32 * T_ROWS;
 
 // com row pitch: V rounded up to odd, so lane-strided rows hit 32 banks
@@ -623,52 +631,165 @@ edge_latency_dense_single_tile_kernel(const float* __restrict__ xi,
   }
 }
 
-__global__ void __launch_bounds__(T_THREADS)
+// K4b: a persistent grid walks the edge rows, flattened over (b, e) in
+// that order; CTA i takes the contiguous range [i n / G, (i + 1) n / G) of
+// the n = B E rows.  The CTA copies a[c] and corr[c] into shared memory
+// with cp.async (16 bytes a copy on the vector path) and copies them again
+// only when c changes: once per CTA for a shared scenario, at most once
+// per batch it touches for a per-batch one.  Its 8 warps then take the
+// range's rows in turn, one row each, the row's mass staged in the warp's
+// slot of shared memory.  A lane takes the 16-byte chunks k = lane,
+// lane + 32, ... of x_i and x_j (single floats on the scalar path), U
+// of them a step, and loads the next step's chunks before it computes the
+// current ones, so two steps' loads are in flight.  Consecutive lanes
+// read consecutive 16-byte chunks of a[r] and corr: no bank conflict.
+// one chunk of W floats from device memory (read-only path; 16-byte
+// loads ask L2 to fetch the whole 256-byte block around them) or shared
+// memory
+template <int W>
+__device__ __forceinline__ void load_chunk(float (&d)[W], const float* p) {
+  if constexpr (W == 4) {
+    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]) : "l"(p));
+  } else {
+    d[0] = __ldg(p);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void smem_chunk(float (&d)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(T_THREADS, 1)
 edge_latency_structured_single_tile_kernel(const float* __restrict__ xi,
                                            const float* __restrict__ xj,
                                            const float* __restrict__ mass,
                                            const float* __restrict__ a,
                                            const float* __restrict__ corr,
                                            float* __restrict__ out,
-                                           int64_t E, int64_t V, int64_t R,
+                                           int64_t n_batch, int64_t E,
+                                           int64_t V, int64_t R,
                                            int64_t x_bs, int64_t mass_bs,
                                            int64_t a_bs, int64_t corr_bs,
                                            int64_t out_bs) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                       // [R][V]
-  float* corr_s = smem + R * V;            // [V]
-  float* mass_s = corr_s + V;              // [T_ROWS][R]
+  constexpr int W = VEC ? 4 : 1;           // floats per chunk
+  constexpr int U = VEC ? 4 : 8;           // chunks per lane per step
+  extern __shared__ __align__(16) float tile_smem[];
+  float* a_s = tile_smem;                  // [R][V]
+  float* corr_s = tile_smem + R * V;       // [V]
+  float* mass_s = corr_s + V;              // [T_ROWS][R], a row per warp
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t b = blockIdx.y;
-  const int64_t e0 = (int64_t)blockIdx.x * T_ROWS;
-  const float* a_b = a + b * a_bs;
-  const float* corr_b = corr + b * corr_bs;
-  const float* mass_b = mass + b * mass_bs;
-
-  for (int64_t idx = tid; idx < R * V; idx += T_THREADS) a_s[idx] = a_b[idx];
-  for (int64_t idx = tid; idx < V; idx += T_THREADS) corr_s[idx] = corr_b[idx];
-  for (int64_t idx = tid; idx < T_ROWS * R; idx += T_THREADS) {
-    const int64_t e = e0 + idx / R;
-    mass_s[idx] = e < E ? mass_b[e * R + idx % R] : 0.f;
-  }
-  __syncthreads();
-
-  const int64_t e = e0 + warp;
-  if (e >= E) return;                      // no barrier follows
-  const float* xi_row = xi + b * x_bs + e * V;
-  const float* xj_row = xj + b * x_bs + e * V;
-  const float* mass_row = mass_s + (int64_t)warp * R;
-  float m = neg_inf();
-  for (int64_t u = lane; u < V; u += 32) {
-    float t = 0.f;
-    for (int64_t r = 0; r < R; ++r) t = fmaf(mass_row[r], a_s[r * V + u], t);
-    m = fmaxf(m, structured_term(xi_row[u], t, corr_s[u], xj_row[u]));
-  }
+  const int64_t n = n_batch * E;
+  const int64_t r0 = (int64_t)blockIdx.x * n / gridDim.x;
+  const int64_t r1 = ((int64_t)blockIdx.x + 1) * n / gridDim.x;
+  const bool shared = a_bs == 0 && corr_bs == 0;
+  const int64_t nk = V / W;                // chunks per row
+  float* mass_row = mass_s + (int64_t)warp * R;
+  int64_t tile = -1;                       // the scenario in shared memory
+  for (int64_t s0 = r0; s0 < r1;) {
+    const int64_t b0 = s0 / E;
+    const int64_t c = shared ? 0 : b0;
+    const int64_t s1 = shared || (b0 + 1) * E > r1 ? r1 : (b0 + 1) * E;
+    if (c != tile) {                       // CTA-uniform
+      __syncthreads();                     // every warp is done with it
+      const float* a_c = a + c * a_bs;
+      const float* corr_c = corr + c * corr_bs;
+      const uint32_t a_dst = smem_addr(a_s), corr_dst = smem_addr(corr_s);
+      for (int64_t k = tid; k < R * nk; k += T_THREADS) {
+        if (VEC) cp_async16(a_dst + 16 * (uint32_t)k, a_c + 4 * k, true);
+        else cp_async4(a_dst + 4 * (uint32_t)k, a_c + k, true);
+      }
+      for (int64_t k = tid; k < nk; k += T_THREADS) {
+        if (VEC) cp_async16(corr_dst + 16 * (uint32_t)k, corr_c + 4 * k, true);
+        else cp_async4(corr_dst + 4 * (uint32_t)k, corr_c + k, true);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      tile = c;
+    }
+    for (int64_t row = s0 + warp; row < s1; row += T_ROWS) {
+      const int64_t b = row / E, e = row % E;
+      const float* xi_row = xi + b * x_bs + e * V;
+      const float* xj_row = xj + b * x_bs + e * V;
+      float pi[U][W], pj[U][W];            // this step's chunks
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) out[b * out_bs + e] = m;
+      for (int j = 0; j < U; ++j) {
+        const int64_t k = (int64_t)j * 32 + lane;
+        if (k < nk) {
+          load_chunk<W>(pi[j], xi_row + k * W);
+          load_chunk<W>(pj[j], xj_row + k * W);
+        }
+      }
+      __syncwarp();                        // the previous row's mass is read
+      for (int64_t r = lane; r < R; r += 32)
+        mass_row[r] = __ldg(mass + b * mass_bs + e * R + r);
+      __syncwarp();
+      float m = neg_inf();
+      for (int64_t k0 = 0; k0 < nk; k0 += 32 * U) {
+        float ni[U][W], nj[U][W];          // the next step's chunks
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const int64_t k = k0 + 32 * U + (int64_t)j * 32 + lane;
+          if (k < nk) {
+            load_chunk<W>(ni[j], xi_row + k * W);
+            load_chunk<W>(nj[j], xj_row + k * W);
+          }
+        }
+        float t[U][W];
+#pragma unroll
+        for (int j = 0; j < U; ++j)
+#pragma unroll
+          for (int q = 0; q < W; ++q) t[j][q] = 0.f;
+        // K2's chain: t = fmaf(mass[r], a[r, u], t) over ascending r
+        for (int64_t r = 0; r < R; ++r) {
+          const float mr = mass_row[r];
+          const float* a_r = a_s + r * V;
+#pragma unroll
+          for (int j = 0; j < U; ++j) {
+            const int64_t k = k0 + (int64_t)j * 32 + lane;
+            if (k < nk) {
+              float av[W];
+              smem_chunk<W>(av, a_r + k * W);
+#pragma unroll
+              for (int q = 0; q < W; ++q) t[j][q] = fmaf(mr, av[q], t[j][q]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const int64_t k = k0 + (int64_t)j * 32 + lane;
+          if (k < nk) {
+            float cv[W];
+            smem_chunk<W>(cv, corr_s + k * W);
+#pragma unroll
+            for (int q = 0; q < W; ++q)
+              m = fmaxf(m, structured_term(pi[j][q], t[j][q], cv[q],
+                                           pj[j][q]));
+          }
+#pragma unroll
+          for (int q = 0; q < W; ++q) {
+            pi[j][q] = ni[j][q];
+            pj[j][q] = nj[j][q];
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) out[b * out_bs + e] = m;
+    }
+    s0 = s1;
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory before a launch that
@@ -710,23 +831,18 @@ int edge_latency_dense_launch(const float* xi, const float* xj,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K1_SMEM);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, K1_THREADS, K1_SMEM)) != cudaSuccess)
+  const int64_t n_ut = (V + K1_BN - 1) / K1_BN;
+  const int64_t tiles = n_batch * ((rows + K1_BM - 1) / K1_BM) * n_ut;
+  unsigned grid = 0;
+  int sms = 0;
+  if ((err = persistent_grid(kern, K1_THREADS, K1_SMEM, tiles, &grid,
+                             &sms)) != cudaSuccess)
     return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t s = (cudaStream_t)stream;
   edge_latency_dense_split_kernel<<<sms * 8, 256, 0, s>>>(com, com_hi, com_lo,
                                                           n_com);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t n_ut = (V + K1_BN - 1) / K1_BN;
-  const int64_t tiles = n_batch * ((rows + K1_BM - 1) / K1_BM) * n_ut;
-  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles
-                                                     : (int64_t)sms * per_sm;
-  kern<<<(unsigned)grid, K1_THREADS, K1_SMEM, s>>>(
+  kern<<<grid, K1_THREADS, K1_SMEM, s>>>(
       xi, xj, com_hi, com_lo, partial, n_batch, rows, V, x_bs, x_rs, com_bs,
       com_rs);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -790,25 +906,33 @@ int edge_latency_dense_single_tile_launch(const float* xi, const float* xj,
 }
 
 // K4b.  a_bs = corr_bs = 0 shares one scenario across batches.  Shared
-// memory: (R + 1)*V + 8*R floats.
+// memory: (R + 1)*V + 8*R floats.  A persistent grid of min(CTAs per SM x
+// SMs, ceil(B E / 8)) CTAs; 16-byte loads when V % 4 == 0 and every
+// operand and batch stride is 16-byte aligned, else 4-byte ones.
 int edge_latency_structured_single_tile_launch(
     const float* xi, const float* xj, const float* mass, const float* a,
     const float* corr, float* out, int64_t n_batch, int64_t E, int64_t V,
     int64_t R, int64_t x_bs, int64_t mass_bs, int64_t a_bs, int64_t corr_bs,
     int64_t out_bs, void* stream) {
-  const int64_t blocks = (E + T_ROWS - 1) / T_ROWS;
-  if (n_batch < 1 || n_batch > 65535 || blocks < 1 || blocks > 0x7fffffff ||
-      V < 1 || R < 1)
+  if (n_batch < 1 || E < 1 || V < 1 || R < 1)
     return (int)cudaErrorInvalidConfiguration;
+  const bool vec = V % 4 == 0 && x_bs % 4 == 0 && a_bs % 4 == 0 &&
+                   corr_bs % 4 == 0 && (uintptr_t)xi % 16 == 0 &&
+                   (uintptr_t)xj % 16 == 0 && (uintptr_t)a % 16 == 0 &&
+                   (uintptr_t)corr % 16 == 0;
+  const auto kern = vec ? edge_latency_structured_single_tile_kernel<true>
+                        : edge_latency_structured_single_tile_kernel<false>;
   const size_t smem = sizeof(float) * (size_t)((R + 1) * V + T_ROWS * R);
-  const cudaError_t err =
-      allow_smem(edge_latency_structured_single_tile_kernel, smem);
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)blocks, (unsigned)n_batch);
-  edge_latency_structured_single_tile_kernel<<<grid, T_THREADS, smem,
-                                               (cudaStream_t)stream>>>(
-      xi, xj, mass, a, corr, out, E, V, R, x_bs, mass_bs, a_bs, corr_bs,
-      out_bs);
+  unsigned grid = 0;
+  if ((err = persistent_grid(kern, T_THREADS, smem,
+                             (n_batch * E + T_ROWS - 1) / T_ROWS, &grid)) !=
+      cudaSuccess)
+    return (int)err;
+  kern<<<grid, T_THREADS, smem, (cudaStream_t)stream>>>(
+      xi, xj, mass, a, corr, out, n_batch, E, V, R, x_bs, mass_bs, a_bs,
+      corr_bs, out_bs);
   return (int)cudaGetLastError();
 }
 

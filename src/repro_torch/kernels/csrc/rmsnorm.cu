@@ -9,31 +9,57 @@
 // per row of x (rows, D), in float32 (the mean is the sum of squares over
 // D, divided by D), rounded once to x's dtype (bfloat16 to nearest even).
 // x is float32 or bfloat16, w is float32 (the parameters are float32).  Any
-// row count and any D: 2048 and 4096 in Mamba2's block and gate norms, 128
-// for a qk-norm.
+// row count and any D: 2048 and 4096 in Mamba2-1.3B's block and gate norms,
+// 1536 / 3072 or 2560 / 5120 in its 780m and 2.7B siblings, 128 for a
+// qk-norm.
 //
 // Bound on this card: bytes.  It reads x once, w once and writes y once,
 // with ~4 operations per element: at the LM-scoring shape (22 528 rows of
 // one shard, bf16) the block norm (D = 2048) moves 184.5 MB, 0.055 ms at
 // 3.35 TB/s, and the gate norm (D = 4096) 369 MB, 0.110 ms.
 //
-// Design: one warp per row, 8 rows per CTA of 256 threads.  The warp reads
-// its row with 16-byte loads (8 bf16 or 4 float32 per lane) where the row
-// length and the pointers allow it, else element by element; squares are
-// summed in float32 per lane and reduced with warp shuffles in a fixed
-// order, so a repeat launch is bitwise identical.  A second pass over the
-// row (from L1/L2: a CTA's 8 rows are at most 128 KB) scales and writes
-// it.  The entry point takes raw pointers, launches on the given stream
-// and returns cudaGetLastError().
+// Two kernels.  Both give one warp to a row and sum its squares in the
+// same fixed order, so a repeat launch is bitwise identical:
+//   lane l takes the 16-byte vectors k = l, l + 32, l + 64, ... of the row
+//   (8 bf16 or 4 float32 each; single elements on the scalar path) and
+//   sums f * f over them with fmaf, vector by vector, element by element;
+//   the 32 lane partials meet in a shuffle butterfly (xor 16, 8, 4, 2, 1).
+//
+// rmsnorm_rows_kernel, for every D whose row is whole 16-byte vectors, up
+// to 32 per lane (D <= 8192 bf16, 4096 float32), with 16-byte aligned
+// operands.  A template on the vectors a lane holds, NV, rounded up to one
+// of the instantiated counts (ROWS_NV below); a lane's vectors past the
+// row's end are zeros, which add nothing to the sum and are not stored.
+// The row is read from device memory once, into registers, and stays
+// there across the reduction; the scaled row is written from them.  w is
+// staged once per CTA in shared memory as P = (elements per vector) / 4
+// planes of float4, plane h holding w[n*k + 4h .. n*k + 4h + 3] at index
+// k, so the lanes of a warp read consecutive float4s (no bank conflict)
+// where they read x's vector k.  The grid is persistent (CTAs per SM x
+// SMs, from the occupancy calculator): each warp walks rows gridDim.x * 4
+// apart and, where the registers allow it (NV <= 16: bf16 D <= 4096,
+// float32 D <= 2048), loads its next row before it reduces the current
+// one, so the next row's loads are in flight behind the reduction and the
+// stores.  x is read with the L2 256-byte prefetch hint.  (A ring of rows
+// in shared memory filled by 1-D bulk copies (TMA) was tried and was no
+// faster.)
+//
+// rmsnorm_kernel, every other D or an operand that is not 16-byte aligned:
+// 8 rows per CTA, the row read twice (the second pass from L1/L2), with
+// 16-byte loads of x and w where D and the pointers allow it, else one
+// element at a time.
+//
+// The entry point takes raw pointers, launches on the given stream and
+// returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "grid.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;  // rows (warps) per CTA
-constexpr int NT = 32 * ROWS;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -50,6 +76,127 @@ struct alignas(16) Vec {
   static constexpr int n = 16 / sizeof(TI);
   TI v[n];
 };
+
+// element i of a 16-byte vector of TI, held as a uint4, as float32 (a
+// bf16 is the high half of its float32)
+template <typename TI>
+__device__ __forceinline__ float elem(const uint4& u, int i) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(TI) == 4)
+    return __uint_as_float(w[i]);
+  else
+    return __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+}
+
+// n float32 values rounded to a 16-byte vector of TI
+__device__ __forceinline__ uint4 pack(const float (&o)[4], float) {
+  return make_uint4(__float_as_uint(o[0]), __float_as_uint(o[1]),
+                    __float_as_uint(o[2]), __float_as_uint(o[3]));
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float (&o)[8], __nv_bfloat16) {
+  return make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]),
+                    pack2(o[6], o[7]));
+}
+
+// -- rows of whole 16-byte vectors: the row in registers ----------------------
+
+constexpr int RT = 128;          // threads of a rows-kernel CTA
+constexpr int RW = RT / 32;      // its warps, one row each at a time
+
+// 16 bytes from device memory on the read-only path, asking L2 to fetch
+// the whole 256-byte block around it
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+// a lane's vectors k = j * 32 + lane of a row of nv vectors; zeros past it
+template <int NV>
+__device__ __forceinline__ void load_row(uint4 (&r)[NV], const uint4* row,
+                                         int lane, int nv) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = j * 32 + lane;
+    r[j] = k < nv ? ld_stream(row + k) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+template <typename TI, int NV>
+__global__ void __launch_bounds__(RT) rmsnorm_rows_kernel(
+    const TI* __restrict__ x, const float* __restrict__ w, TI* __restrict__ y,
+    int64_t rows, int nv, float eps) {
+  constexpr int n = Vec<TI>::n;
+  constexpr int P = n / 4;                 // float4s of w per x vector
+  constexpr bool PREFETCH = NV <= 16;      // two rows fit the registers
+  __shared__ float4 w_s[P][NV * 32];
+  const int D = nv * n;                    // nv: 16-byte vectors per row
+
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  for (int i = threadIdx.x; i < D / 4; i += RT) w_s[i % P][i / P] = w4[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int64_t stride = (int64_t)gridDim.x * RW;
+  int64_t row = (int64_t)blockIdx.x * RW + threadIdx.x / 32;
+  if (row >= rows) return;                 // no barrier follows
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  uint4 cur[NV], nxt[NV];
+  load_row<NV>(cur, xv + row * nv, lane, nv);
+  for (;;) {
+    const int64_t next = row + stride;
+    if (PREFETCH && next < rows) load_row<NV>(nxt, xv + next * nv, lane, nv);
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+#pragma unroll
+      for (int i = 0; i < n; ++i) {
+        const float f = elem<TI>(cur[j], i);
+        ss = fmaf(f, f, ss);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      ss += __shfl_xor_sync(FULL, ss, off);
+    const float inv = rsqrtf(ss / (float)D + eps);
+    uint4* yr = yv + row * nv;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = j * 32 + lane;
+      if (k >= nv) break;
+      float o[n];
+#pragma unroll
+      for (int h = 0; h < P; ++h) {
+        const float4 wv = w_s[h][k];
+        const float wh[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          o[4 * h + q] = (elem<TI>(cur[j], 4 * h + q) * inv) * wh[q];
+      }
+      yr[k] = pack(o, TI());
+    }
+    if (next >= rows) break;
+    row = next;
+    if (PREFETCH) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) cur[j] = nxt[j];
+    } else {
+      load_row<NV>(cur, xv + row * nv, lane, nv);
+    }
+  }
+}
+
+// -- every other D: two passes over the row -----------------------------------
+
+constexpr int ROWS = 8;  // rows (warps) per CTA
+constexpr int NT = 32 * ROWS;
 
 template <typename TI, bool VEC>
 __global__ void __launch_bounds__(NT) rmsnorm_kernel(
@@ -69,28 +216,34 @@ __global__ void __launch_bounds__(NT) rmsnorm_kernel(
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const float f = to_f(t.v[i]);
-        ss += f * f;
+        ss = fmaf(f, f, ss);
       }
     }
   } else {
     for (int64_t k = lane; k < D; k += 32) {
       const float f = to_f(xr[k]);
-      ss += f * f;
+      ss = fmaf(f, f, ss);
     }
   }
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    ss += __shfl_xor_sync(FULL, ss, off);
   const float inv = rsqrtf(ss / (float)D + eps);
   if (VEC) {
     const Vec<TI>* xv = reinterpret_cast<const Vec<TI>*>(xr);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
     Vec<TI>* yv = reinterpret_cast<Vec<TI>*>(yr);
     for (int64_t k = lane; k < D / V; k += 32) {
       const Vec<TI> t = xv[k];
       Vec<TI> o;
 #pragma unroll
-      for (int i = 0; i < V; ++i)
-        put(&o.v[i], (to_f(t.v[i]) * inv) * w[k * V + i]);
+      for (int h = 0; h < V / 4; ++h) {
+        const float4 wv = __ldg(w4 + k * (V / 4) + h);
+        const float wh[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          put(&o.v[4 * h + q], (to_f(t.v[4 * h + q]) * inv) * wh[q]);
+      }
       yv[k] = o;
     }
   } else {
@@ -99,16 +252,41 @@ __global__ void __launch_bounds__(NT) rmsnorm_kernel(
   }
 }
 
+// the rows kernel's instantiated vectors per lane: a row of nv vectors
+// takes the first count >= ceil(nv / 32)
+constexpr int ROWS_NV[] = {1, 2, 4, 8, 12, 16, 20, 24, 32};
+constexpr int N_ROWS_NV = sizeof(ROWS_NV) / sizeof(ROWS_NV[0]);
+
+template <typename TI, int I = 0>
+cudaError_t launch_rows(const TI* x, const float* w, TI* y, int64_t rows,
+                        int nv, float eps, cudaStream_t s) {
+  constexpr int NV = ROWS_NV[I];
+  if constexpr (I + 1 < N_ROWS_NV) {
+    if (nv > NV * 32)
+      return launch_rows<TI, I + 1>(x, w, y, rows, nv, eps, s);
+  }
+  const auto kernel = rmsnorm_rows_kernel<TI, NV>;
+  unsigned grid = 0;
+  const cudaError_t err = persistent_grid(kernel, RT, 0, (rows + RW - 1) / RW,
+                                          &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, RT, 0, s>>>(x, w, y, rows, nv, eps);
+  return cudaGetLastError();
+}
+
 template <typename TI>
 cudaError_t launch(const void* x, const void* w, void* y, int64_t rows,
                    int64_t D, float eps, cudaStream_t s) {
-  const bool vec = D % Vec<TI>::n == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
+  constexpr int n = Vec<TI>::n;
+  const bool vec = D % n == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const TI* xp = static_cast<const TI*>(x);
   const float* wp = static_cast<const float*>(w);
   TI* yp = static_cast<TI*>(y);
+  if (vec && D / n <= 32 * ROWS_NV[N_ROWS_NV - 1])
+    return launch_rows<TI>(xp, wp, yp, rows, (int)(D / n), eps, s);
+  const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
   if (vec)
     rmsnorm_kernel<TI, true><<<grid, NT, 0, s>>>(xp, wp, yp, rows, D, eps);
   else
@@ -121,7 +299,9 @@ cudaError_t launch(const void* x, const void* w, void* y, int64_t rows,
 extern "C" {
 
 // x, y: contiguous (rows, D); w: (D,) float32.  bf16 != 0 means bfloat16
-// x/y, else float32.  Grid: ceil(rows / 8) CTAs of 8 warps.
+// x/y, else float32.  Rows of whole 16-byte vectors (up to 1024 of them)
+// with 16-byte aligned operands take the persistent rows kernel; the rest
+// ceil(rows / 8) CTAs of 8 warps.
 int rmsnorm_launch(const void* x, const void* w, void* y, int64_t rows,
                    int64_t D, int64_t bf16, float eps, void* stream) {
   if (rows < 1 || D < 1 || (rows + ROWS - 1) / ROWS > 2147483647)

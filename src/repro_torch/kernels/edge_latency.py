@@ -25,6 +25,8 @@ tiled.  In brief:
   references K1 and K2 are held against at small V.  They refuse, before
   any launch, operands whose tiles exceed the 227 KB a CTA can use
   (:func:`single_tile_max_v`: V ≤ 237 for K4a; V ≤ 6449 for K4b at R = 8).
+  K4b runs a persistent grid that copies a scenario's tile once per CTA
+  and streams the edge rows' x_i and x_j past it.
 
 Each wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to the plain versions

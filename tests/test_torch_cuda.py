@@ -215,11 +215,15 @@ def test_ssd_kernel_reads_strided_views_on_the_card(card):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain_on_the_card(card, dtype):
     """K7 against its plain version at vectorised, scalar and unaligned
-    rows, with the bars of the other kernels; bitwise on a repeat."""
+    rows and at the widths of other Mamba2 sizes (1536 to 8192, the rows
+    kernel at 6 to 32 vectors per lane), with the bars of the other
+    kernels; bitwise on a repeat."""
     rng = np.random.default_rng(23)
     t = getattr(torch, dtype)
     for rows, D, offset in ((1, 64, 0), (7, 2048, 0), (33, 4096, 0),
-                            (9, 37, 0), (4, 256, 1)):
+                            (9, 37, 0), (4, 256, 1), (6, 1536, 0),
+                            (5, 2560, 0), (9001, 3072, 0), (3, 5120, 0),
+                            (2, 8192, 0)):
         flat = torch.from_numpy(rng.standard_normal(rows * D + offset)
                                 .astype(np.float32)).to(card).to(t)
         x = flat[offset:].view(rows, D)
@@ -233,6 +237,27 @@ def test_rmsnorm_kernel_matches_plain_on_the_card(card, dtype):
         err = (got.double() - want.double()).abs().max()
         assert float(err / want.double().abs().max()) <= bar, (rows, D)
         assert torch.equal(got, rk.rmsnorm(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [2048, 4096])
+def test_rmsnorm_kernel_at_serving_shapes_on_the_card(card, dtype, D):
+    """K7 at one lm_score shard's rows (22 528) and the block / gate norm
+    widths, where the row stays in registers: the bars of the other
+    kernels, bitwise on a repeat."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((22528, D)).astype(np.float32)
+                         ).to(card).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(card)
+    got = rk.rmsnorm(x, w)
+    if dtype == "float32":
+        want, bar = ref.rmsnorm_plain(x.double(), w.double()), 1e-5
+    else:
+        want, bar = ref.rmsnorm_plain(x, w), 1e-2
+    err = (got.double() - want.double()).abs().max()
+    assert float(err / want.double().abs().max()) <= bar
+    assert torch.equal(got, rk.rmsnorm(x, w))
 
 
 @pytest.mark.cuda
@@ -283,6 +308,55 @@ def test_single_tile_kernels_equal_the_blocked_ones_on_the_card(card,
     want = ref.edge_latency_dense_plain(*(t.double() for t in d))
     assert float((got.double() - want).abs().max()
                  / want.abs().max()) <= 1e-5
+    got = ek.edge_latency_structured_single_tile(*st)
+    assert torch.equal(got, ek.edge_latency_structured(*st))
+    want = ref.edge_latency_structured_plain(*(t.double() for t in st))
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+
+
+def _structured_operands(card, seed, B, E, V, R, shared, offset=0):
+    """x_i (at ``offset`` elements into its buffer: not 16-byte aligned
+    for offset 1), x_j, mass, a, corr, seeded with numpy."""
+    rng = np.random.default_rng(seed)
+    bc = 1 if shared else B
+
+    def arr(*shape, pad=0):
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.standard_normal(n + pad)
+                                .astype(np.float32)).to(card)
+        return flat[pad:].view(shape)
+
+    return (arr(B, E, V, pad=offset), arr(B, E, V), arr(B, E, R),
+            arr(bc, R, V), arr(bc, 1, V))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_k4b_equals_k2_at_the_timed_shape_on_the_card(card, shared):
+    """K4b == K2 bitwise at B 4, E 1024, V 11 616 (the largest V at R 4),
+    R 4, with a shared and a per-batch scenario; within 1e-5 of float64;
+    bitwise on a repeat."""
+    V = ek.single_tile_max_v(4)
+    assert V == 11616
+    st = _structured_operands(card, 41, 4, 1024, V, 4, shared)
+    got = ek.edge_latency_structured_single_tile(*st)
+    assert torch.equal(got, ek.edge_latency_structured(*st))
+    assert torch.equal(got, ek.edge_latency_structured_single_tile(*st))
+    want = ref.edge_latency_structured_plain(*(t.double() for t in st))
+    assert float((got.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("V,R,offset", [(1237, 4, 0), (6449, 8, 0),
+                                        (1024, 4, 1)])
+def test_k4b_scalar_path_equals_k2_on_the_card(card, V, R, offset, shared):
+    """K4b's 4-byte path: V % 4 != 0 (1237; 6449, the largest V at R 8) and
+    an x_i one element into its buffer (not 16-byte aligned) — bitwise
+    equal to K2, within 1e-5 of float64."""
+    st = _structured_operands(card, V + offset, 3, 70, V, R, shared, offset)
     got = ek.edge_latency_structured_single_tile(*st)
     assert torch.equal(got, ek.edge_latency_structured(*st))
     want = ref.edge_latency_structured_plain(*(t.double() for t in st))

@@ -5,6 +5,7 @@ build's contract, ``chip_smoke.py``'s refusal to run without a card, and
 the small copied/ported helpers (convert, sanitize, obs, roofline)."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -127,6 +128,20 @@ def test_build_targets_sm90a_and_keys_libraries_by_source(tmp_path,
     first = build._lib_path(src)
     src.write_text("// two\n")
     assert build._lib_path(src) != first
+
+
+def test_build_keys_libraries_by_the_shared_headers(tmp_path):
+    """A library's name also changes with a header of csrc/ (the sources
+    include grid.cuh), and the port's sources include only such headers."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "grid.cuh"\n')
+    (tmp_path / "grid.cuh").write_text("// one\n")
+    first = build._lib_path(src)
+    (tmp_path / "grid.cuh").write_text("// two\n")
+    assert build._lib_path(src) != first
+    for cu in build.CSRC.glob("*.cu"):
+        for name in re.findall(r'#include "([^"]+)"', cu.read_text()):
+            assert (build.CSRC / name).is_file() and name.endswith(".cuh")
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -33,6 +33,18 @@ float64 oracle:
   and of the Pallas kernel in interpret mode.  The three candidates (bf16
   once, bf16 hi + lo, TF32) are reported at a serving-like shape.
 
+* K7 (RMSNorm) gives one warp to a row: lane l sums f·f with fmaf over the
+  16-byte vectors l, l + 32, … of the row (8 bf16 or 4 float32 values;
+  single values where D or the pointers do not allow 16-byte loads), in
+  vector order, and the 32 lane partials meet in a shuffle butterfly
+  (xor 16, 8, 4, 2, 1) (``csrc/rmsnorm.cu``).  :func:`_k7_lane_order`
+  emulates that order in float32 torch: within 1e-5 of the float64 plain
+  version for float32 x, within one bf16 ulp of each value of the plain
+  version for bf16 x, at D 2048 and 4096 (the serving widths), 1536 and
+  5120 (other Mamba2 sizes' widths; the rows kernel pads a lane's last
+  vectors with zeros, or at 5120 float32 the two-pass kernel), 37 and 100
+  (100 is vectorised for float32 and scalar for bf16).
+
 And the FP32 guard of the structured path (C1): the region-mass product,
 the structured movement's quadratic form and the objective-set
 scalarization ask :func:`require_fp32_matmul`, which refuses card tensors
@@ -343,6 +355,58 @@ def test_k6_numerics_candidates_at_a_serving_like_shape(slow):
                                      for k, v in rounded.items()))
     assert max(rounded.values()) <= BF16_REL
     assert errs["bf16_hilo"] <= errs["bf16"] and errs["tf32"] <= errs["bf16"]
+
+
+# -- K7: the lane order of the sum of squares -----------------------------------
+
+def _k7_lane_order(x: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """x (rows, D) float32 or bf16, w (D,) float32 → K7's y, its sum of
+    squares taken in the kernel's order (see the module docstring) in
+    float32.  fmaf is the exact product f·f (exact in float64) plus the
+    partial, rounded to float64 and then to float32: the kernel rounds
+    once, so a partial may differ by one float32 ulp where the two
+    roundings meet a tie."""
+    rows, D = x.shape
+    n = 16 // x.element_size()              # values per 16-byte vector
+    width = n if D % n == 0 else 1
+    steps = -(-(D // width) // 32)          # vectors per lane, rounded up
+    xf = x.float()
+    padded = torch.zeros(rows, steps * 32 * width, dtype=torch.float64)
+    padded[:, :D] = xf.double()             # fmaf(0, 0, s) == s
+    padded = padded.view(rows, steps, 32, width)
+    ss = torch.zeros(rows, 32, dtype=torch.float32)
+    for step in range(steps):               # lane l: vector step·32 + l
+        for i in range(width):
+            f = padded[:, step, :, i]
+            ss = (f * f + ss.double()).float()
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, lanes ^ off]
+    assert torch.equal(ss, ss[:, :1].expand(rows, 32))   # every lane agrees
+    inv = torch.rsqrt(ss[:, :1] / D + eps)
+    return ((xf * inv) * w.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [2048, 4096, 37, 100, 1536, 5120])
+def test_k7_lane_order_meets_the_bars(D, dtype):
+    """float32 x: within 1e-5 of the float64 plain version; bf16 x: within
+    one bf16 ulp of each value of the plain version (both round one
+    float32 result)."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((16, D)).astype(np.float32)
+                         * np.float32(3.0)).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+    got = _k7_lane_order(x, w)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if dtype == "float32":
+        want = ref.rmsnorm_plain(x.double(), w.double())
+        assert _rel(got.numpy(), want.numpy()) <= REL
+    else:
+        want = ref.rmsnorm_plain(x, w).float().numpy()
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp)
 
 
 # -- C1: the FP32 guard of the structured path ------------------------------------

@@ -162,7 +162,8 @@ def test_chip_smoke_single_tile_phase_rehearses_on_the_cpu(monkeypatch,
     """chip_smoke.py's single_tile phase on the CPU with K1, K2, K4a and
     K4b swapped for counted plain versions (K4's keep the wrapper's size
     refusal) and the routes planned "cuda": the launch counts, the bitwise
-    and float64 checks, the refusal and the timing report all run."""
+    and float64 checks, the refusal and the timing report (K4b also
+    per-batch and at R 8) all run."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -190,6 +191,8 @@ def test_chip_smoke_single_tile_phase_rehearses_on_the_cpu(monkeypatch,
         monkeypatch.setattr(kernels, name, counted(name, fn, R_of))
         monkeypatch.setitem(kernels.launches, name, 0)
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps: 1.0)
+    monkeypatch.setattr(chip_smoke, "kernel_device_ms",
+                        lambda torch, fn, reps, key: 1.0)
     monkeypatch.setattr(chip_smoke, "TILE_TIMED", (2, 8))
     out = chip_smoke.single_tile_phase(torch, torch.device("cpu"))
     n = 2 * (1 + len(chip_smoke.TILE_ES) + len(chip_smoke.TILE_VS) + 1)
@@ -202,3 +205,9 @@ def test_chip_smoke_single_tile_phase_rehearses_on_the_cpu(monkeypatch,
     printed = capsys.readouterr().out
     assert "K4a == K1 and K4b == K2 bitwise" in printed
     assert "largest V accepted: K4a 237, K4b 11616" in printed
+    # the timed cases, each held bitwise against the blocked kernel
+    for shape in ("V=11616 R=4 shared", "V=11616 R=4 per-batch",
+                  "V=6449 R=8 shared"):
+        assert (f"edge_latency_structured_single_tile [B=2 E=8 {shape}]"
+                in printed)
+    assert printed.count("(bitwise equal)") == 6
