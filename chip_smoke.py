@@ -124,8 +124,42 @@ bitwise equal.
    for their plain versions (inside the check only) within 1e-2, and the
    row counts; it prints what phase 6 prints.
 
+9. search_dense: ``BatchedProblem`` on a ``random_fleet`` of 8 regions ×
+   512 devices (V 4096, an ``ExplicitFleet``), the DAG of phase 3, β 1 and
+   a ``DQCoupling``: ``random_search`` of 4096 candidates in 1024-row
+   chunks (5 dispatches: the uniform seed and 4 chunks, each K1 at B 1024,
+   E 21, V 4096), then ``simulated_annealing`` of 2048 steps in blocks of
+   64 from its winner (32 dispatches).  It checks the dispatches and K1
+   launches, one 1024-row chunk and one 64-row anneal path against the
+   plain version in float64 on the card (≤1e-5), each winner's F against
+   the float64 oracle (its batched score ≤1e-5), F at most the uniform
+   placement's (within the float32 selection's 1e-5) and the winner
+   feasible under the coupling; it prints the walls, placements × dq
+   scored per second and the profile of one 1024-candidate search;
+10. search_greedy: ``greedy_transfer`` with δ = 1/64 on an 8 × 8
+   ``random_fleet`` (V 64; from the uniform start every device is a
+   source, so a neighbourhood is up to 4032 moves, K1 at bucket 4096), on
+   the card and on the CPU route: F within 1e-5 of the CPU route's and at
+   most the uniform placement's, the winner feasible, a full
+   neighbourhood against the plain version; it prints whether the moves
+   were identical;
+11. robust_structured: ``region_scenario_batch`` (S 4, V 131 072, 8
+   regions, the generator's stragglers and outages) and min–max search
+   over 256 candidates with a per-scenario dq: ``robust_placement``'s
+   grid (its winning and uniform columns against the float64 oracle in
+   every scenario, the worst case equal to ``grid.max(0).min()``), then
+   ``scenario_robust_search`` without warm starts (1 dispatch, K2 × 4,
+   the same winner, F the oracle's worst case), then with
+   ``co_optimize_dq`` and a coupling (profiled); it prints generation
+   time, walls, cells/s and peak memory;
+12. streaming_reoptimize: the job of phase 6 without the LM operator, on
+   its 12-device fleet and placement problem: ``greedy_transfer``, device
+   5 degraded 10× and re-optimized, device 11 lost, one batch; rows stay
+   on the simplex, the straggler's mass does not rise, and no kernel is
+   launched (the compute-extension problem takes the scalar loop).
+
 The launch counts are set to 0 just before a phase drives its main path
-(the service, the engine) and read just after it.  The last lines are the
+(the service, the engine, a search) and read just after it.  The last lines are the
 card, one JSON object listing every ported kernel and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -217,6 +251,14 @@ SSD_MIN_CTAS = 1000
 RMS_CASES = [(1, 64, 0), (3, 100, 0), (7, 2048, 0), (5, 128, 0),
              (33, 4096, 0), (9, 37, 0), (4, 256, 1), (6, 1536, 0),
              (5, 2560, 0), (9001, 3072, 0), (3, 5120, 0), (2, 8192, 0)]
+# the search phases: a random_fleet of 8 regions × 512 (serve_dense's V)
+# searched by random_search in 1024-row chunks (serve_dense's K1 shape) and
+# block annealing; greedy on 8 × 8 devices; min–max robust search over a
+# generated family at serve_structured's V and S
+SEARCH_PER_REGION, SEARCH_CANDIDATES, SEARCH_BATCH = 512, 4096, 1024
+ANNEAL_STEPS, ANNEAL_BLOCK = 2048, 64
+GREEDY_PER_REGION = 8
+ROBUST_CANDIDATES = 256
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -1185,6 +1227,392 @@ def plain_ssm_kernels():
         sk.ssd_scan, rk.rmsnorm = saved
 
 
+def coupling_for(np, DQCoupling, n_ops: int, V: int):
+    """The search phases' DQ coupling: caps of 4× the uniform placement's
+    column mass at dq 0, falling to 1.5× at dq 1, so the dq knob trades
+    against capacity and the +inf mask is exercised."""
+    u = n_ops / V
+    return DQCoupling(cap0=np.full(V, 4.0 * u), load=np.full(V, 2.5 * u))
+
+
+def plain_latency(torch, eng, xs):
+    """Float64 critical-path latencies of the placements ``xs`` through the
+    plain dense version on ``eng``'s device (the check of K1 inside
+    ``BatchedProblem``)."""
+    from repro_torch.core.torchmodel import critical_path_dp, edge_endpoints
+    from repro_torch.kernels import ref
+    ev = eng._ev
+    x = torch.as_tensor(xs, dtype=torch.float32, device=ev.device).double()
+    xi, xj = edge_endpoints(x, ev._src, ev._dst, ev._sel.double())
+    elat = ref.edge_latency_dense_plain(xi, xj, eng._pack.double())
+    links = ev._links(x)
+    return critical_path_dp(ev.graph, elat if links is None else elat + links)
+
+
+def hold_chunk(torch, np, phase: str, eng, xs) -> float:
+    """``eng``'s batched latencies of ``xs`` (one K1 dispatch) against
+    :func:`plain_latency`, ≤ REL relative; returns the error."""
+    got, _ = eng.raw_values(xs)
+    want = plain_latency(torch, eng, xs)
+    rel, _ = rel_err(torch.as_tensor(got), want.cpu())
+    check(got.shape == (len(xs),) and bool(np.isfinite(got).all()),
+          f"{phase}: non-finite or mis-shaped chunk latencies")
+    check(rel <= REL, f"{phase}: chunk of {len(xs)} rel err {rel:.3e} to "
+                      f"the plain version > {REL}")
+    return rel
+
+
+def search_dense_phase(torch, np, dev, graph, per_region: int,
+                       n_candidates: int, batch: int, steps: int,
+                       block: int, profile: bool = True) -> dict:
+    """Batched search on a dense fleet (phase 9): ``random_search`` and
+    block ``simulated_annealing`` through ``BatchedProblem`` on K1, with
+    the dispatch and launch counts, one chunk of each shape held against
+    the plain version, the winner against the oracle, the uniform
+    placement and the coupling."""
+    from repro_torch.core.optimizers import (DQCoupling, PlacementProblem,
+                                             _dq_grid)
+    from repro_torch.core.placement import uniform_placement
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.search import (BatchedProblem, anneal_path,
+                                    random_placements, random_search,
+                                    simulated_annealing)
+    from repro_torch.sim.scenarios import ScenarioConfig, random_fleet
+
+    rng = np.random.default_rng(SEED + 9)
+    t0 = time.perf_counter()
+    fleet = random_fleet(rng, ScenarioConfig(
+        n_regions=(8, 8), devices_per_region=(per_region, per_region)))
+    V = fleet.n_devices
+    prob = PlacementProblem(graph, fleet, beta=1.0,
+                            dq=coupling_for(np, DQCoupling, graph.n_ops, V))
+    eng = BatchedProblem(prob, device=dev)
+    setup_s = time.perf_counter() - t0
+    avail = prob.availability()
+    uni = uniform_placement(graph.n_ops, avail)
+    uni_F = min(prob.score(uni, d) for d in _dq_grid(prob))
+    phase = "search_dense"
+    # the main path: counts from 0 around each search
+    sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rs = random_search(prob, rng, n_candidates=n_candidates, batch=batch,
+                       engine=eng)
+    sync(torch, dev)
+    rs_s = time.perf_counter() - t0
+    rs_launched = kernels.launches["edge_latency_dense"]
+    n_disp = 1 + -(-n_candidates // batch)
+    check(rs.dispatches == n_disp and rs_launched == n_disp,
+          f"{phase}: random_search made {rs.dispatches} dispatches and "
+          f"{rs_launched} K1 launches, want {n_disp} of each")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sa = simulated_annealing(prob, rng, steps=steps, block=block,
+                             x0=rs.x, dq0=rs.dq_fraction, engine=eng)
+    sync(torch, dev)
+    sa_s = time.perf_counter() - t0
+    sa_launched = kernels.launches["edge_latency_dense"]
+    n_disp = -(-steps // block)
+    check(sa.dispatches == n_disp and sa_launched == n_disp,
+          f"{phase}: simulated_annealing made {sa.dispatches} dispatches "
+          f"and {sa_launched} K1 launches, want {n_disp} of each")
+    # every shape the searches gave K1, against the plain version
+    chunk = random_placements(avail, np.random.default_rng(SEED + 10),
+                              batch, 0.5)
+    rel_chunk = hold_chunk(torch, np, phase, eng, chunk)
+    path, _ = anneal_path(rs.x, rs.dq_fraction, avail,
+                          np.random.default_rng(SEED + 11), block, 1.0)
+    rel_path = hold_chunk(torch, np, phase, eng, path)
+    del chunk, path
+    for name, res in (("random_search", rs), ("simulated_annealing", sa)):
+        want = prob.score(res.x, res.dq_fraction)
+        check(res.F == want, f"{phase}: {name} F {res.F} is not the oracle's "
+                             f"{want}")
+        err = abs(res.history[-1] - want) / want
+        check(err <= REL, f"{phase}: {name} batched best {res.history[-1]} "
+                          f"vs oracle {want}: rel err {err:.3e} > {REL}")
+        check(res.F <= uni_F * (1 + REL),
+              f"{phase}: {name} F {res.F} above the uniform placement's "
+              f"{uni_F}")
+        check(prob.feasible(res.x, res.dq_fraction),
+              f"{phase}: {name}'s winner violates the coupling")
+    prof = "not measured (no card)"
+    if profile:
+        prof = device_profile(torch, lambda: random_search(
+            prob, np.random.default_rng(SEED + 12), n_candidates=batch,
+            batch=batch, engine=eng), {
+                "K1 hi/lo split": ("split",),
+                "K1": ("edge_latency_dense",),
+                "copies": ("memcpy", "memset")})
+    print(f"{phase}: random_fleet V = {V} (8 regions x {per_region}), "
+          f"E = {graph.n_edges}, beta 1, DQCoupling; set-up {setup_s:.2f} s;"
+          f" random_search {n_candidates} candidates in batches of {batch}: "
+          f"{rs.dispatches} dispatches, {rs_launched} K1 launches, wall "
+          f"{rs_s:.2f} s, {rs.evals / rs_s:.0f} placements x dq scored/s, "
+          f"F {rs.F:.6g} (dq {rs.dq_fraction}); simulated_annealing "
+          f"{steps} steps in blocks of {block} from its winner: "
+          f"{sa.dispatches} dispatches, {sa_launched} K1 launches, wall "
+          f"{sa_s:.2f} s, {sa.evals / sa_s:.0f} placements scored/s, F "
+          f"{sa.F:.6g} (dq {sa.dq_fraction}); uniform F {uni_F:.6g}; "
+          f"K1 vs plain (float64): {batch}-row chunk {rel_chunk:.3e}, "
+          f"{block}-row anneal path {rel_path:.3e}")
+    print(f"{phase} profile (one random_search of {batch} candidates): "
+          f"{prof}")
+    return {"launches": {"random_search": rs_launched,
+                         "simulated_annealing": sa_launched},
+            "rs": rs, "sa": sa, "uniform_F": uni_F}
+
+
+def search_greedy_phase(torch, np, dev, graph, per_region: int) -> dict:
+    """``greedy_transfer`` on a small dense fleet (phase 10) with δ = 1/V,
+    so every device of the uniform start is a source and a neighbourhood
+    is up to V·(V − 1) moves, on the card and on the CPU route."""
+    from repro_torch.core.optimizers import DQCoupling, PlacementProblem
+    from repro_torch.core.placement import uniform_placement
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.search import (BatchedProblem, greedy_transfer,
+                                    transfer_neighborhood)
+    from repro_torch.sim.scenarios import ScenarioConfig, random_fleet
+
+    phase = "search_greedy"
+    fleet = random_fleet(np.random.default_rng(SEED + 13), ScenarioConfig(
+        n_regions=(8, 8), devices_per_region=(per_region, per_region)))
+    V = fleet.n_devices
+    prob = PlacementProblem(graph, fleet, beta=1.0,
+                            dq=coupling_for(np, DQCoupling, graph.n_ops, V))
+    uni = uniform_placement(graph.n_ops, prob.availability())
+    uni_F = prob.score(uni, 0.0)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        eng = BatchedProblem(prob, device=where)
+        sync(torch, dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = greedy_transfer(prob, deltas=(1.0 / V,), engine=eng)
+        sync(torch, dev)
+        runs[where.type] = (res, time.perf_counter() - t0,
+                            kernels.launches["edge_latency_dense"],
+                            sorted(eng._seen_buckets), eng)
+    res, wall, launched, buckets, eng = runs[dev.type]
+    cpu_res = runs["cpu"][0]
+    check(res.dispatches > 0 and launched == res.dispatches,
+          f"{phase}: {res.dispatches} dispatches, {launched} K1 launches")
+    err = abs(res.F - cpu_res.F) / cpu_res.F
+    check(err <= REL, f"{phase}: F {res.F} vs the CPU route's {cpu_res.F}: "
+                      f"rel err {err:.3e} > {REL}")
+    check(res.F <= uni_F, f"{phase}: F {res.F} above uniform {uni_F}")
+    check(prob.feasible(res.x, res.dq_fraction),
+          f"{phase}: the winner violates the coupling")
+    # the largest neighbourhood the descent scored, against the plain version
+    moves = transfer_neighborhood(uni, prob.availability(), 0, 1.0 / V)
+    rel = hold_chunk(torch, np, phase, eng, moves)
+    same = np.array_equal(res.x, cpu_res.x) and \
+        res.dq_fraction == cpu_res.dq_fraction
+    print(f"{phase}: random_fleet V = {V} (8 regions x {per_region}), delta "
+          f"1/{V}: {res.dispatches} dispatches (buckets {buckets}), "
+          f"{launched} K1 launches, {res.evals} evals, wall {wall:.2f} s "
+          f"(CPU route {runs['cpu'][1]:.2f} s); F {res.F:.6g} vs CPU route "
+          f"{cpu_res.F:.6g} (rel {err:.3e}), uniform {uni_F:.6g}; moves "
+          f"identical to the CPU route: {same}; K1 vs plain (float64) on a "
+          f"{len(moves)}-move neighbourhood {rel:.3e}")
+    return {"launches": launched, "res": res, "cpu": cpu_res, "same": same}
+
+
+def robust_structured_phase(torch, np, dev, graph, V: int, S: int,
+                            n_candidates: int, profile: bool = True) -> dict:
+    """Min–max robust search over a generated structured family (phase
+    11): ``region_scenario_batch`` → ``robust_placement`` (the grid
+    against the oracle) → ``scenario_robust_search`` with per-scenario dq
+    (one dispatch, K2 × S) and with ``co_optimize_dq`` and a coupling."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.optimizers import DQCoupling
+    from repro_torch.core.placement import uniform_placement
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.search import robust_placement, scenario_robust_search
+    from repro_torch.sim.scenarios import (ScenarioConfig,
+                                           region_scenario_batch)
+
+    phase = "robust_structured"
+    rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
+    scens = region_scenario_batch(rng, S, ScenarioConfig(n_regions=(8, 8)),
+                                  graph=graph, n_devices=V)
+    gen_s = time.perf_counter() - t0
+    dq = np.linspace(0.1, 0.7, S)
+    kw = dict(n_candidates=n_candidates, beta=1.0, dq=dq, device=dev)
+    t0 = time.perf_counter()
+    x, worst, grid = robust_placement(graph, scens,
+                                      np.random.default_rng(SEED + 19), **kw)
+    grid_s = time.perf_counter() - t0
+    check(grid.shape == (S, n_candidates) and bool(np.isfinite(grid).all()),
+          f"{phase}: non-finite or mis-shaped grid {grid.shape}")
+    g64 = grid.astype(np.float64)
+    k = int(np.argmin(g64.max(0)))
+    check(worst == float(g64.max(0).min()) and worst == float(g64[:, k].max()),
+          f"{phase}: worst-case score {worst} is not grid.max(0).min()")
+
+    def oracle(s, xp):
+        lat = costmodel.latency(graph, scens[s].fleet, xp)
+        return costmodel.objective_F(lat, float(dq[s]), 1.0)
+
+    # the winning column and the uniform placement's (candidate 0) in every
+    # scenario, against the float64 oracle
+    uni = uniform_placement(graph.n_ops, np.ones((graph.n_ops, V), bool))
+    worst_oracle = 0.0
+    for p, xp in ((k, x), (0, uni)):
+        for s in range(S):
+            want = oracle(s, xp)
+            err = abs(float(grid[s, p]) - want) / want
+            check(err <= REL, f"{phase}: grid cell ({s}, {p}) rel err "
+                              f"{err:.3e} to the oracle > {REL}")
+            worst_oracle = max(worst_oracle, err)
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = scenario_robust_search(graph, scens,
+                                 np.random.default_rng(SEED + 19),
+                                 warm_start=False, **kw)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launched = kernels.launches["edge_latency_structured"]
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    check(res.dispatches == 1 and launched == S,
+          f"{phase}: {res.dispatches} dispatches, {launched} K2 launches; "
+          f"want 1 and {S}")
+    check(np.array_equal(res.x, x) and res.history == [worst],
+          f"{phase}: scenario_robust_search did not pick robust_placement's "
+          f"winner {worst}: {res.history}")
+    fs = [oracle(s, res.x) for s in range(S)]
+    check(res.F == max(fs), f"{phase}: F {res.F} is not the oracle's "
+                            f"worst case {max(fs)}")
+    coupling = coupling_for(np, DQCoupling, graph.n_ops, V)
+    co_kw = dict(kw, co_optimize_dq=True, dq_coupling=coupling)
+    out = {}
+
+    def co_search():
+        out["co"] = scenario_robust_search(
+            graph, scens, np.random.default_rng(SEED + 19),
+            warm_start=False, **co_kw)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if profile:
+        prof = device_profile(torch, co_search, {
+            "K2": ("edge_latency_structured",), "mass (cuBLAS)": GEMM,
+            "copies": ("memcpy", "memset")})
+    else:
+        co_search()
+        prof = "not measured (no card)"
+    co_s = time.perf_counter() - t0
+    co = out["co"]
+    co_launched = kernels.launches["edge_latency_structured"]
+    check(co.dispatches == 1 and co_launched == S,
+          f"{phase}: co_optimize_dq made {co.dispatches} dispatches and "
+          f"{co_launched} K2 launches; want 1 and {S}")
+    check(bool(np.isfinite(co.history[0])) and co.F > 0,
+          f"{phase}: co_optimize_dq worst case {co.history}")
+    check(bool((co.x.sum(axis=0) <= coupling.caps(co.dq_fraction)
+                + 1e-7).all()),
+          f"{phase}: the co-optimized winner violates the coupling at its "
+          f"worst scenario's dq {co.dq_fraction}")
+    mem = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
+    print(f"{phase}: region_scenario_batch S = {S}, V = {V}, R = "
+          f"{scens[0].fleet.n_regions}, E = {graph.n_edges}: generation "
+          f"{gen_s:.2f} s; robust_placement {n_candidates} candidates "
+          f"(candidate draw + one dispatch) {grid_s:.2f} s, winner column "
+          f"and uniform column vs oracle worst rel err {worst_oracle:.3e}; "
+          f"scenario_robust_search (dq {np.round(dq, 3).tolist()}, no warm "
+          f"start): {res.dispatches} dispatch, {launched} K2 launches, wall "
+          f"{wall:.2f} s, {S * n_candidates / wall:.0f} cells/s, peak "
+          f"memory {mem}, worst-case F {res.F:.6g}; co_optimize_dq with a "
+          f"coupling (profiled): {co.dispatches} dispatch, {co_launched} K2 "
+          f"launches, wall {co_s:.2f} s, worst-case F {co.F:.6g} at dq "
+          f"{co.dq_fraction}")
+    print(f"{phase} profile (the co-optimized search): {prof}")
+    return {"launches": launched, "res": res, "co": co, "peak": peak,
+            "oracle_rel": worst_oracle}
+
+
+def streaming_reoptimize_phase(np) -> dict:
+    """The example's streaming job without the LM operator (phase 12):
+    greedy placement, a straggler re-optimized, a device lost, one batch —
+    host only, on the scalar float64 loop of the compute-extension
+    problem."""
+    from repro_torch.core import CostConfig, DQCoupling, ExplicitFleet, \
+        PlacementProblem, greedy_transfer
+    from repro_torch.core.placement import uniform_placement
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.streaming import (StreamGraph, StreamingEngine, map_op,
+                                       quality_op, source, window_agg)
+
+    phase = "streaming_reoptimize"
+    fleet, speed = example_fleet(np, ExplicitFleet)
+    ops = [source("ingest"),
+           map_op("clean", lambda r: np.clip(r, 0, 99), work=0.5),
+           quality_op("dq_check", threshold=0.4, work=2.0),
+           window_agg("window_mean", window=8, work=0.5)]
+    g = StreamGraph(ops, [(0, 1), (1, 2), (2, 3)])
+    n = fleet.n_devices
+    prob = PlacementProblem(g.meta, fleet,
+                            CostConfig(alpha=0.002, include_compute=True),
+                            beta=1.0, dq=DQCoupling(cap0=np.full(n, 1.0),
+                                                    load=np.full(n, 0.05)))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = greedy_transfer(prob)
+    greedy_s = time.perf_counter() - t0
+    uni_F = prob.score(uniform_placement(g.meta.n_ops, prob.availability()),
+                       0.0)
+    eng = StreamingEngine(g, fleet, res.x, alpha=0.002, device_speed=speed)
+    rng = np.random.default_rng(SEED + 21)
+
+    def batch():
+        b = rng.integers(0, 100, (256, 32)).astype(float)
+        b[rng.random(256) < 0.05] = -1            # sensor dropouts
+        return b
+
+    rep0 = eng.run_batch(batch())
+    before = eng.x[:, 5].sum()
+    t0 = time.perf_counter()
+    res2 = eng.degrade_and_replace(5, 10.0, beta=1.0)
+    degrade_s = time.perf_counter() - t0
+    after = eng.x[:, 5].sum()
+    t0 = time.perf_counter()
+    res3 = eng.remove_device(11, beta=1.0)
+    remove_s = time.perf_counter() - t0
+    rep = eng.run_batch(batch())
+    check(res.dispatches == res2.dispatches == res3.dispatches == 0
+          and not any(kernels.launches.values()),
+          f"{phase}: the scalar re-optimization dispatched "
+          f"{kernels.launches}")
+    check(res.F <= uni_F, f"{phase}: greedy F {res.F} above uniform {uni_F}")
+    check(after <= before + 1e-12, f"{phase}: mass on the straggler rose "
+                                   f"from {before} to {after}")
+    for name, x in (("degrade", res2.x), ("remove", res3.x),
+                    ("engine", eng.x)):
+        check(bool((x >= 0).all()) and bool(np.allclose(x.sum(axis=1), 1.0,
+                                                        atol=1e-9)),
+              f"{phase}: {name} placement rows left the simplex")
+    check(eng.fleet.n_devices == n - 1 and eng.x.shape == (g.meta.n_ops,
+                                                           n - 1),
+          f"{phase}: {eng.fleet.n_devices} devices after the loss")
+    check(rep.rows_in == 256 and np.isfinite(rep.modeled_latency),
+          f"{phase}: batch after the loss {rep.rows_in} rows, modeled "
+          f"latency {rep.modeled_latency}")
+    print(f"{phase}: greedy F {res.F:.6g} (uniform {uni_F:.6g}, dq "
+          f"{res.dq_fraction}) in {greedy_s:.2f} s; device 5 degraded 10x: "
+          f"re-optimized F {res2.F:.6g} in {degrade_s:.2f} s, its mass "
+          f"{before:.3f} -> {after:.3f}; device 11 lost: F {res3.F:.6g} in "
+          f"{remove_s:.2f} s; modeled latency {rep0.modeled_latency:.6g} -> "
+          f"{rep.modeled_latency:.6g}, rows_out {rep.rows_out}; 0 "
+          f"dispatches, no kernel launched (host only)")
+    return {"res": res, "degrade": res2, "remove": res3,
+            "mass": (before, after)}
+
+
 def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                    profile: bool = True) -> dict:
     """The example's streaming job with ``cfg`` as the LM-scoring operator
@@ -1711,6 +2139,18 @@ def main() -> int:
     check(ssm["shard_rows"] <= shard,
           f"lm_score_mamba2: a shard of {ssm['shard_rows']} rows, K6/K7 "
           f"timed at {shard}")
+    torch.cuda.empty_cache()
+
+    # -- 9.-12. search, robust search and the engine's re-optimization ------
+    search_dense_phase(torch, np, dev, graph, SEARCH_PER_REGION,
+                       SEARCH_CANDIDATES, SEARCH_BATCH, ANNEAL_STEPS,
+                       ANNEAL_BLOCK)
+    torch.cuda.empty_cache()
+    search_greedy_phase(torch, np, dev, graph, GREEDY_PER_REGION)
+    robust_structured_phase(torch, np, dev, graph, STRUCT_V, S,
+                            ROBUST_CANDIDATES)
+    torch.cuda.empty_cache()
+    streaming_reoptimize_phase(np)
 
     launches = {"edge_latency_dense": dense_launched["edge_latency_dense"],
                 "edge_latency_structured":

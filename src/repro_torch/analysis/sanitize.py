@@ -13,8 +13,10 @@ and the checks only READ values the computation already produced.
 
 :func:`check_dq` and :func:`check_finite` accept numpy arrays, scalars or
 torch tensors (a CUDA tensor is copied to the host once for the check).
-The reference's placement validation and retrace budget serve its search
-engine and come with the search slice.
+:func:`check_placements` validates a search engine's candidate batch
+before it is scored.  The reference's retrace budget
+(``note_first_dispatch``) meters jit retraces, which eager PyTorch does not
+have, so it has no counterpart here.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import numpy as np
 from repro_torch.analysis.errors import AnalysisError
 
 __all__ = ["AnalysisError", "SanitizerState", "state", "enabled", "enable",
-           "disable", "sanitized", "check_dq", "check_finite"]
+           "disable", "sanitized", "check_placements", "check_dq",
+           "check_finite"]
 
 
 @dataclasses.dataclass
@@ -83,6 +86,31 @@ def _host(arr) -> np.ndarray:
 
 
 # -- domain checks (plain functions: usable without enabling) -----------------
+
+def check_placements(xs: np.ndarray, n_ops: int, n_devices: int, *,
+                     bucket=None) -> None:
+    """Validate a candidate batch BEFORE it is packed for the card.
+
+    Shape must be (..., n_ops, n_devices) and the dtype real-numeric —
+    anything else would fail deep inside the dispatch, or be scored as
+    something it is not.  Non-finite mass is left to the output guard
+    (:func:`check_finite` on the grid).
+    """
+    xs = np.asarray(xs)
+    if xs.dtype == object or not (np.issubdtype(xs.dtype, np.floating)
+                                  or np.issubdtype(xs.dtype, np.integer)
+                                  or np.issubdtype(xs.dtype, np.bool_)):
+        raise AnalysisError(
+            "score-batch-domain",
+            f"candidate batch dtype {xs.dtype} is not real-numeric",
+            bucket=bucket, dtype=str(xs.dtype))
+    if xs.ndim < 2 or xs.shape[-2:] != (n_ops, n_devices):
+        raise AnalysisError(
+            "score-batch-domain",
+            f"candidate batch shape {xs.shape} does not end in "
+            f"(n_ops, n_devices) = ({n_ops}, {n_devices})",
+            bucket=bucket, shape=tuple(xs.shape))
+
 
 def check_dq(dq, *, bucket=None) -> None:
     """dq_fraction lives in [0, 1]: the fraction of rows degraded away."""

@@ -1,21 +1,38 @@
 """Cost-model core of the port: graphs, fleets, placements, the float64
-oracle (copies of ``repro.core``), the batched torch twin and the §3.1
-objective sets."""
+oracle (copies of ``repro.core``), the batched torch twin, the §3.1
+objective sets and the placement problems with their discrete optimizers
+(``projected_gradient`` and the smoothed model come with ROADMAP A9)."""
 
 from repro_torch.core.costmodel import (CostConfig, device_occupancy,
                                         edge_latencies, edge_latency,
-                                        latency, network_movement,
+                                        enabled_links, latency,
+                                        latency_via_paths, network_movement,
                                         objective_F)
 from repro_torch.core.devices import ExplicitFleet, RegionFleet, \
     RegionFleetFamily
-from repro_torch.core.graph import Operator, OpGraph, random_dag
+from repro_torch.core.graph import (Operator, OpGraph, diamond_graph,
+                                    linear_graph, random_dag)
 from repro_torch.core.objectives import (OBJECTIVES, ObjectiveGrids,
                                          ObjectiveSet, ObjectiveSpec,
                                          as_objective_set)
-from repro_torch.core.placement import random_placement
+from repro_torch.core.optimizers import (DQCoupling, OptResult,
+                                         PlacementProblem, exhaustive_search,
+                                         greedy_transfer, random_search,
+                                         scenario_robust_search,
+                                         simulated_annealing)
+from repro_torch.core.placement import (random_placement, uniform_placement,
+                                        validate_placement)
 
-__all__ = ["CostConfig", "device_occupancy", "edge_latencies",
-           "edge_latency", "latency", "network_movement", "objective_F", "ExplicitFleet", "RegionFleet",
-           "RegionFleetFamily", "Operator", "OpGraph", "random_dag",
-           "random_placement", "OBJECTIVES", "ObjectiveGrids", "ObjectiveSet",
-           "ObjectiveSpec", "as_objective_set"]
+__all__ = [
+    "CostConfig", "device_occupancy", "edge_latencies", "edge_latency",
+    "enabled_links", "latency", "latency_via_paths", "network_movement",
+    "objective_F",
+    "OBJECTIVES", "ObjectiveGrids", "ObjectiveSet", "ObjectiveSpec",
+    "as_objective_set",
+    "ExplicitFleet", "RegionFleet", "RegionFleetFamily",
+    "Operator", "OpGraph", "diamond_graph", "linear_graph", "random_dag",
+    "DQCoupling", "OptResult", "PlacementProblem", "exhaustive_search",
+    "greedy_transfer", "random_search", "scenario_robust_search",
+    "simulated_annealing", "random_placement", "uniform_placement",
+    "validate_placement",
+]

@@ -22,10 +22,10 @@ engine, owns placement) and ``observed="work"`` makes busy accounting
 deterministic (work-model seconds instead of wall time), so controller
 decisions are reproducible under a fixed seed.
 
-The port runs the engine with the placement it is given: re-optimisation
-(``greedy_transfer``) belongs to the search slice, so the fleet hooks take
-``reoptimize=False`` and raise ``NotImplementedError`` (ROADMAP A5) with
-``reoptimize=True``, before touching any state.
+Re-optimization runs :func:`repro_torch.core.optimizers.greedy_transfer` on
+the compute-extension model (``include_compute=True``), as the reference
+does; that problem takes the search engine's scalar float64 loop, so it
+needs no card and the re-optimized placement equals the reference's.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from repro_torch import obs
 from repro_torch.core.costmodel import CostConfig, edge_latencies, latency
 from repro_torch.core.devices import ExplicitFleet, RegionFleet
 from repro_torch.core.graph import OpGraph
+from repro_torch.core.optimizers import PlacementProblem, greedy_transfer
 from repro_torch.streaming.operators import StreamGraph
 
 __all__ = ["StreamingEngine", "BatchReport"]
@@ -205,9 +206,8 @@ class StreamingEngine:
 
         ``reoptimize=False`` applies the fleet mutation without re-running
         the placement optimizer (placement is remapped mechanically on
-        removals) — the mode :mod:`repro.adapt` uses, since the controller
-        owns the re-optimization decision, and the only mode of the port
-        until the search slice (ROADMAP A5).
+        removals) — the mode the reference's adaptive controller uses,
+        since the controller owns the re-optimization decision.
         """
         if kind == "degrade":
             return self.degrade_and_replace(device, factor, beta=beta,
@@ -216,7 +216,6 @@ class StreamingEngine:
             return self.remove_device(device, beta=beta,
                                       reoptimize=reoptimize)
         if kind in ("outage", "recover"):
-            _refuse_reoptimize(reoptimize)     # before any device moves
             f = factor if kind == "outage" else 1.0 / factor
             region = np.asarray(self.fleet.region)
             hit = [int(u) for u in np.flatnonzero(region == device)]
@@ -250,11 +249,10 @@ class StreamingEngine:
     # ------------------------------------------------- straggler handling --
     def degrade_and_replace(self, device: int, factor: float,
                             beta: float = 0.0, reoptimize: bool = True):
-        """Straggler mitigation: fold the observed slowdown into the fleet
-        (the paper's heterogeneity terms used as live state).  The
-        reference then re-runs the placement optimizer; the port does not
-        have it yet, so only ``reoptimize=False`` is served."""
-        _refuse_reoptimize(reoptimize)
+        """Straggler mitigation: fold the observed slowdown into the fleet,
+        re-run the placement optimizer, adopt the new x (the paper's
+        heterogeneity terms used as live state).  ``reoptimize=False`` only
+        mutates the fleet/speed state."""
         if isinstance(self.fleet, RegionFleet):
             self.fleet = ExplicitFleet(com_cost=self.fleet.com_matrix(),
                                        speed=self.fleet.effective_speed(),
@@ -262,15 +260,21 @@ class StreamingEngine:
                                        region=self.fleet.region)
         self.fleet = self.fleet.degrade_device(device, factor)
         self.device_speed[device] /= factor
-        return None
+        if not reoptimize:
+            return None
+        prob = PlacementProblem(self.graph.meta, self.fleet,
+                                CostConfig(alpha=self.cfg.alpha,
+                                           include_compute=True), beta=beta)
+        res = greedy_transfer(prob, x0=self.x)
+        self.x = res.x
+        return res
 
     def remove_device(self, device: int, beta: float = 0.0,
                       reoptimize: bool = True):
         """Elastic down-scale after a device loss: rebuild the fleet without
-        it and remap fractions (column deleted, rows renormalized).  The
-        reference then re-optimizes from that warm start; the port keeps
-        it as-is and serves only ``reoptimize=False``."""
-        _refuse_reoptimize(reoptimize)
+        it, re-optimize, remap fractions (column deleted, rows renormalized
+        as a warm start).  ``reoptimize=False`` keeps the renormalized
+        warm-start placement as-is."""
         if isinstance(self.fleet, RegionFleet):
             self.fleet = ExplicitFleet(com_cost=self.fleet.com_matrix(),
                                        speed=self.fleet.effective_speed(),
@@ -282,12 +286,12 @@ class StreamingEngine:
         self.fleet = fleet2
         self.device_speed = self.device_speed[keep]
         self.observed_busy = self.observed_busy[keep]
-        self.x = x0
-        return None
-
-
-def _refuse_reoptimize(reoptimize: bool) -> None:
-    if reoptimize:
-        raise NotImplementedError(
-            "placement re-optimization (greedy_transfer) is not ported yet "
-            "(ROADMAP A5); pass reoptimize=False")
+        if not reoptimize:
+            self.x = x0
+            return None
+        prob = PlacementProblem(self.graph.meta, fleet2,
+                                CostConfig(alpha=self.cfg.alpha,
+                                           include_compute=True), beta=beta)
+        res = greedy_transfer(prob, x0=x0)
+        self.x = res.x
+        return res

@@ -529,3 +529,42 @@ def test_tf32_switches_cannot_change_structured_or_scalarized_grids(card):
         torch.set_float32_matmul_precision(was_prec)
     assert torch.backends.cuda.matmul.allow_tf32 == was_tf32
     assert torch.get_float32_matmul_precision() == was_prec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet_kind", ["dense", "structured"])
+@pytest.mark.parametrize("V,rows", [(64, 4096), (4096, 1024)])
+def test_batched_problem_on_the_card_matches_its_cpu_route(card, fleet_kind,
+                                                           V, rows):
+    """BatchedProblem on the card against the same problem on the CPU
+    route (the kernels' plain versions), one chunk: the (P, D) scores
+    within 1e-5 relative, the +inf masks equal, and one K1 (dense
+    random_fleet) or K2 (region fleet) launch for the chunk."""
+    from repro_torch.core.optimizers import DQCoupling, PlacementProblem
+    from repro_torch.search import BatchedProblem, random_placements
+    from repro_torch.sim.scenarios import ScenarioConfig, random_fleet
+
+    rng = np.random.default_rng(47)
+    graph = random_dag(12, 0.3, np.random.default_rng(0))
+    fleet = random_fleet(rng, ScenarioConfig(
+        n_regions=(8, 8), devices_per_region=(V // 8, V // 8),
+        explicit_fleet=fleet_kind == "dense"))
+    u = graph.n_ops / V
+    prob = PlacementProblem(graph, fleet, beta=1.0, dq=DQCoupling(
+        cap0=np.full(V, 4.0 * u), load=np.full(V, 2.5 * u)))
+    xs = random_placements(prob.availability(), rng, rows, 0.5)
+    dqs = np.linspace(0.0, 1.0, 6)
+    kernel = "edge_latency_dense" if fleet_kind == "dense" \
+        else "edge_latency_structured"
+    eng = BatchedProblem(prob, device=card)
+    ek.reset_launches()
+    got = eng.score_batch(xs, dqs)
+    torch.cuda.synchronize()
+    assert ek.launches[kernel] == 1 and eng.dispatches == 1
+    want = BatchedProblem(prob, device="cpu").score_batch(xs, dqs)
+    assert got.shape == want.shape == (rows, 6)
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert fin.any() and (~fin).any()
+    assert np.abs(got[fin] - want[fin]).max() / np.abs(want[fin]).max() \
+        <= 1e-5

@@ -5,10 +5,14 @@ window_mean on a 3-region, 12-device fleet, uniform placement) run through
 both engines on the same fleet, parameters and batches, with the smoke OLMo
 and the smoke Mamba2 as the LM.
 
+Also trace replay (``sim/replay.py``) and the engines' re-optimization
+(``greedy_transfer`` on the compute-extension problem) on both packages.
+
 Bars: LM scores ≤1e-5 relative (max |err| / max |want|; float32
 activations, the two forwards sum in different orders); everything the
 engines compute in numpy — row counts, modeled / true / per-edge latencies
-on the float64 cost model, work-model busy times — equal bitwise.
+on the float64 cost model, work-model busy times, re-optimized placements
+and replay reports — equal bitwise.
 """
 
 import dataclasses
@@ -240,24 +244,213 @@ def test_quality_operator_drops_bad_rows():
     assert eng.run_batch(batch).rows_out["dq_check"] <= 48
 
 
-def test_reoptimize_is_refused_before_any_state_changes():
-    g = _pipeline()
+def _pipelines():
+    """_pipeline() in both packages: (JAX StreamGraph, port StreamGraph)."""
+    out = []
+    for mod in (jax_ops, port_ops):
+        ops = [
+            mod.source(),
+            mod.map_op("normalize",
+                       lambda r: (r - r.mean()) / (r.std() + 1e-9), work=1.0),
+            mod.filter_op("threshold", lambda r: r[:, 0] > -0.5,
+                          selectivity=0.7),
+            mod.window_agg("window_mean", window=4),
+        ]
+        out.append(mod.StreamGraph(ops, [(0, 1), (1, 2), (2, 3)]))
+    return out
+
+
+def _engine_pair(com=COM, region=(0, 0, 1), beta_graphs=None):
+    jg, g = beta_graphs or _pipelines()
     n = g.meta.n_ops
-    x = uniform_placement(n, np.ones((n, 3), bool))
-    fleet = ExplicitFleet(com_cost=COM, region=np.array([0, 0, 1]))
-    eng = StreamingEngine(g, fleet, x)
-    for call in (lambda: eng.degrade_and_replace(2, 10.0),
-                 lambda: eng.remove_device(1),
-                 lambda: eng.apply_event("outage", 0, 4.0),
-                 lambda: eng.apply_event("degrade", 1, 2.0,
-                                         reoptimize=True)):
-        with pytest.raises(NotImplementedError, match="A5"):
-            call()
-    assert eng.fleet is fleet and np.array_equal(eng.x, x)
-    assert np.array_equal(eng.device_speed, np.ones(3))
-    assert eng.remove_device(1, reoptimize=False) is None
+    x = uniform_placement(n, np.ones((n, com.shape[0]), bool))
+    region = np.asarray(region)
+    jeng = jax_engine.StreamingEngine(
+        jg, JaxFleet(com_cost=com, region=region), x, observed="work")
+    eng = StreamingEngine(g, ExplicitFleet(com_cost=com, region=region), x,
+                          observed="work")
+    return jeng, eng
+
+
+def _same_state(eng, jeng):
+    assert np.array_equal(eng.x, jeng.x)
+    assert np.array_equal(eng.fleet.com_matrix(), jeng.fleet.com_matrix())
+    assert np.array_equal(eng.device_speed, jeng.device_speed)
+    assert np.array_equal(eng.fleet.effective_speed(),
+                          jeng.fleet.effective_speed())
+
+
+def test_reoptimize_is_refused_before_any_state_changes():
+    """Re-optimization is no longer refused (the name is kept from the
+    slice that refused it): every fleet hook re-optimizes by default
+    (greedy_transfer on the compute-extension problem, the scalar float64
+    loop on both sides) and the re-optimized x equals the JAX engine's
+    bitwise; reoptimize=False only mutates the fleet/speed state (and
+    remaps x on a removal)."""
+    calls = [lambda e: e.degrade_and_replace(2, 10.0, beta=0.5),
+             lambda e: e.remove_device(1, beta=1.0),
+             lambda e: e.apply_event("outage", 0, 4.0),
+             lambda e: e.apply_event("degrade", 1, 2.0, reoptimize=True),
+             lambda e: e.apply_event("recover", 0, 4.0, beta=0.3)]
+    for call in calls:
+        jeng, eng = _engine_pair()
+        x0 = eng.x.copy()
+        got, want = call(eng), call(jeng)
+        _same_state(eng, jeng)
+        assert got.F == want.F and got.evals == want.evals
+        assert got.dispatches == want.dispatches == 0
+        assert np.array_equal(got.x, eng.x) and not np.array_equal(eng.x, x0)
+        np.testing.assert_allclose(eng.x.sum(axis=1), 1.0, atol=1e-9)
+    jeng, eng = _engine_pair()
+    x0 = eng.x.copy()
+    for e in (eng, jeng):
+        assert e.degrade_and_replace(2, 10.0, reoptimize=False) is None
+        assert e.apply_event("outage", 1, 3.0, reoptimize=False) is None
+    _same_state(eng, jeng)
+    assert np.array_equal(eng.x, x0)
+    assert eng.device_speed[2] == 1.0 / 10.0 / 3.0 and \
+        eng.fleet.n_devices == 3
+    for e in (eng, jeng):
+        assert e.remove_device(1, reoptimize=False) is None
+    _same_state(eng, jeng)
     assert eng.fleet.n_devices == 2
     np.testing.assert_allclose(eng.x.sum(axis=1), 1.0, atol=1e-6)
+
+
+def _example_job_without_lm():
+    """examples/geo_placement.py's job with the LM-scoring operator left
+    out, its 12-device fleet and its placement problem, in both packages.
+    Each package gets its own speed array, used as the example uses it:
+    as the fleet's speed and the engine's device_speed (the engine divides
+    it in place on a degrade, so the two packages must not share it)."""
+    from repro.core import CostConfig as JCost
+    from repro.core import DQCoupling as JDQ
+    from repro.core import PlacementProblem as JProb
+    from repro_torch.core import CostConfig, DQCoupling, PlacementProblem
+    com, speed, region = _example_fleet()
+    out = []
+    speeds = []
+    for mod, Fleet, Prob, Cost, DQ in (
+            (jax_ops, JaxFleet, JProb, JCost, JDQ),
+            (port_ops, ExplicitFleet, PlacementProblem, CostConfig,
+             DQCoupling)):
+        ops = [mod.source("ingest"),
+               mod.map_op("clean", lambda r: np.clip(r, 0, 99), work=0.5),
+               mod.quality_op("dq_check", threshold=0.4, work=2.0),
+               mod.window_agg("window_mean", window=8, work=0.5)]
+        g = mod.StreamGraph(ops, [(0, 1), (1, 2), (2, 3)])
+        speeds.append(speed.copy())
+        fleet = Fleet(com_cost=com, speed=speeds[-1], region=region)
+        prob = Prob(g.meta, fleet, Cost(alpha=0.002, include_compute=True),
+                    beta=1.0, dq=DQ(cap0=np.full(12, 1.0),
+                                    load=np.full(12, 0.05)))
+        out.append((g, fleet, prob))
+    return out, speeds
+
+
+def test_example_reoptimization_matches_jax_engine():
+    """The example's straggler and elastic steps (greedy placement, device
+    5 degraded 10×, device 11 lost, one batch) through both engines:
+    placements and reports bitwise, the straggler's mass not risen."""
+    from repro.core import greedy_transfer as jax_greedy
+    from repro_torch.core import greedy_transfer
+    ((jg, jfleet, jprob), (g, fleet, prob)), (jspeed, speed) = \
+        _example_job_without_lm()
+    jres, res = jax_greedy(jprob), greedy_transfer(prob)
+    assert np.array_equal(res.x, jres.x) and res.F == jres.F
+    assert res.dispatches == 0
+    jeng = jax_engine.StreamingEngine(jg, jfleet, jres.x, alpha=0.002,
+                                      device_speed=jspeed, observed="work")
+    eng = StreamingEngine(g, fleet, res.x, alpha=0.002, device_speed=speed,
+                          observed="work")
+    before = eng.x[:, 5].sum()
+    got, want = (eng.degrade_and_replace(5, 10.0, beta=1.0),
+                 jeng.degrade_and_replace(5, 10.0, beta=1.0))
+    assert np.array_equal(got.x, want.x) and got.F == want.F
+    assert eng.x[:, 5].sum() <= before + 1e-12
+    got, want = eng.remove_device(11, beta=1.0), \
+        jeng.remove_device(11, beta=1.0)
+    assert np.array_equal(got.x, want.x) and got.F == want.F
+    _same_state(eng, jeng)
+    rng = np.random.default_rng(2)
+    batch = rng.integers(0, 100, (256, 32)).astype(float)
+    batch[rng.random(256) < 0.05] = -1
+    _same_report(eng.run_batch(batch), jeng.run_batch(batch))
+    np.testing.assert_allclose(eng.x.sum(axis=1), 1.0, atol=1e-9)
+
+
+def _same_replay(rep, jrep):
+    assert (rep.scenario, rep.n_degrades, rep.n_removes, rep.n_outages,
+            rep.n_drifts) == (jrep.scenario, jrep.n_degrades,
+                              jrep.n_removes, jrep.n_outages, jrep.n_drifts)
+    assert len(rep.steps) == len(jrep.steps)
+    for a, b in zip(rep.steps, jrep.steps):
+        assert (a.t, a.kind, a.rate, a.rows_in, a.modeled_latency,
+                a.observed_busy, a.n_devices) == \
+            (b.t, b.kind, b.rate, b.rows_in, b.modeled_latency,
+             b.observed_busy, b.n_devices)
+        assert np.array_equal(a.device_busy, b.device_busy)
+    assert np.array_equal(rep.busy_series(), jrep.busy_series())
+    assert rep.drift() == jrep.drift()
+
+
+@pytest.mark.parametrize("reoptimize_seed,realism", [(0, False), (3, True),
+                                                     (11, True)])
+def test_replay_trace_matches_jax_engine(reoptimize_seed, realism):
+    """A random_trace with degrade and loss events (and, with realism,
+    region outages and selectivity drift) replayed through both engines:
+    equal ReplayReport series, equal final placement and fleet (every fleet
+    event re-optimizes, as replay_trace asks)."""
+    from repro.sim import replay as jax_replay
+    from repro.sim import scenarios as jax_scen
+    from repro_torch.sim import replay, scenarios
+    kw = dict(trace_len=16, base_rate=32.0, degrade_prob=0.2,
+              loss_prob=0.1)
+    if realism:
+        kw.update(outage_on_prob=0.15, selectivity_drift_std=0.2)
+    com, _, region = _example_fleet()
+    com, region = com[:6, :6], region[:6] // 2
+    traces = [mod.random_trace(np.random.default_rng(reoptimize_seed), 6,
+                               mod.ScenarioConfig(**kw), n_regions=2,
+                               n_ops=4) for mod in (jax_scen, scenarios)]
+    kinds = {e.kind for e in traces[1]}
+    assert {"degrade", "remove"} & kinds
+    jeng, eng = _engine_pair(com, region)
+    jrep = jax_replay.replay_trace(jeng, traces[0], np.random.default_rng(1),
+                                   beta=0.5, name="t")
+    rep = replay.replay_trace(eng, traces[1], np.random.default_rng(1),
+                              beta=0.5, name="t")
+    _same_replay(rep, jrep)
+    _same_state(eng, jeng)
+
+
+def test_apply_fleet_event_matches_jax_and_keeps_the_removal_floor():
+    """apply_fleet_event in the controller's mode (reoptimize=False) and
+    the engine's own (True): the same kinds applied or dropped (a dead
+    device, the MIN_ALIVE_DEVICES floor) and the same state."""
+    from repro.sim import replay as jax_replay
+    from repro_torch.sim import TraceEvent, replay
+    from repro_torch.sim import MIN_ALIVE_DEVICES
+    events = [("degrade", 0, 4.0), ("remove", 1, 1.0), ("remove", 1, 1.0),
+              ("outage", 1, 8.0), ("drift", 2, 1.5), ("recover", 1, 8.0),
+              ("remove", 2, 1.0), ("degrade", 1, 2.0)]
+    for reopt in (False, True):
+        jeng, eng = _engine_pair(COM, (0, 0, 1))
+        jalive, alive = [0, 1, 2], [0, 1, 2]
+        for kind, dev, factor in events:
+            ev = TraceEvent(t=0, kind=kind, rate=0.0, device=dev,
+                            factor=factor)
+            got = replay.apply_fleet_event(eng, ev, alive, beta=0.4,
+                                           reoptimize=reopt)
+            want = jax_replay.apply_fleet_event(jeng, ev, jalive, beta=0.4,
+                                                reoptimize=reopt)
+            assert got == want and alive == jalive
+            _same_state(eng, jeng)
+        assert len(alive) == MIN_ALIVE_DEVICES == eng.fleet.n_devices
+        assert np.array_equal(eng.sel_scale, jeng.sel_scale)
+    with pytest.raises(ValueError, match="unknown trace event"):
+        replay.apply_fleet_event(eng, TraceEvent(t=0, kind="comet",
+                                                 rate=1.0), alive)
 
 
 def test_chip_smoke_lm_score_phase_rehearses_on_the_cpu(monkeypatch, capsys):
