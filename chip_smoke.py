@@ -158,6 +158,43 @@ bitwise equal.
    on the simplex, the straggler's mass does not rise, and no kernel is
    launched (the compute-extension problem takes the scalar loop).
 
+13. adaptive_dense: ``benchmarks/bench_adaptive.py``'s drifting world
+   (source → normalize → threshold; degrade 0.06, loss 0.01, outage on
+   0.05 / off 0.06, selectivity drift 0.10) at 8 regions × 512 devices
+   (V 4096), 8192 rows/tick from the uniform placement, 28 ticks (the
+   --smoke trace of 32, cut so the phase stays near a minute), through
+   ``AdaptiveController`` with bench_adaptive.py's ``CONTROLLER`` (window
+   4, cooldown 2, threshold 0.5, amortize 5; 64 candidates, 4 robust
+   scenarios) and ``observed="work"``.  Each re-optimization is one
+   ``score_grid`` dispatch: 4 K1 launches (B ≈ 65, E 2, V 4096) against the
+   believed fleet and three jittered copies.  It checks 4 K1 launches per
+   dispatch, eight cells of every re-optimization grid against the float64
+   oracle (≤1e-5), every candidate and the final placement on the simplex,
+   and the same world, seed and trace through the CPU route in the same
+   process: the same reconfiguration and refit ticks and the same final x,
+   unless two candidates' scores tie within 1e-5 (then it prints the two
+   scores and their gap and compares nothing after that re-optimization).
+   It prints the wall, ticks/s, the wall split from the ``obs`` spans
+   (engine, world events, oracle, refit, re-optimization), the dispatches,
+   refits and reconfigurations, the cumulative adaptive (with charges),
+   static and oracle F, peak memory and the profile of one
+   re-optimization;
+14. belief_cold_start: ``benchmarks/bench_belief.py``'s cold start at the
+   same V: the ridge prior fit on the card from the training tuples of
+   three disjoint training fleets (replay windows of their uniform
+   placement with the slow speed tier slowed 8×) against the same fit
+   with ``device="cpu"`` (≤1e-5); the cold-start controller (bench_belief's
+   ``BLIND`` with ``use_belief``, ``belief_sampling``, ``probe_epsilon``
+   0.1 and the prior) on a fleet whose slow tier degrades at tick 0, 16
+   ticks, 4 K1 launches per dispatch; ``use_belief=True`` with every belief
+   knob passive on phase 13's world, bitwise its legacy run; and
+   ``belief_robust_search`` with 4 posterior scenarios and 64 candidates
+   (no greedy warm starts: a neighbourhood at V 4096 has 1.7·10⁷ moves), one
+   dispatch of 4 K1 launches, its winner's worst case within 1e-5 of the
+   oracle's.  The training fleets replay their uniform placement instead of
+   the reference's per-event greedy re-placement (the compute-extension
+   greedy takes the scalar loop, hours at V 4096).
+
 The launch counts are set to 0 just before a phase drives its main path
 (the service, the engine, a search) and read just after it.  The last lines are the
 card, one JSON object listing every ported kernel and, last,
@@ -259,6 +296,25 @@ SEARCH_PER_REGION, SEARCH_CANDIDATES, SEARCH_BATCH = 512, 4096, 1024
 ANNEAL_STEPS, ANNEAL_BLOCK = 2048, 64
 GREEDY_PER_REGION = 8
 ROBUST_CANDIDATES = 256
+# the closed loop (phases 13-14): benchmarks/bench_adaptive.py's drifting
+# world and controller, and benchmarks/bench_belief.py's cold start, at 8
+# regions x 512 devices (V 4096, the dense path's target) with rows enough
+# that every device of the uniform start sees some
+ADAPT_PER_REGION, ADAPT_RATE, ADAPT_TICKS = 512, 8192.0, 28
+# bench_adaptive.py's --smoke trace length; phase 13 cuts it to
+# ADAPT_TICKS so the phase (its CPU route included) stays near a minute
+ADAPT_SMOKE_TICKS = 32
+ADAPT_DRIFT = dict(degrade_prob=0.06, loss_prob=0.01, outage_on_prob=0.05,
+                   outage_off_prob=0.06, selectivity_drift_std=0.10)
+BELIEF_TICKS, BELIEF_TRAIN_TICKS, BELIEF_FACTOR = 16, 6, 8.0
+BELIEF_TRAIN_SEEDS = (10, 11, 12)
+BELIEF_SCENARIOS, BELIEF_CANDIDATES = 4, 64
+# AdaptiveConfig keywords: bench_adaptive.py's CONTROLLER (n_candidates 64,
+# robust_scenarios 4 by default) and bench_belief.py's BLIND
+CONTROLLER = dict(window=4, cooldown=2, drift_threshold=0.5,
+                  amortize_ticks=5.0)
+BELIEF_BLIND = dict(window=3, cooldown=2, drift_threshold=0.3,
+                    amortize_ticks=20.0, n_candidates=32, oracle_candidates=16)
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -350,20 +406,34 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+# spin kernels that open every profiled session (see device_events), and
+# the readings a check that must hold every launch takes at most
+PROFILE_PAD, PROFILE_ATTEMPTS = 256, 3
+
+
 def device_events(torch, fn) -> tuple[float, dict[str, list]]:
     """One call of ``fn`` under ``torch.profiler``: its wall ms and, per
-    device kernel or copy name, [summed ms, count]."""
+    device kernel or copy name, [summed ms, count].
+
+    The profiler on the card's machine (torch 2.11 + CUDA 12.8) drops the
+    first device events of a session, more the longer the process has run.
+    So each session starts with ``PROFILE_PAD`` spin kernels, left out of
+    the result, for it to drop instead."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "spin_kernel" not in e.name:
             acc = per_name.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
@@ -373,12 +443,18 @@ def device_events(torch, fn) -> tuple[float, dict[str, list]]:
 def kernel_device_ms(torch, fn, reps: int, key: str) -> float:
     """Device ms per call of ``fn`` spent in the kernels whose names hold
     ``key``, from one profiled run of ``reps`` calls after a warm-up: the
-    kernel's own time, without the host time :func:`time_ms` includes."""
+    kernel's own time, without the host time :func:`time_ms` includes.
+    Every call launches such a kernel, so a run that recorded fewer than
+    ``reps`` of them lost events and is taken again."""
     fn()
-    _, per_name = device_events(torch, lambda: [fn() for _ in range(reps)])
-    total = sum(t for name, (t, _) in per_name.items() if key in name)
-    check(total > 0, f"the profiler recorded no {key} kernel")
-    return total / reps
+    for _ in range(PROFILE_ATTEMPTS):
+        _, per_name = device_events(torch,
+                                    lambda: [fn() for _ in range(reps)])
+        hits = [(t, c) for name, (t, c) in per_name.items() if key in name]
+        if sum(c for _, c in hits) >= reps:
+            return sum(t for t, _ in hits) / reps
+    check(False, f"the profiler recorded fewer than {reps} {key} kernels "
+                 f"in {PROFILE_ATTEMPTS} runs")
 
 
 def device_profile(torch, fn, groups: dict | None = None) -> str:
@@ -387,7 +463,12 @@ def device_profile(torch, fn, groups: dict | None = None) -> str:
     idle share, the device time of each group of ``groups`` (name →
     substrings of kernel names; the first group that matches takes a
     kernel, the rest is "other") and the largest device consumers."""
-    wall_ms, per_name = device_events(torch, fn)
+    return profile_text(*device_events(torch, fn), groups)
+
+
+def profile_text(wall_ms: float, per_name: dict,
+                 groups: dict | None = None) -> str:
+    """:func:`device_profile`'s summary of ``per_name`` over ``wall_ms``."""
     if not per_name:
         return f"wall {wall_ms:.1f} ms; the profiler recorded no device events"
     busy = sum(v[0] for v in per_name.values())
@@ -1613,6 +1694,425 @@ def streaming_reoptimize_phase(np) -> dict:
             "mass": (before, after)}
 
 
+def stream_graph():
+    """tests/test_adaptive.py's stream graph: source → normalize →
+    threshold (selectivity 0.7)."""
+    from repro_torch.streaming.operators import (StreamGraph, filter_op,
+                                                 map_op, source)
+    ops = [source(),
+           map_op("normalize", lambda r: (r - r.mean()) / (r.std() + 1e-9)),
+           filter_op("threshold", lambda r: r[:, 0] > -0.5,
+                     selectivity=0.7)]
+    return StreamGraph(ops, [(0, 1), (1, 2)])
+
+
+def adaptive_world(np, per_region: int, ticks: int, seed: int):
+    """benchmarks/bench_adaptive.py's drifting world at 8 regions ×
+    ``per_region`` devices: a fresh engine (uniform placement,
+    ``observed="work"``) and its trace of Markov region outages,
+    stragglers, losses and selectivity drift."""
+    from repro_torch.core.placement import uniform_placement
+    from repro_torch.sim.scenarios import (ScenarioConfig, random_trace,
+                                           scenario_batch)
+    from repro_torch.streaming.engine import StreamingEngine
+
+    rng = np.random.default_rng(seed)
+    sg = stream_graph()
+    cfg = ScenarioConfig(trace_len=ticks, base_rate=ADAPT_RATE,
+                         n_regions=(8, 8),
+                         devices_per_region=(per_region, per_region),
+                         **ADAPT_DRIFT)
+    s = scenario_batch(rng, 1, cfg, graph=sg.meta)[0]
+    trace = random_trace(rng, s.n_devices, cfg,
+                         n_regions=int(np.asarray(s.fleet.region).max()) + 1,
+                         n_ops=sg.meta.n_ops)
+    x0 = uniform_placement(sg.meta.n_ops,
+                           np.ones((sg.meta.n_ops, s.n_devices), bool))
+    return StreamingEngine(sg, s.fleet, x0, observed="work"), trace
+
+
+@contextlib.contextmanager
+def watched_grids(np, log: list, oracle: bool):
+    """Every ``BatchedEvaluator.score_grid`` of the block appends its host
+    grid to ``log``; its candidate rows must lie on the simplex, and with
+    ``oracle`` eight (scenario, candidate) cells — the incumbent, the
+    uniform fallback, the min–max winner and five more — are held against
+    the float64 oracle on the fleets as packed, ≤ REL relative."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.devices import ExplicitFleet
+    from repro_torch.sim import batched
+
+    inner = batched.BatchedEvaluator.score_grid
+
+    def score_grid(self, placements, coms, *args, **kw):
+        out = inner(self, placements, coms, *args, **kw)
+        grid = out.cpu().numpy()
+        xs = np.asarray(placements)
+        check(bool(np.allclose(xs.sum(axis=2), 1.0, atol=1e-5))
+              and bool((xs >= 0).all()),
+              "a re-optimization candidate left the simplex")
+        entry = {"grid": grid, "rel": 0.0}
+        if oracle:
+            S, P = grid.shape
+            cells = [(0, 0), (1 % S, P - 1),
+                     (2 % S, int(np.argmin(grid.max(axis=0))))]
+            cells += [(k % S, (k * P) // 8) for k in range(3, 8)]
+            for s, p in cells:
+                want = costmodel.latency(
+                    self.graph, ExplicitFleet(
+                        com_cost=np.asarray(coms[s], np.float64)),
+                    xs[p].astype(np.float64), self.cfg)
+                err = abs(float(grid[s, p]) - want) / want
+                check(err <= REL, f"re-optimization grid cell ({s}, {p}) "
+                                  f"rel err {err:.3e} to the oracle > {REL}")
+                entry["rel"] = max(entry["rel"], err)
+        log.append(entry)
+        return out
+
+    batched.BatchedEvaluator.score_grid = score_grid
+    try:
+        yield log
+    finally:
+        batched.BatchedEvaluator.score_grid = inner
+
+
+@contextlib.contextmanager
+def span_walls():
+    """A fresh, enabled ``repro_torch.obs`` registry for the block; yields a
+    dict filled on exit with the summed wall seconds per span name and the
+    registry's counters."""
+    from repro_torch import obs
+    from repro_torch.obs.registry import MetricsRegistry
+
+    prev = obs.set_registry(MetricsRegistry(enabled=True))
+    obs.clear_trace()
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        reg = obs.set_registry(prev)
+        for ev in obs.trace_events():
+            if ev.get("ph") == "X":
+                out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"] / 1e6
+        out["counters"] = {row["name"]: row["value"]
+                           for row in reg.snapshot()
+                           if row["type"] == "counter"}
+        obs.clear_trace()
+
+
+def wall_split(walls: dict, wall: float) -> str:
+    """engine / events / oracle / refit / re-optimization / other seconds
+    of one run from its span walls."""
+    parts = {"engine": walls.get("engine.run_batch", 0.0),
+             "events": walls.get("adapt.event", 0.0),
+             "oracle": walls.get("adapt.oracle", 0.0),
+             "refit": walls.get("adapt.refit", 0.0),
+             "re-optimization": walls.get("adapt.reoptimize", 0.0)}
+    parts["other"] = max(wall - sum(parts.values()), 0.0)
+    return ", ".join(f"{k} {v:.2f} s" for k, v in parts.items())
+
+
+def first_divergence(np, card: list, cpu: list):
+    """The first re-optimization whose min–max winner differs between two
+    runs' grid logs: (index, card winner, CPU winner, their card scores),
+    or None."""
+    for k, (a, b) in enumerate(zip(card, cpu)):
+        wa, wb = a["grid"].max(axis=0), b["grid"].max(axis=0)
+        ia, ib = int(np.argmin(wa)), int(np.argmin(wb))
+        if ia != ib:
+            return k, ia, ib, float(wa[ia]), float(wa[ib])
+    return None
+
+
+def profiled_reoptimize(torch, np, ctl) -> str:
+    """One more re-optimization of ``ctl``, timed on the host clock, with
+    its one dispatch under ``torch.profiler``: all of its device work (the
+    host draws the fleets and candidates before the dispatch).  The idle
+    share is over the whole re-optimization."""
+    from repro_torch.sim import batched
+
+    inner = batched.BatchedEvaluator.score_grid
+    seen = []
+
+    def score_grid(self, *args, **kw):
+        out = []
+        seen.append(device_events(
+            torch, lambda: out.append(inner(self, *args, **kw))))
+        return out[0]
+
+    batched.BatchedEvaluator.score_grid = score_grid
+    want = ctl.cfg.robust_scenarios
+    try:
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            seen.clear()
+            t0 = time.perf_counter()
+            ctl._reoptimize(np.random.default_rng(SEED + 25))
+            sync(torch, ctl.device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            (dispatch_ms, per_name), = seen
+            if sum(c for name, (_, c) in per_name.items()
+                   if "edge_latency_dense_k" in name) >= want:
+                break
+    finally:
+        batched.BatchedEvaluator.score_grid = inner
+    return (f"(reading {attempt}) " + profile_text(wall_ms, per_name, {
+        "K1 hi/lo split": ("split",), "K1": ("edge_latency_dense",),
+        "copies": ("memcpy", "memset")})
+        + f"; the dispatch itself {dispatch_ms:.1f} ms")
+
+
+def adaptive_dense_phase(torch, np, dev, per_region: int, ticks: int,
+                         profile: bool = True) -> dict:
+    """The closed loop on bench_adaptive.py's drifting world at V 4096
+    (phase 13): the controller on the card, its K1 launches per dispatch,
+    its grids against the float64 oracle, the same world through the CPU
+    route (the same decisions), the wall split and one re-optimization
+    profiled."""
+    from repro_torch.adapt import (AdaptiveConfig, AdaptiveController,
+                                   run_adaptive)
+    from repro_torch.kernels import edge_latency as kernels
+
+    phase = "adaptive_dense"
+    cfg = AdaptiveConfig(**CONTROLLER)
+    eng, trace = adaptive_world(np, per_region, ticks, SEED + 23)
+    V = eng.fleet.n_devices
+    card_log, cpu_log = [], []
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ctl = AdaptiveController(eng, cfg, name=phase, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with span_walls() as walls, watched_grids(np, card_log, oracle=True):
+        rep = ctl.run(trace, np.random.default_rng(SEED + 24))
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launched = kernels.launches["edge_latency_dense"]
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    n_ticks = rep.n_ticks
+    S = cfg.robust_scenarios
+    check(rep.controller_dispatches == len(card_log) > 0,
+          f"{phase}: {rep.controller_dispatches} dispatches, "
+          f"{len(card_log)} grids")
+    check(launched == S * rep.controller_dispatches,
+          f"{phase}: {launched} K1 launches for {rep.controller_dispatches} "
+          f"dispatches; want {S} each")
+    check(bool(np.isfinite(rep.f_adaptive).all())
+          and bool(np.isfinite(rep.f_static).all()),
+          f"{phase}: non-finite F series")
+    check(bool((eng.x >= 0).all())
+          and bool(np.allclose(eng.x.sum(axis=1), 1.0, atol=1e-9)),
+          f"{phase}: the final placement left the simplex")
+    B = int(np.mean([g["grid"].shape[1] for g in card_log]))
+    # the same world, seed and trace through the CPU route
+    eng_cpu, trace_cpu = adaptive_world(np, per_region, ticks, SEED + 23)
+    t0 = time.perf_counter()
+    with watched_grids(np, cpu_log, oracle=False):
+        rep_cpu = run_adaptive(eng_cpu, trace_cpu,
+                               np.random.default_rng(SEED + 24), cfg,
+                               name=phase, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    div = first_divergence(np, card_log, cpu_log)
+    if div is None:
+        check(rep.reconfig_ticks == rep_cpu.reconfig_ticks
+              and rep.refit_ticks == rep_cpu.refit_ticks
+              and np.array_equal(eng.x, eng_cpu.x),
+              f"{phase}: the card and the CPU route decided differently "
+              f"(reconfigs {rep.reconfig_ticks} vs {rep_cpu.reconfig_ticks}"
+              f", refits {rep.refit_ticks} vs {rep_cpu.refit_ticks})")
+        same = "identical to the CPU route (reconfig and refit ticks, final x)"
+    else:
+        k, ia, ib, sa, sb = div
+        gap = abs(sa - sb) / sa
+        check(gap <= REL, f"{phase}: re-optimization {k} picked candidate "
+                          f"{ia} on the card and {ib} on the CPU route, "
+                          f"scores {sa!r} / {sb!r} (gap {gap:.3e} > {REL})")
+        same = (f"a near tie at re-optimization {k}: candidates {ia} / {ib} "
+                f"score {sa!r} / {sb!r} (gap {gap:.3e}); nothing compared "
+                f"after it")
+    prof = "not measured (no card)"
+    if profile:
+        prof = profiled_reoptimize(torch, np, ctl)
+    mem = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
+    worst = max(g["rel"] for g in card_log)
+    cut = "" if ticks >= ADAPT_SMOKE_TICKS else \
+        f" (trace_len cut from {ADAPT_SMOKE_TICKS})"
+    print(f"{phase}: drifting world of 8 regions x {per_region} (V {V}), "
+          f"{ticks} ticks{cut} at {ADAPT_RATE:.0f} rows/tick, {len(trace)} "
+          f"events"
+          f"; wall {wall:.2f} s, {n_ticks / wall:.2f} ticks/s ("
+          f"{wall_split(walls, wall)}); {rep.controller_dispatches} "
+          f"dispatches (B ~{B}, E 2, V {V}), {launched} K1 launches, "
+          f"{rep.n_refits} refits at {rep.refit_ticks}, {rep.n_reconfigs} "
+          f"reconfigurations at {rep.reconfig_ticks}; cumulative F: adaptive "
+          f"with charges {rep.cum_adaptive:.6g}, static {rep.cum_static:.6g},"
+          f" oracle {rep.cum_oracle:.6g}; grid cells vs oracle worst rel err "
+          f"{worst:.3e}; peak memory {mem}; CPU route wall {cpu_wall:.2f} s,"
+          f" decisions {same}")
+    print(f"{phase} profile (one re-optimization): {prof}")
+    return {"rep": rep, "cpu": rep_cpu, "launches": launched,
+            "dispatches": rep.controller_dispatches, "peak": peak,
+            "x": eng.x, "per_region": per_region, "ticks": ticks}
+
+
+def slow_tier(np, fleet):
+    from repro_torch.belief import speed_percentile
+    pct = speed_percentile(np.asarray(fleet.effective_speed()))
+    return np.flatnonzero(pct < 1.0 / 3.0)
+
+
+def belief_cold_start_phase(torch, np, dev, per_region: int, ticks: int,
+                            legacy: dict) -> dict:
+    """bench_belief.py's cold start at V 4096 (phase 14): the prior fit on
+    the card (against the CPU fit), the cold-start belief controller on a
+    slow-tier trace, the passive belief against phase 13's legacy run
+    bitwise, and belief-robust search on the controller's posterior."""
+    from repro_torch.adapt import (AdaptiveConfig, AdaptiveController,
+                                   run_adaptive)
+    from repro_torch.belief import apply_degrade, device_features, fit_prior
+    from repro_torch.core.calibration import ReplayWindow
+    from repro_torch.core.devices import ExplicitFleet
+    from repro_torch.kernels import edge_latency as kernels
+    from repro_torch.search import belief_robust_search
+    from repro_torch.sim import merge_tuples, replay_trace, training_tuples
+    from repro_torch.sim.scenarios import TraceEvent
+    from repro_torch.streaming.engine import StreamingEngine
+
+    phase = "belief_cold_start"
+
+    def rate_ticks(n):
+        return [TraceEvent(t=k, kind="rate", rate=ADAPT_RATE)
+                for k in range(n)]
+
+    # -- the prior: replay windows of three disjoint training fleets --------
+    t0 = time.perf_counter()
+    parts = []
+    for seed in BELIEF_TRAIN_SEEDS:
+        eng, _ = adaptive_world(np, per_region, 1, seed)
+        base = ExplicitFleet(
+            com_cost=np.asarray(eng.fleet.com_matrix(), np.float64).copy(),
+            speed=np.asarray(eng.fleet.effective_speed(), np.float64).copy(),
+            region=np.asarray(eng.fleet.region).copy())
+        d = np.ones(base.n_devices)
+        d[slow_tier(np, base)] = BELIEF_FACTOR
+        world = StreamingEngine(eng.graph, apply_degrade(base, d), eng.x,
+                                observed="work")
+        rep = replay_trace(world, rate_ticks(BELIEF_TRAIN_TICKS),
+                           np.random.default_rng(seed))
+        parts.append(training_tuples(eng.graph.meta, base,
+                                     ReplayWindow.from_report(rep, world.x)))
+    corpus = merge_tuples(parts)
+    train_v = base.n_devices
+    harvest_s = time.perf_counter() - t0
+    kw = dict(device_features=corpus.device_features,
+              device_log_degrade=corpus.device_log_degrade,
+              device_weights=corpus.device_weights)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    prior = fit_prior(**kw, device=dev)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    prior_cpu = fit_prior(**kw, device="cpu")
+    coef_rel = float(np.abs(prior.w_device - prior_cpu.w_device).max()
+                     / np.abs(prior_cpu.w_device).max())
+    check(coef_rel <= REL, f"{phase}: the card's prior coefficients rel err "
+                           f"{coef_rel:.3e} to the CPU fit > {REL}")
+    bitwise = np.array_equal(prior.w_device, prior_cpu.w_device)
+    # -- the cold start: the slow tier degraded from tick 0 -----------------
+    eng, _ = adaptive_world(np, per_region, 1, SEED + 30)
+    slow = slow_tier(np, eng.fleet)
+    pred_slow = float(np.median(
+        prior.predict_degrade(device_features(eng.fleet))[slow]))
+    trace = [TraceEvent(t=0, kind="degrade", rate=0.0, device=int(u),
+                        factor=BELIEF_FACTOR) for u in slow] \
+        + rate_ticks(ticks)
+    cfg = AdaptiveConfig(**BELIEF_BLIND, use_belief=True,
+                         belief_sampling=True, probe_epsilon=0.1)
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ctl = AdaptiveController(eng, cfg, name=phase, prior=prior, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with span_walls() as walls:
+        rep = ctl.run(trace, np.random.default_rng(SEED + 31))
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launched = kernels.launches["edge_latency_dense"]
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    S = cfg.robust_scenarios
+    check(rep.controller_dispatches > 0
+          and launched == S * rep.controller_dispatches,
+          f"{phase}: {launched} K1 launches for {rep.controller_dispatches} "
+          f"dispatches; want {S} each")
+    check(bool(np.isfinite(rep.f_adaptive).all()),
+          f"{phase}: non-finite F series")
+    probes = int(walls["counters"].get("belief.probes", 0))
+    # -- the passive belief on phase 13's world: bitwise its legacy run -----
+    eng13, trace13 = adaptive_world(np, legacy["per_region"],
+                                    legacy["ticks"], SEED + 23)
+    t0 = time.perf_counter()
+    passive = run_adaptive(eng13, trace13, np.random.default_rng(SEED + 24),
+                           AdaptiveConfig(**CONTROLLER, use_belief=True),
+                           name="adaptive_dense", device=dev)
+    passive_s = time.perf_counter() - t0
+    a = legacy["rep"]
+    check(a.reconfig_ticks == passive.reconfig_ticks
+          and a.refit_ticks == passive.refit_ticks
+          and a.controller_dispatches == passive.controller_dispatches
+          and a.final_com_scale == passive.final_com_scale
+          and np.array_equal(a.f_adaptive, passive.f_adaptive)
+          and np.array_equal(a.f_static, passive.f_static)
+          and np.array_equal(a.f_oracle, passive.f_oracle)
+          and np.array_equal(a.reconfig_costs, passive.reconfig_costs)
+          and np.array_equal(a.drift, passive.drift, equal_nan=True)
+          and np.array_equal(legacy["x"], eng13.x),
+          f"{phase}: use_belief=True with every knob passive is not bitwise "
+          f"the legacy run of adaptive_dense")
+    # -- belief-robust search on the controller's posterior ------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = belief_robust_search(ctl.graph, ctl.belief, ctl.believed,
+                               np.random.default_rng(SEED + 32),
+                               n_scenarios=BELIEF_SCENARIOS,
+                               n_candidates=BELIEF_CANDIDATES,
+                               warm_start=False, device=dev)
+    sync(torch, dev)
+    search_s = time.perf_counter() - t0
+    search_launched = kernels.launches["edge_latency_dense"]
+    check(res.dispatches == 1 and search_launched == BELIEF_SCENARIOS,
+          f"{phase}: belief_robust_search made {res.dispatches} dispatches "
+          f"and {search_launched} K1 launches; want 1 and "
+          f"{BELIEF_SCENARIOS}")
+    win_rel = abs(res.history[0] - res.F) / res.F
+    check(win_rel <= REL, f"{phase}: the winner's worst case {res.history[0]}"
+                          f" vs the oracle's {res.F}: rel err {win_rel:.3e}")
+    mem = "not measured" if peak is None else f"{peak / 2**30:.2f} GiB"
+    print(f"{phase}: prior from {len(BELIEF_TRAIN_SEEDS)} training fleets of "
+          f"V {train_v} ({corpus.n_device_rows} device rows, "
+          f"harvest {harvest_s:.2f} s), fit on the card {fit_ms:.1f} ms, "
+          f"coefficients vs the CPU fit rel err {coef_rel:.3e} (bitwise "
+          f"{bitwise}), predicted "
+          f"slow-tier degrade {pred_slow:.3f} (planted {BELIEF_FACTOR}); "
+          f"cold start ({len(slow)} slow devices degraded at tick 0, {ticks} "
+          f"ticks): wall {wall:.2f} s ({wall_split(walls, wall)}), "
+          f"{rep.controller_dispatches} dispatches, {launched} K1 launches, "
+          f"{probes} probes adopted, {rep.n_refits} refits, "
+          f"{rep.n_reconfigs} reconfigurations; cumulative F: adaptive with "
+          f"charges {rep.cum_adaptive:.6g}, static {rep.cum_static:.6g}, "
+          f"oracle {rep.cum_oracle:.6g}; peak memory {mem}; passive belief "
+          f"on adaptive_dense's world bitwise its legacy run "
+          f"({passive_s:.2f} s); belief_robust_search ({BELIEF_SCENARIOS} "
+          f"posterior scenarios, {BELIEF_CANDIDATES} candidates): "
+          f"{res.dispatches} dispatch, {search_launched} K1 launches, "
+          f"{search_s:.2f} s, worst-case F {res.F:.6g} (grid vs oracle "
+          f"{win_rel:.3e})")
+    return {"rep": rep, "launches": launched, "probes": probes,
+            "prior": prior, "prior_cpu": prior_cpu, "search": res,
+            "passive": passive, "peak": peak}
+
+
 def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                    profile: bool = True) -> dict:
     """The example's streaming job with ``cfg`` as the LM-scoring operator
@@ -2151,6 +2651,14 @@ def main() -> int:
                             ROBUST_CANDIDATES)
     torch.cuda.empty_cache()
     streaming_reoptimize_phase(np)
+
+    # -- 13./14. the closed loop and the belief layer -----------------------
+    adaptive = adaptive_dense_phase(torch, np, dev, ADAPT_PER_REGION,
+                                    ADAPT_TICKS)
+    torch.cuda.empty_cache()
+    belief_cold_start_phase(torch, np, dev, ADAPT_PER_REGION, BELIEF_TICKS,
+                            adaptive)
+    torch.cuda.empty_cache()
 
     launches = {"edge_latency_dense": dense_launched["edge_latency_dense"],
                 "edge_latency_structured":

@@ -10,8 +10,8 @@ per chunk — K1 (dense fleets) or K2 (region fleets) on the card; Layer 3
 turns grids into choices.  The searchers
 (:mod:`repro_torch.search.searchers`) are re-exported by
 ``repro_torch.core.optimizers`` and the robust searches by
-``repro_torch.sim.replay``.  The belief-sampled robust search comes with
-the belief layer (ROADMAP A8).
+``repro_torch.sim.replay``; :func:`belief_robust_search` draws its scenario
+family from a belief posterior (:mod:`repro_torch.belief`).
 """
 
 from repro_torch.search.candidates import (anneal_path, chunked,
@@ -28,7 +28,8 @@ from repro_torch.search.decision import (ObjectiveScales, ParetoFront,
                                          robust_select, scalarize,
                                          split_dq_term)
 from repro_torch.search.engine import BatchedProblem
-from repro_torch.search.robust import (robust_placement,
+from repro_torch.search.robust import (belief_robust_search,
+                                       belief_scenarios, robust_placement,
                                        scenario_robust_search)
 from repro_torch.search.searchers import (exhaustive_search, greedy_transfer,
                                           random_search, simulated_annealing)
@@ -44,7 +45,8 @@ __all__ = [
     "ObjectiveScales", "ParetoFront", "candidate_values", "dq_caps_mask",
     "epsilon_constraint", "joint_dq_scores", "pareto_front", "pareto_mask",
     "robust_select", "scalarize", "split_dq_term",
-    "robust_placement", "scenario_robust_search",
+    "belief_robust_search", "belief_scenarios", "robust_placement",
+    "scenario_robust_search",
     # searchers
     "exhaustive_search", "greedy_transfer", "random_search",
     "simulated_annealing",

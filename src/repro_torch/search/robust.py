@@ -15,11 +15,14 @@ is dispatched once, the (S, P, D) dq expansion is analytic
 infeasible (candidate, dq) pairs, and every scenario keeps its own best
 quality knob.
 
+:func:`belief_robust_search` draws the scenario family from a belief
+posterior (:func:`belief_scenarios`): the believed fleet plus
+posterior-sampled slowdowns, dense ``ExplicitFleet`` copies, so its grid
+takes K1 once per scenario.
+
 ``device`` takes the place of the reference's ``use_pallas``: ``None`` is
 the card, ``"cpu"`` runs the kernels' plain versions.  The grids come back
-to the host once per dispatch and every decision is numpy.  The belief
-layer's ``belief_scenarios`` / ``belief_robust_search`` come with that
-layer (ROADMAP A8).
+to the host once per dispatch and every decision is numpy.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from repro_torch.sim.batched import (BatchedEvaluator, pack_fleets,
                                      pack_placements, pack_region_fleets,
                                      pack_speeds)
 
-__all__ = ["robust_placement", "scenario_robust_search"]
+__all__ = ["belief_robust_search", "belief_scenarios", "robust_placement",
+           "scenario_robust_search"]
 
 
 # above this many bytes of stacked float64 com matrices the dense fallback
@@ -156,6 +160,42 @@ def _joint_robust_placement(graph: OpGraph, scenarios,
                                      w_lat=w_lat, feasible=feasible)
     k, worst = robust_select(scores)
     return candidates[k], float(worst[k]), scores, dq_values[dq_idx[:, k]]
+
+
+def belief_scenarios(belief, base_fleet, rng: np.random.Generator,
+                     n_scenarios: int, graph: OpGraph | None = None,
+                     beta: float = 0.0) -> list:
+    """Scenario batch drawn from a belief posterior
+    (:class:`repro_torch.belief.BeliefState`): scenario 0 is the believed
+    fleet itself (the posterior mode must stay in the min–max so belief
+    sampling can never score WORSE than point-estimate search on the
+    belief's own world), scenarios 1..n−1 apply posterior-sampled
+    per-device slowdowns.
+
+    This replaces fixed-jitter ``perturbed_fleet`` copies: a well-observed
+    device barely varies across the batch while a never-observed one swings
+    with its full prior spread — the min–max hedges exactly where the
+    belief is actually uncertain."""
+    from repro_torch.sim.scenarios import Scenario
+
+    fleets = [base_fleet]
+    if n_scenarios > 1:
+        fleets += belief.sample_fleets(base_fleet, rng, n_scenarios - 1)
+    return [Scenario(name=f"belief{k}", graph=graph, fleet=f, trace=[],
+                     beta=beta) for k, f in enumerate(fleets)]
+
+
+def belief_robust_search(graph: OpGraph, belief, base_fleet,
+                         rng: np.random.Generator, n_scenarios: int = 4,
+                         **kwargs):
+    """:func:`scenario_robust_search` with the scenario family sampled from
+    a belief posterior instead of supplied — min–max robust selection whose
+    hedging budget follows the posterior variance.  ``kwargs`` pass through
+    (n_candidates, beta, objectives, co_optimize_dq, device, ...)."""
+    scenarios = belief_scenarios(belief, base_fleet, rng, n_scenarios,
+                                 graph=graph,
+                                 beta=float(kwargs.get("beta", 0.0)))
+    return scenario_robust_search(graph, scenarios, rng, **kwargs)
 
 
 def scenario_robust_search(graph: OpGraph, scenarios,

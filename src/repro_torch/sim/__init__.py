@@ -1,7 +1,7 @@
 """Scenario simulation on PyTorch: generated what-if families, batched
-(scenario × placement) evaluation (dense or structured RegionFleetFamily)
-and trace replay — the port of ``repro.sim`` (the belief layer's training
-tuples come with ROADMAP A8)."""
+(scenario × placement) evaluation (dense or structured RegionFleetFamily),
+trace replay and the belief layer's training tuples — the port of
+``repro.sim``."""
 
 from repro_torch.sim.batched import (BatchedEvaluator, pack_fleets,
                                      pack_placements, pack_region_fleets,
@@ -19,6 +19,8 @@ from repro_torch.sim.scenarios import (MIN_ALIVE_DEVICES, Scenario,
                                        random_scenario, random_trace,
                                        region_fleet_family,
                                        region_scenario_batch, scenario_batch)
+from repro_torch.sim.training import (TrainingTuples, merge_tuples,
+                                      training_tuples)
 
 __all__ = [
     "BatchedEvaluator", "pack_fleets", "pack_placements", "pack_region_fleets",
@@ -31,4 +33,5 @@ __all__ = [
     "diurnal_rate", "perturbed_fleet", "random_fleet", "random_graph",
     "random_scenario", "random_trace", "region_fleet_family",
     "region_scenario_batch", "scenario_batch",
+    "TrainingTuples", "merge_tuples", "training_tuples",
 ]

@@ -218,15 +218,13 @@ class StreamingEngine:
         if kind in ("outage", "recover"):
             f = factor if kind == "outage" else 1.0 / factor
             region = np.asarray(self.fleet.region)
-            hit = [int(u) for u in np.flatnonzero(region == device)]
-            res = None
-            for u in hit:
-                # one optimizer pass at most (after ALL links moved), never
-                # one per device — regions can be wide
-                res = self.degrade_and_replace(
-                    u, f, beta=beta,
-                    reoptimize=reoptimize and u == hit[-1])
-            return res
+            hit = np.flatnonzero(region == device)
+            if not hit.size:
+                return None
+            # the whole region in one pass over the com matrix, then one
+            # optimizer pass at most — regions can be wide
+            self._degrade(hit, f)
+            return self._replace(beta) if reoptimize else None
         if kind == "drift":
             self.sel_scale[device] *= factor
             return None
@@ -253,15 +251,31 @@ class StreamingEngine:
         re-run the placement optimizer, adopt the new x (the paper's
         heterogeneity terms used as live state).  ``reoptimize=False`` only
         mutates the fleet/speed state."""
-        if isinstance(self.fleet, RegionFleet):
-            self.fleet = ExplicitFleet(com_cost=self.fleet.com_matrix(),
-                                       speed=self.fleet.effective_speed(),
-                                       available=self.fleet.available,
-                                       region=self.fleet.region)
-        self.fleet = self.fleet.degrade_device(device, factor)
-        self.device_speed[device] /= factor
-        if not reoptimize:
-            return None
+        self._degrade(np.array([device]), factor)
+        return self._replace(beta) if reoptimize else None
+
+    def _degrade(self, devices: np.ndarray, factor: float) -> None:
+        """Degrade ``devices`` (distinct ids) by ``factor``: their links
+        ``factor``× slower (× factor² between two of them), the self-cost
+        diagonal kept, their speeds divided.  Bitwise the fleet that
+        ``ExplicitFleet.degrade_device`` gives applied to each device in
+        turn, as the reference does — a pair of degraded devices takes
+        its two factors one after the other — but with one copy of the com
+        matrix instead of one per device."""
+        self._materialize()
+        com = self.fleet.com_cost
+        c = com.copy()
+        c[devices, :] *= factor
+        c[:, devices] *= factor
+        np.fill_diagonal(c, np.diag(com))
+        speed = self.fleet.speed.copy()
+        speed[devices] /= factor
+        self.fleet = dataclasses.replace(self.fleet, com_cost=c, speed=speed)
+        self.device_speed[devices] /= factor
+
+    def _replace(self, beta: float):
+        """Re-optimize the placement on the current fleet from the current
+        x (greedy on the compute-extension problem) and adopt it."""
         prob = PlacementProblem(self.graph.meta, self.fleet,
                                 CostConfig(alpha=self.cfg.alpha,
                                            include_compute=True), beta=beta)
@@ -275,23 +289,19 @@ class StreamingEngine:
         it, re-optimize, remap fractions (column deleted, rows renormalized
         as a warm start).  ``reoptimize=False`` keeps the renormalized
         warm-start placement as-is."""
+        self._materialize()
+        self.fleet, keep = self.fleet.without_devices([device])
+        x0 = self.x[:, keep]
+        self.x = x0 / np.maximum(x0.sum(axis=1, keepdims=True), 1e-9)
+        self.device_speed = self.device_speed[keep]
+        self.observed_busy = self.observed_busy[keep]
+        return self._replace(beta) if reoptimize else None
+
+    def _materialize(self) -> None:
+        """A RegionFleet becomes the ExplicitFleet it describes before a
+        per-device mutation."""
         if isinstance(self.fleet, RegionFleet):
             self.fleet = ExplicitFleet(com_cost=self.fleet.com_matrix(),
                                        speed=self.fleet.effective_speed(),
                                        available=self.fleet.available,
                                        region=self.fleet.region)
-        fleet2, keep = self.fleet.without_devices([device])
-        x0 = self.x[:, keep]
-        x0 = x0 / np.maximum(x0.sum(axis=1, keepdims=True), 1e-9)
-        self.fleet = fleet2
-        self.device_speed = self.device_speed[keep]
-        self.observed_busy = self.observed_busy[keep]
-        if not reoptimize:
-            self.x = x0
-            return None
-        prob = PlacementProblem(self.graph.meta, fleet2,
-                                CostConfig(alpha=self.cfg.alpha,
-                                           include_compute=True), beta=beta)
-        res = greedy_transfer(prob, x0=x0)
-        self.x = res.x
-        return res

@@ -568,3 +568,69 @@ def test_batched_problem_on_the_card_matches_its_cpu_route(card, fleet_kind,
     assert fin.any() and (~fin).any()
     assert np.abs(got[fin] - want[fin]).max() / np.abs(want[fin]).max() \
         <= 1e-5
+
+
+def _adaptive_world(per_region: int, ticks: int, seed: int):
+    """chip_smoke.py's drifting world (bench_adaptive.py's) at a small V."""
+    return chip_smoke.adaptive_world(np, per_region, ticks, seed)
+
+
+@pytest.mark.cuda
+def test_controller_on_the_card_makes_its_cpu_routes_decisions(card):
+    """The closed loop at 8 regions × 8 devices (V 64): the card's K1 grids
+    give the CPU route's decisions — reconfigurations, refits, dispatches
+    and the final placement — and 4 K1 launches per dispatch."""
+    from repro_torch.adapt import AdaptiveConfig, run_adaptive
+
+    cfg = AdaptiveConfig(**chip_smoke.CONTROLLER)
+    reps, xs = {}, {}
+    for where in (card, torch.device("cpu")):
+        eng, trace = _adaptive_world(8, 24, 3)
+        ek.reset_launches()
+        reps[where.type] = run_adaptive(eng, trace, np.random.default_rng(4),
+                                        cfg, device=where)
+        xs[where.type] = eng.x
+        if where.type == "cuda":
+            launched = ek.launches["edge_latency_dense"]
+    a, b = reps["cuda"], reps["cpu"]
+    assert a.controller_dispatches > 0
+    assert launched == cfg.robust_scenarios * a.controller_dispatches
+    assert (a.reconfig_ticks, a.refit_ticks, a.controller_dispatches) == \
+        (b.reconfig_ticks, b.refit_ticks, b.controller_dispatches)
+    assert np.array_equal(xs["cuda"], xs["cpu"])
+    np.testing.assert_allclose(a.f_adaptive, b.f_adaptive, rtol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ridge", [1e-2, 1.0])
+def test_fit_prior_on_the_card_is_its_cpu_fit(card, ridge):
+    """The ridge prior on the card against device="cpu" on the tuples of
+    three small drifting-world fleets with the slow tier slowed 8×: the
+    pairwise Gram and the elementwise elimination round alike on both, so
+    the coefficients are bitwise equal (the bar is 1e-5)."""
+    from repro_torch.belief import apply_degrade, fit_prior
+    from repro_torch.core.calibration import ReplayWindow
+    from repro_torch.sim import merge_tuples, replay_trace, training_tuples
+    from repro_torch.sim.scenarios import TraceEvent
+    from repro_torch.streaming.engine import StreamingEngine
+
+    parts = []
+    for seed in (10, 11, 12):
+        eng, _ = _adaptive_world(16, 1, seed)
+        base = eng.fleet
+        d = np.ones(base.n_devices)
+        d[chip_smoke.slow_tier(np, base)] = 8.0
+        world = StreamingEngine(eng.graph, apply_degrade(base, d), eng.x,
+                                observed="work")
+        rep = replay_trace(world, [TraceEvent(t=k, kind="rate", rate=2048.0)
+                                   for k in range(4)],
+                           np.random.default_rng(seed))
+        parts.append(training_tuples(eng.graph.meta, base,
+                                     ReplayWindow.from_report(rep, world.x)))
+    c = merge_tuples(parts)
+    kw = dict(device_features=c.device_features,
+              device_log_degrade=c.device_log_degrade,
+              device_weights=c.device_weights, ridge=ridge)
+    got, want = fit_prior(**kw, device=card), fit_prior(**kw, device="cpu")
+    assert np.array_equal(got.w_device, want.w_device)
+    assert got.device_residual_var == want.device_residual_var
