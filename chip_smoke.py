@@ -195,6 +195,33 @@ bitwise equal.
    the reference's per-event greedy re-placement (the compute-extension
    greedy takes the scalar loop, hours at V 4096).
 
+15. projected_gradient: the loss of ``projected_gradient`` and its
+   gradient at seeded points (three temperatures) on the card against
+   the CPU route (≤1e-5), on the paper's worked example with its
+   coupling and on phase 9's DAG at 8 regions × 8 devices; from one
+   shared start the same dq and, for the paper problem, F within
+   ``PG_PAPER_F`` (the V 64 trajectory is not determined by float32: both
+   runs are held at most at the uniform placement's F); then phase 9's
+   problem at V 4096, 100 steps × 3 temperatures timed through
+   ``obs.time_once``: the loss falls, the result on the simplex and
+   feasible, its F against the uniform placement's printed, steps/s, peak
+   memory, a profile of one step.  It raises if TF32 matmuls are on.
+16. lm_serve: ``serve_wave`` with 8 prompts of 512 tokens and 64
+   generated on OLMo-1B, Granite-8B (36 layers, d 4096, GQA 32/8, vocab
+   49 152, f32 weights), Qwen3-32B at its widths cut to 8 of 64 layers
+   (131 GB of f32 parameters do not fit) and Mamba2-1.3B, seeded random
+   weights: K7 launched once per RMSNorm of the prefill and of every
+   decode step, K6 once per Mamba2 layer in the prefill, no K5 (a cache
+   routes attention to ``_sdpa_chunked``); prefill and 8 teacher-forced
+   decode steps against the plain K6/K7 route within 1e-2, or the plain
+   route's own bf16 error against float32 activations where larger; it
+   prints prefill s, decode ms/step and tokens/s, peak memory and the
+   profile of one decode step.
+
+Phase 5 also holds K5 at head dim 8 and at B·H 65 536 (ROADMAP C4), and
+phase 7 K6's final state at the case shapes and the serving shapes
+(against the plain version's, y bitwise as without it).
+
 The launch counts are set to 0 just before a phase drives its main path
 (the service, the engine, a search) and read just after it.  The last lines are the
 card, one JSON object listing every ported kernel and, last,
@@ -315,6 +342,29 @@ CONTROLLER = dict(window=4, cooldown=2, drift_threshold=0.5,
                   amortize_ticks=5.0)
 BELIEF_BLIND = dict(window=3, cooldown=2, drift_threshold=0.3,
                     amortize_ticks=20.0, n_candidates=32, oracle_candidates=16)
+# the tenth slice.  K5 at B·H = 65 536 (one past the old grid-y limit of
+# 65 535) with a short S; Mamba2's chunk (K6's final state at the serving
+# shapes); projected_gradient's card-vs-CPU problem (8 regions x 8) and
+# main path (phase 9's V 4096) with its steps per temperature
+ATTN_WIDE = (4096, 32, 16, 64)
+SSM_CHUNK = 256
+PG_SMALL_PER_REGION, PG_STEPS = 8, 100
+# the paper problem from one start, card vs CPU route: exp and the sums
+# round differently on the two devices and Adam's restarts amplify an ulp
+# (ROADMAP Queue C); an H100 read them 1.321e-6 apart in F, above 1e-6
+PG_PAPER_F = 1e-5
+# lm_serve: 8 prompts of 512 tokens, 64 generated; 8 teacher-forced decode
+# steps held against the plain K6/K7 route; qwen3-32b cut to 8 of its 64
+# layers (131 GB of float32 parameters at full depth, 21.8 GB at 8)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_FORCED = 8, 512, 64, 8
+SERVE_ARCHS = (("olmo_1b", None), ("granite_8b", None), ("qwen3_32b", 8),
+               ("mamba2_1_3b", None))
+# lm_serve's logits are held to LM_REF_REL against the plain K6/K7 route
+# on the model cut to its first layers, where bf16 drift stays inside it
+# (an H100 read granite / qwen3 / mamba2 at 4.9e-3 / 4.8e-3 / 4.3e-3 over
+# one layer, 8.0e-3 / 8.0e-3 / 6.4e-3 over two, 9.3e-3 / 1.11e-2 / 1.25e-2
+# over four)
+SERVE_STRICT_LAYERS = 2
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -1294,18 +1344,93 @@ def reset_lm_launches() -> None:
 
 
 @contextlib.contextmanager
-def plain_ssm_kernels():
-    """K6 and K7 swapped for their plain versions (uncounted) inside the
-    block, restored after it."""
+def swapped_ssm_kernels(ssd=None, rms=None):
+    """K6 and K7 swapped for ``ssd`` and ``rms`` (by default their plain
+    versions, uncounted) inside the block, restored after it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as sk
     saved = sk.ssd_scan, rk.rmsnorm
-    sk.ssd_scan, rk.rmsnorm = ref.ssd_scan_plain, ref.rmsnorm_plain
+    sk.ssd_scan = ssd or ref.ssd_scan_plain
+    rk.rmsnorm = rms or ref.rmsnorm_plain
     try:
         yield
     finally:
         sk.ssd_scan, rk.rmsnorm = saved
+
+
+def plain_ssm_kernels():
+    """K6 and K7 swapped for their plain versions (uncounted) inside the
+    block, restored after it."""
+    return swapped_ssm_kernels()
+
+
+@contextlib.contextmanager
+def recorded_ssm_inputs(seen: dict, stage: dict):
+    """Inside the block K6 and K7 still launch, and ``seen`` keeps the
+    first operands each is handed for every shape and dtype, keyed
+    ``(kernel, rows or x's shape, D, dtype)``, with ``stage["now"]`` (the
+    part of the run they came from).  K7's x is copied; K6's operands
+    (views of one conv output) are kept as they are: nothing writes them
+    after the call."""
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    kernel_ssd, kernel_rms = sk.ssd_scan, rk.rmsnorm
+
+    def ssd(*args, **kw):
+        x = args[0]
+        seen.setdefault(("ssd_scan", tuple(x.shape), x.shape[-1], x.dtype),
+                        (stage["now"], args[:7]))
+        return kernel_ssd(*args, **kw)
+
+    def rms(x, w, eps=1e-6):
+        D = x.shape[-1]
+        seen.setdefault(("rmsnorm", x.numel() // D, D, x.dtype),
+                        (stage["now"], (x.clone(), w.clone(), eps)))
+        return kernel_rms(x, w, eps)
+
+    with swapped_ssm_kernels(ssd, rms):
+        yield
+
+
+def wrong_ssm_kernels(torch, cfg) -> dict:
+    """The planted faults that lm_serve's logits check must catch, for the
+    kernels ``cfg`` runs: K7 scaling each row by the RMS of the row before
+    it (an off-by-one in a multi-row loop), and K6 dropping its final
+    state (decode then starts from zero).  Each is its plain version with
+    the fault: name → (ssd, rms) for :func:`swapped_ssm_kernels`."""
+    from repro_torch.kernels import ref
+
+    def rows_shifted(x, w, eps=1e-6):
+        f = x.float().reshape(-1, x.shape[-1])
+        r = torch.rsqrt((f * f).mean(dim=-1, keepdim=True) + eps)
+        return (f * r.roll(1, 0) * w.float()).reshape(x.shape).to(x.dtype)
+
+    def state_dropped(x, B, C, dt, A, D, chunk, final_state=False,
+                      state_out=None):
+        y, S = ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, True)
+        S = (S if state_out is None else state_out).zero_()
+        return (y, S) if final_state or state_out is not None else y
+
+    out = {}
+    if cfg.norm_type == "rmsnorm" or cfg.qk_norm:
+        out["K7 rows shifted"] = (None, rows_shifted)
+    if cfg.family == "ssm":
+        out["K6 state dropped"] = (state_dropped, None)
+    return out
+
+
+@contextlib.contextmanager
+def depth_cut(model, layers: int):
+    """``model`` cut to its first ``layers`` blocks inside the block (its
+    cache too), restored after it."""
+    blocks, cfg = model.blocks, model.cfg
+    model.blocks = blocks[:layers]
+    model.cfg = cfg.replace(n_layers=layers)
+    try:
+        yield
+    finally:
+        model.blocks, model.cfg = blocks, cfg
 
 
 def coupling_for(np, DQCoupling, n_ops: int, V: int):
@@ -2262,6 +2387,485 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
             "shard_rows": max(len(r) for r, _, _ in shards)}
 
 
+
+# -- the tenth slice: K5's repaired limits, K6's final state, projected
+# gradient, the LM token server ----------------------------------------------
+
+def attention_limits_phase(torch, dev) -> dict:
+    """K5 at the two shapes the wrapper refused before (ROADMAP C4): head
+    dim 8 (the granite / deepseek smoke configs' d 64 over 8 heads), float32
+    and bfloat16, causal and full, at ragged S; and B·H = 65 536 (B·H on the
+    grid's x dimension) with a short S.  Each against its plain version with
+    phase 5's bars, bitwise on repeat."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    worst = {}
+    shapes = [(2, S_, 8, 8) for S_ in (37, 300)] + [ATTN_WIDE]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in ((True, False) if shape[-1] == 8 else (True,)):
+                q, k, v = (torch.randn(shape, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(3))
+                out = fa.flash_attention(q, k, v, causal=causal)
+                again = fa.flash_attention(q, k, v, causal=causal)
+                if dtype == torch.float32:
+                    want, bar = ref.flash_attention_plain(
+                        q.double(), k.double(), v.double(), causal), REL
+                else:
+                    want, bar = ref.flash_attention_plain(q, k, v, causal), \
+                        BF16_REL
+                sync(torch, dev)
+                rel, _ = rel_err(out, want)
+                what = f"flash_attention {shape} {dtype} causal={causal}"
+                check(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+                check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar}")
+                check(torch.equal(out, again), f"{what}: repeat differs")
+                key = (f"D {shape[-1]}, B·H {shape[0] * shape[2]}, "
+                       f"{str(dtype).replace('torch.', '')}")
+                worst[key] = max(worst.get(key, 0.0), rel)
+                del q, k, v, out, again, want
+    torch.cuda.empty_cache()
+    print("flash_attention limits (ROADMAP C4): " + "; ".join(
+        f"{k} rel err {v:.3e}" for k, v in worst.items())
+          + f" (bars {REL} / {BF16_REL}); bitwise on repeat")
+    return worst
+
+
+def ssd_final_state_phase(torch, dev, shapes) -> dict:
+    """K6 with its final state at the case shapes and at ``shapes`` (the
+    lm_score shard's and the lm_serve prefill's): the state against the
+    plain version's (float32 against float64 at ≤1e-5, or the plain
+    float32 version's own error where larger, as phase 7's y; bfloat16 at
+    ≤1e-2 against the plain version in float32 math), bitwise on repeat,
+    and y bitwise the y of the call without the state; written into a
+    given buffer (``state_out``, filled with NaN first), bitwise the
+    same."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    worst, widened = {}, 0
+    # (case, slow decay, read as views of one conv output as the model does)
+    cases = [(c, False, False) for c in SSD_CASES] \
+        + [(c, True, False) for c in SSD_SLOW_CASES] \
+        + [((*s, SSM_CHUNK), False, True) for s in shapes]
+    for (b, L, H, P, N, Q), slow, model_like in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_operands(torch, gen, dev, b, L, H, P, N, dtype,
+                                model_like=model_like, slow=slow)
+            y, st = sk.ssd_scan(*args, Q, final_state=True)
+            y2, st2 = sk.ssd_scan(*args, Q, final_state=True)
+            y0 = sk.ssd_scan(*args, Q)
+            # into a given buffer, as the model's prefill writes its cache
+            buf = torch.full((b, H, N, P), float("nan"), device=dev)
+            y3, st3 = sk.ssd_scan(*args, Q, state_out=buf)
+            what = f"ssd_scan final state (b={b} L={L} H={H} Q={Q}) {dtype}"
+            if dtype == torch.float32:
+                _, want = ref.ssd_scan_plain(*(a.double() for a in args), Q,
+                                             final_state=True)
+                _, own = ref.ssd_scan_plain(*args, Q, final_state=True)
+                bar = max(REL, rel_err(own, want)[0])
+                widened += bar > REL
+            else:
+                _, want = ref.ssd_scan_plain(*args, Q, final_state=True)
+                bar = BF16_REL
+            sync(torch, dev)
+            rel, _ = rel_err(st, want)
+            check(st.shape == (b, H, N, P) and st.dtype == torch.float32,
+                  f"{what}: {tuple(st.shape)} {st.dtype}")
+            check(bool(torch.isfinite(st).all()), f"{what}: non-finite")
+            check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
+            check(torch.equal(st, st2) and torch.equal(y, y2),
+                  f"{what}: repeat differs")
+            check(torch.equal(y, y0), f"{what}: y differs from the call "
+                                      f"without the state")
+            check(st3 is buf and torch.equal(st3, st) and torch.equal(y3, y),
+                  f"{what}: the state written into state_out differs")
+            key = str(dtype).replace("torch.", "")
+            worst[key] = max(worst.get(key, 0.0), rel)
+            del args, y, st, y2, st2, y0, y3, st3, buf, want
+    torch.cuda.empty_cache()
+    print(f"ssd_scan final state: {len(cases)} shapes x 2 dtypes, worst rel "
+          f"err " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (float32 bar widened to the plain float32 version's own error"
+            f" in {widened} case(s)); y bitwise equal with and without the "
+            f"state; bitwise on repeat and into state_out")
+    return worst
+
+
+def pg_problems(np, graph, per_region: int):
+    """The paper's worked example with its capacity coupling, and phase
+    9's DAG on a random_fleet of 8 regions × ``per_region`` with phase 9's
+    coupling."""
+    from repro_torch.core import (DQCoupling, ExplicitFleet, PlacementProblem,
+                                  linear_graph)
+    from repro_torch.sim.scenarios import ScenarioConfig, random_fleet
+    com = np.array([[0.0, 1.5, 2.0], [1.5, 0.0, 1.0], [2.0, 1.0, 0.0]])
+    paper = PlacementProblem(
+        linear_graph([1.0, 1.5, 1.0]), ExplicitFleet(com_cost=com), beta=1.0,
+        dq=DQCoupling(cap0=np.full(3, 1.2), load=np.full(3, 0.2)))
+    fleet = random_fleet(np.random.default_rng(SEED + 9), ScenarioConfig(
+        n_regions=(8, 8), devices_per_region=(per_region, per_region)))
+    V = fleet.n_devices
+    dense = PlacementProblem(graph, fleet, beta=1.0,
+                             dq=coupling_for(np, DQCoupling, graph.n_ops, V))
+    return paper, dense
+
+
+def pg_loss_and_grad(torch, prob, temp, z, w, dev):
+    """``projected_gradient``'s loss (``projected_gradient_loss``) and its
+    gradient at logits ``z`` and dq logit ``w`` on ``dev``."""
+    from repro_torch.core.optimizers import projected_gradient_loss
+    zt = torch.tensor(z, device=dev, requires_grad=True)
+    wt = torch.tensor(w, device=dev, requires_grad=True)
+    f = projected_gradient_loss(prob, temp, device=dev)(zt, wt)
+    gz, gw = torch.autograd.grad(f, (zt, wt))
+    return float(f.detach()), gz.cpu(), float(gw)
+
+
+def projected_gradient_phase(torch, np, dev, graph, small_per_region: int,
+                             per_region: int, steps: int,
+                             profile: bool = True) -> dict:
+    """``projected_gradient`` (ROADMAP A9) on the card.  (1) The paper
+    problem and phase 9's DAG at V 8 × ``small_per_region``: the loss and
+    its gradient at seeded points, every temperature, ≤1e-5 to the CPU
+    route's; from a shared start, the same dq and the paper problem's F
+    within ``PG_PAPER_F`` of the CPU route's.  The small dense problem's
+    trajectory is not determined by float32 (ROADMAP Queue C): the two
+    routes' results are each held at most at the uniform placement's F,
+    and their gap is printed.  (2) Phase 9's problem at
+    V 8 × ``per_region``: its loss and gradient at a seeded point per
+    temperature ≤1e-5 to the CPU route's, then ``steps`` × 3 temperatures
+    timed through ``obs.bench``; the loss falls, the result is on the simplex and
+    feasible (its F against the uniform placement's is printed: the
+    reference's temperatures do not beat it at this V either,
+    tests/test_torch_smooth.py), steps/s, peak memory and a profile of one
+    step.  It raises if TF32 matmuls are on."""
+    from repro_torch import obs
+    from repro_torch.core import SmoothConfig, make_latency_fn, \
+        projected_gradient
+    from repro_torch.core.optimizers import _dq_grid
+    from repro_torch.core.placement import uniform_placement
+
+    phase = "projected_gradient"
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          f"{phase}: TF32 matmuls are on")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 23)
+    paper, small = pg_problems(np, graph, small_per_region)
+    worst = {"loss": 0.0, "grad": 0.0}
+    for prob in (paper, small):
+        n_ops, V = prob.availability().shape
+        for temp in (0.1, 0.02, 0.005):
+            for _ in range(3):
+                z = (rng.standard_normal((n_ops, V)) * 1.5).astype(np.float32)
+                w = np.float32(rng.standard_normal())
+                got = pg_loss_and_grad(torch, prob, temp, z, w, dev)
+                want = pg_loss_and_grad(torch, prob, temp, z, w, cpu)
+                worst["loss"] = max(worst["loss"],
+                                    abs(got[0] - want[0]) / abs(want[0]))
+                g = torch.cat([got[1].flatten(), torch.tensor([got[2]])])
+                gw = torch.cat([want[1].flatten(), torch.tensor([want[2]])])
+                worst["grad"] = max(worst["grad"], rel_err(g, gw)[0])
+    check(worst["loss"] <= REL and worst["grad"] <= REL,
+          f"{phase}: card vs CPU route loss {worst['loss']:.3e}, gradient "
+          f"{worst['grad']:.3e} > {REL}")
+    shared = {}
+    for name, prob, n_steps in (("paper", paper, 150), ("small", small, 60)):
+        n_ops, V = prob.availability().shape
+        z0 = (0.01 * rng.standard_normal((n_ops, V))).astype(np.float32)
+        card = projected_gradient(prob, steps=n_steps, device=dev, z0=z0)
+        host = projected_gradient(prob, steps=n_steps, device=cpu, z0=z0)
+        gap = abs(card.F - host.F) / abs(host.F)
+        hist = float(np.abs(np.array(card.history)
+                            - np.array(host.history)).max())
+        check(card.dq_fraction == host.dq_fraction,
+              f"{phase} {name}: dq {card.dq_fraction} vs the CPU route's "
+              f"{host.dq_fraction}")
+        if name == "paper":
+            check(gap <= PG_PAPER_F, f"{phase} paper: F {card.F} vs the CPU "
+                                     f"route's {host.F}: {gap:.3e} > "
+                                     f"{PG_PAPER_F:.0e}")
+        else:
+            uni = uniform_placement(n_ops, prob.availability())
+            uni_small = min(prob.score(uni, d)
+                            for d in _dq_grid(prob, steps=10))
+            check(max(card.F, host.F) <= uni_small * (1 + REL),
+                  f"{phase} small: F {card.F} / CPU {host.F} above the "
+                  f"uniform placement's {uni_small}")
+        shared[name] = (gap, hist)
+    # the main path at V 4096: steps x 3 temperatures
+    _, prob = pg_problems(np, graph, per_region)
+    n_ops, V = prob.availability().shape
+    uni = uniform_placement(n_ops, prob.availability())
+    uni_F = min(prob.score(uni, d) for d in _dq_grid(prob, steps=10))
+    # its loss and gradient, card vs CPU route, at one seeded point per
+    # temperature (the timed run's 21 V x V products, its DP and autograd)
+    big = {"loss": 0.0, "grad": 0.0}
+    for temp in (0.1, 0.02, 0.005):
+        z = (rng.standard_normal((n_ops, V)) * 1.5).astype(np.float32)
+        w = np.float32(rng.standard_normal())
+        got = pg_loss_and_grad(torch, prob, temp, z, w, dev)
+        want = pg_loss_and_grad(torch, prob, temp, z, w, cpu)
+        big["loss"] = max(big["loss"], abs(got[0] - want[0]) / abs(want[0]))
+        g = torch.cat([got[1].flatten(), torch.tensor([got[2]])])
+        gw = torch.cat([want[1].flatten(), torch.tensor([want[2]])])
+        big["grad"] = max(big["grad"], rel_err(g, gw)[0])
+    check(big["loss"] <= REL and big["grad"] <= REL,
+          f"{phase}: V {V} card vs CPU route loss {big['loss']:.3e}, "
+          f"gradient {big['grad']:.3e} > {REL}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync(torch, dev)
+    secs, res = obs.time_once(lambda: projected_gradient(
+        prob, steps=steps, device=dev, seed=SEED))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n = steps * 3
+    check(res.dispatches == n and len(res.history) == n,
+          f"{phase}: {res.dispatches} steps, want {n}")
+    check(bool(np.isfinite(res.history).all())
+          and res.history[-1] < res.history[0] and np.isfinite(res.F),
+          f"{phase}: the loss went {res.history[0]} -> {res.history[-1]}, "
+          f"F {res.F}")
+    check(prob.feasible(res.x, res.dq_fraction)
+          and np.allclose(res.x.sum(axis=1), 1.0) and (res.x >= 0).all(),
+          f"{phase}: the result is off the simplex or violates the coupling")
+    prof = "not measured (no card)"
+    if profile:
+        lat = make_latency_fn(prob.graph, prob.fleet,
+                              SmoothConfig(temp=0.02), device=dev)
+        z = torch.zeros((n_ops, V), device=dev, requires_grad=True)
+
+        def one_step():
+            val = lat(torch.softmax(z, dim=1))
+            torch.autograd.grad(val, z)
+            return float(val.detach())
+
+        one_step()
+        prof = device_profile(torch, one_step, {
+            "GEMV/GEMM": GEMM + ("gemv",),
+            "reductions": ("reduce",), "elementwise": ("elementwise",
+                                                       "vectorized")})
+    print(f"{phase}: card vs CPU route at seeded points (paper, V "
+          f"{small.fleet.n_devices}; 3 temperatures): loss {worst['loss']:.3e}"
+          f", gradient {worst['grad']:.3e} (bar {REL}); from a shared start, "
+          f"card vs CPU route: paper F {shared['paper'][0]:.3e} apart (bar "
+          f"{PG_PAPER_F:.0e}), loss history {shared['paper'][1]:.3e}; V "
+          f"{small.fleet.n_devices} F {shared['small'][0]:.3e} apart, loss "
+          f"history {shared['small'][1]:.3e} (not float32-determined: both "
+          f"at most the uniform placement's F, the same dq)")
+    print(f"{phase}: random_fleet V = {V}: card vs CPU route at a seeded "
+          f"point per temperature: loss {big['loss']:.3e}, gradient "
+          f"{big['grad']:.3e} (bar {REL})")
+    print(f"{phase}: random_fleet V = {V}, E = {graph.n_edges}, {steps} steps "
+          f"x 3 temperatures in {secs:.2f} s ({n / secs:.1f} steps/s), loss "
+          f"{res.history[0]:.4g} -> {res.history[-1]:.4g}, F {res.F:.6g} (dq "
+          f"{res.dq_fraction}) = {res.F / uni_F:.3f} x the uniform "
+          f"placement's {uni_F:.6g} (the reference's absolute temperatures "
+          f"dominate at this V; tests/test_torch_smooth.py), peak "
+          f"{peak:.2f} GiB")
+    print(f"{phase} profile (one loss + gradient at temp 0.02): {prof}")
+    return {"seconds": secs, "F": res.F, "uniform_F": uni_F,
+            "big_loss": big["loss"], "big_grad": big["grad"]}
+
+
+def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
+                   profile: bool = True) -> dict:
+    """``serve_wave`` (ROADMAP A13a) with ``cfg`` at its published widths
+    and seeded random weights: ``SERVE_BATCH`` prompts of ``SERVE_PROMPT``
+    tokens, ``SERVE_GEN`` generated.  It checks the K6 / K7 launches
+    against the count the model implies (prefill: one forward; every
+    decode step: the norms again, K6 only in prefill) and finite tokens in
+    the vocabulary.  Then a prefill and ``SERVE_FORCED`` teacher-forced
+    decode steps: (1) every operand the model handed K7 or K6 there, one
+    per shape and dtype (block, qk- and gate norms; the prefill scan with
+    its final state), goes through the kernel again against its plain
+    version (``REL`` / ``BF16_REL``, float32 K6 widened to the plain
+    version's own error as phase 7), bitwise on repeat; (2) the model cut
+    to its first ``SERVE_STRICT_LAYERS`` layers: the logits within
+    ``LM_REF_REL`` of the same cut with K6 / K7's plain versions; (3) at
+    full depth, within ``LM_REF_REL`` or, where larger, the plain route's
+    own bf16 error (its logits against the same model with float32
+    activations).  Planted faults (:func:`wrong_ssm_kernels`) must fail
+    both (2) and (3).  It prints prefill s, decode tokens/s, peak memory
+    and a profile of one decode step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.launch.serve import ServeStats, serve_wave
+    from repro_torch.models import build_model
+    phase = f"lm_serve {cfg.name}"
+    B, S_, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 24)
+    prompts = rng.integers(0, cfg.vocab, (B, S_), dtype=np.int32)
+    per = expected_launches(cfg)
+    want = {"rmsnorm": per["rmsnorm"] * G,
+            "ssd_scan": per.get("ssd_scan", 0)}
+    sync(torch, dev)
+    reset_lm_launches()
+    stats = ServeStats()
+    out, stats = serve_wave(model, cfg, prompts, G, stats=stats)
+    launched = lm_launches()
+    check(launched["rmsnorm"] == want["rmsnorm"]
+          and launched["ssd_scan"] == want["ssd_scan"]
+          and launched["flash_attention"] == 0,
+          f"{phase}: launches {launched}, want {want} and no K5")
+    check(out.shape == (B, G) and ((out >= 0) & (out < cfg.vocab)).all(),
+          f"{phase}: tokens out of shape or vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # prefill and teacher-forced decode
+    forced = rng.integers(0, cfg.vocab, (B, SERVE_FORCED), dtype=np.int32)
+    stage = {"now": ""}
+
+    def run():
+        logits = []
+        with torch.inference_mode():
+            cache = model.init_cache(B, S_ + SERVE_FORCED)
+            stage["now"] = "prefill"
+            lg, cache = model.prefill(
+                {"tokens": torch.as_tensor(prompts, device=dev)}, cache)
+            logits.append(lg)
+            stage["now"] = "decode"
+            for i in range(SERVE_FORCED):
+                lg, cache = model.decode_step(
+                    cache, S_ + i,
+                    torch.as_tensor(forced[:, i:i + 1], device=dev))
+                logits.append(lg)
+        return torch.cat(logits, dim=1)
+
+    def against_plain(faults: dict):
+        """This model's logits through the kernels against the plain
+        route's, each planted fault's against the plain route's, and the
+        plain route's logits."""
+        got = run()
+        with plain_ssm_kernels():
+            plain = run()
+        check(bool(torch.isfinite(got).all()), f"{phase}: non-finite logits")
+        planted = {}
+        for name, (ssd, rms) in faults.items():
+            with swapped_ssm_kernels(ssd, rms):
+                planted[name] = rel_err(run(), plain)[0]
+        return rel_err(got, plain)[0], planted, plain
+
+    # (1) K7 / K6 on the operands this path hands them
+    seen = {}
+    with recorded_ssm_inputs(seen, stage):
+        run()
+    held = []
+    for key, (st, args) in seen.items():
+        name, dtype = key[0], key[-1]
+        what = f"{phase} {st} {name} {key[1:-1]} {dtype}"
+        f32 = dtype == torch.float32
+        if name == "rmsnorm":
+            out, again = rk.rmsnorm(*args), rk.rmsnorm(*args)
+            plain = ref.rmsnorm_plain(*(a.double() if f32 and torch.is_tensor(
+                a) else a for a in args))
+            bar = REL if f32 else BF16_REL
+            sync(torch, dev)
+            rel, _ = rel_err(out, plain)
+            check(bool(torch.isfinite(out).all()), f"{what}: non-finite")
+            check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
+            check(torch.equal(out, again), f"{what}: repeat differs")
+        else:
+            x = args[0]
+            b_, _, H, P = x.shape
+            buf = torch.full((b_, H, args[1].shape[-1], P), float("nan"),
+                             device=dev)
+            y, fs = sk.ssd_scan(*args, final_state=True)
+            y2, fs2 = sk.ssd_scan(*args, state_out=buf)
+            if f32:
+                yw, sw = ref.ssd_scan_plain(*(a.double() if torch.is_tensor(
+                    a) else a for a in args), final_state=True)
+                yo, so = ref.ssd_scan_plain(*args, final_state=True)
+                bar = max(REL, rel_err(yo, yw)[0], rel_err(so, sw)[0])
+            else:
+                yw, sw = ref.ssd_scan_plain(*args, final_state=True)
+                bar = BF16_REL
+            sync(torch, dev)
+            rel = max(rel_err(y, yw)[0], rel_err(fs, sw)[0])
+            check(bool(torch.isfinite(y).all() and torch.isfinite(fs).all()),
+                  f"{what}: non-finite")
+            check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
+            check(torch.equal(y, y2) and torch.equal(fs, fs2),
+                  f"{what}: repeat into the cache's buffer differs")
+        held.append(f"{st} {name} {key[1:-1]} {str(dtype)[6:]} {rel:.2e}")
+    del seen
+    faults = wrong_ssm_kernels(torch, cfg)
+    # (2) the first layers, where bf16 drift stays inside LM_REF_REL
+    with depth_cut(model, min(SERVE_STRICT_LAYERS, cfg.n_layers)):
+        rel_cut, planted_cut, _ = against_plain(faults)
+    check(rel_cut <= LM_REF_REL,
+          f"{phase}: first {SERVE_STRICT_LAYERS} layers' logits vs the plain "
+          f"K6/K7 route rel err {rel_cut:.3e} > {LM_REF_REL}")
+    # (3) full depth, within the plain route's own bf16 error
+    rel, planted, plain = against_plain(faults)
+    with plain_ssm_kernels():
+        model.cfg = cfg.replace(act_dtype="float32")
+        try:
+            exact = run()
+        finally:
+            model.cfg = cfg
+    own, _ = rel_err(plain, exact)
+    bar = max(LM_REF_REL, own)
+    del plain, exact
+    check(rel <= bar, f"{phase}: logits vs the plain K6/K7 route rel err "
+                      f"{rel:.3e} > {bar:.3e}")
+    for name in faults:       # NaN logits fail the check too
+        check(not (planted_cut[name] <= LM_REF_REL or planted[name] <= bar),
+              f"{phase}: the planted fault {name!r} passes the logits check "
+              f"(first layers {planted_cut[name]:.3e}, bar {LM_REF_REL}; "
+              f"full depth {planted[name]:.3e}, bar {bar:.3e})")
+    prof = "not measured (no card)"
+    if profile:
+        with torch.inference_mode():
+            cache = model.init_cache(B, S_ + 2)
+            model.prefill({"tokens": torch.as_tensor(prompts, device=dev)},
+                          cache)
+            tok = torch.as_tensor(prompts[:, -1:], device=dev)
+            prof = device_profile(
+                torch, lambda: model.decode_step(cache, S_, tok), {
+                    "K7": ("rmsnorm",), "K6": ("ssd_scan",),
+                    "f32 GEMM": F32_GEMM, "bf16 GEMM": GEMM,
+                    "casts/copies": ("copy", "memcpy", "cast")})
+            del cache
+    s = stats.summary()
+    print(f"{phase}{cut}: {B} prompts x {S_} tokens + {G} generated; set-up "
+          f"{setup_s:.1f} s; prefill {stats.prefill_s:.4f} s "
+          f"({B * S_ / stats.prefill_s:.0f} tokens/s), decode "
+          f"{stats.decode_s:.3f} s for {G - 1} steps "
+          f"({stats.decode_s / (G - 1) * 1e3:.2f} ms/step, "
+          f"{B * (G - 1) / stats.decode_s:.1f} tokens/s); peak {peak:.2f} GiB;"
+          f" launches {launched} (want {want})")
+    print(f"{phase}: K6/K7 on the operands of prefill + {SERVE_FORCED} decode"
+          f" steps vs their plain versions (bars {REL} / {BF16_REL}, bitwise "
+          f"on repeat): " + ("; ".join(held) or "no kernel on this path"))
+    print(f"{phase}: logits of prefill + {SERVE_FORCED} forced decode steps "
+          f"vs the plain K6/K7 route: first {SERVE_STRICT_LAYERS} layers "
+          f"{rel_cut:.3e} (bar {LM_REF_REL}), full depth {rel:.3e} (bar "
+          f"{bar:.3e}: {LM_REF_REL}, or the plain route's own bf16 error "
+          f"against float32 activations, {own:.3e}, where larger); planted "
+          f"faults, first layers / full depth (nan: non-finite logits): "
+          + ("; ".join(
+              f"{k} {planted_cut[k]:.3e} / {planted[k]:.3e}" for k in faults)
+              or "none (no kernel on this path)"))
+    print(f"{phase} profile (one decode step, batch {B}): {prof}")
+    del model
+    torch.cuda.empty_cache()
+    return {"summary": s, "launches": launched, "rel": rel, "own": own,
+            "rel_cut": rel_cut, "planted": planted,
+            "planted_cut": planted_cut, "held": held, "peak": peak}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2624,6 +3228,7 @@ def main() -> int:
     report["flash_attention"] = attention_phase(
         torch, dev, (shard, LM_SEQ, cfg.n_heads, cfg.hd))
     torch.cuda.empty_cache()
+    attention_limits_phase(torch, dev)
     lm = lm_score_phase(torch, np, dev, cfg, LM_ROWS, LM_SEQ, LM_BATCHES)
     check(lm["shard_rows"] <= shard,
           f"lm_score: a shard of {lm['shard_rows']} rows, K5 timed at {shard}")
@@ -2634,6 +3239,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     report.update(ssm_kernels_phase(torch, dev, shard, LM_SEQ, ssm_cfg))
     torch.cuda.empty_cache()
+    ssm_dims = (ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
+    ssd_final_state_phase(torch, dev, [(shard, LM_SEQ, *ssm_dims),
+                                       (SERVE_BATCH, SERVE_PROMPT,
+                                        *ssm_dims)])
     ssm = lm_score_phase(torch, np, dev, ssm_cfg, LM_ROWS, LM_SEQ,
                          LM_BATCHES)
     check(ssm["shard_rows"] <= shard,
@@ -2659,6 +3268,19 @@ def main() -> int:
     belief_cold_start_phase(torch, np, dev, ADAPT_PER_REGION, BELIEF_TICKS,
                             adaptive)
     torch.cuda.empty_cache()
+
+    # -- 15./16. projected gradient and the LM token server ----------------
+    projected_gradient_phase(torch, np, dev, graph, PG_SMALL_PER_REGION,
+                             SEARCH_PER_REGION, PG_STEPS)
+    torch.cuda.empty_cache()
+    for arch, layers in SERVE_ARCHS:
+        serve_cfg = get_config(arch)
+        cut = ""
+        if layers is not None:
+            cut = (f" (cut to {layers} of {serve_cfg.n_layers} layers: one "
+                   f"card cannot hold its float32 parameters)")
+            serve_cfg = serve_cfg.replace(n_layers=layers)
+        lm_serve_phase(torch, np, dev, serve_cfg, cut)
 
     launches = {"edge_latency_dense": dense_launched["edge_latency_dense"],
                 "edge_latency_structured":

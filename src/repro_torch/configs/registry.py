@@ -30,7 +30,8 @@ ARCH_IDS = [
     "llama_3_2_vision_11b",
     "whisper_large_v3",
 ]
-PORTED = ("olmo_1b", "mamba2_1_3b")
+PORTED = ("olmo_1b", "granite_8b", "deepseek_coder_33b", "qwen3_32b",
+          "mamba2_1_3b")
 
 
 def canonical_arch(arch: str) -> str:
@@ -42,7 +43,7 @@ def _module(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP A13); "
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP A13b); "
                        f"ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 

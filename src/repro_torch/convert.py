@@ -6,8 +6,10 @@ rebuilt from plain numpy arrays and Python scalars — what
 reference's ``pack_fleets`` returns.  With these a test (or a user moving
 a deployment across) feeds one graph and one fleet to both packages.
 :func:`decoder_lm_from_arrays` and :func:`mamba2_lm_from_arrays` do the
-same for a ``DecoderLM``'s and a ``Mamba2LM``'s parameter tree, so both
-packages run one model.
+same for a ``DecoderLM``'s and a ``Mamba2LM``'s parameter tree (qwen3's
+q/k-norm weights included), so both packages run one model, and
+:func:`cache_from_arrays` for a serving cache, so a decode can start from
+the other package's prefill.
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ import torch
 
 from repro_torch.core.devices import RegionFleetFamily
 from repro_torch.core.graph import Operator, OpGraph
+from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.mamba2 import Mamba2LM
+from repro_torch.models.layers import KVCache
+from repro_torch.models.mamba2 import Mamba2LM, SSMCache
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["graph_from_arrays", "region_family_from_arrays",
            "dense_pack_from_array", "decoder_lm_from_arrays",
-           "mamba2_lm_from_arrays"]
+           "mamba2_lm_from_arrays", "cache_from_arrays"]
 
 
 def graph_from_arrays(names, selectivity, out_bytes, work, dq_eligible,
@@ -148,3 +152,27 @@ def mamba2_lm_from_arrays(cfg: ModelConfig, tree, device=None) -> Mamba2LM:
         for name in MAMBA2_LEAVES:
             _put(getattr(blk, name), stacked[name][li], f"blocks/{name}")
     return model
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A writable tensor copy of ``arr``; bfloat16 arrays (which numpy
+    knows only through ml_dtypes) go through float32, exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def cache_from_arrays(cache, device=None) -> KVCache | SSMCache:
+    """The port's serving cache from the reference's: a ``KVCache``
+    (``k``, ``v`` (L, B, S_max, K·hd)) or an ``SSMCache`` (``state``
+    (L, B, H, N, P), ``conv`` (L, B, k−1, Dc)), its leaves given as arrays
+    numpy can read, copied to ``device`` (``None`` → the card) in their
+    dtype."""
+    dev = dispatch.resolve_device(device)
+    if hasattr(cache, "k") and hasattr(cache, "v"):
+        return KVCache(_tensor(cache.k, dev), _tensor(cache.v, dev))
+    if hasattr(cache, "state") and hasattr(cache, "conv"):
+        return SSMCache(_tensor(cache.state, dev), _tensor(cache.conv, dev))
+    raise TypeError(f"not a KVCache or SSMCache: {type(cache).__name__}")

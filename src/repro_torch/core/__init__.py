@@ -1,7 +1,7 @@
 """Cost-model core of the port: graphs, fleets, placements, the float64
 oracle (copies of ``repro.core``), the batched torch twin, the §3.1
-objective sets and the placement problems with their discrete optimizers
-(``projected_gradient`` and the smoothed model come with ROADMAP A9)."""
+objective sets, the placement problems with their discrete optimizers,
+and the smoothed model with ``projected_gradient``."""
 
 from repro_torch.core.costmodel import (CostConfig, device_occupancy,
                                         edge_latencies, edge_latency,
@@ -18,10 +18,13 @@ from repro_torch.core.objectives import (OBJECTIVES, ObjectiveGrids,
 from repro_torch.core.optimizers import (DQCoupling, OptResult,
                                          PlacementProblem, exhaustive_search,
                                          greedy_transfer, random_search,
+                                         projected_gradient,
                                          scenario_robust_search,
                                          simulated_annealing)
 from repro_torch.core.placement import (random_placement, uniform_placement,
                                         validate_placement)
+from repro_torch.core.torchmodel import (SmoothConfig, make_latency_fn,
+                                         make_objective_fn)
 
 __all__ = [
     "CostConfig", "device_occupancy", "edge_latencies", "edge_latency",
@@ -32,7 +35,8 @@ __all__ = [
     "ExplicitFleet", "RegionFleet", "RegionFleetFamily",
     "Operator", "OpGraph", "diamond_graph", "linear_graph", "random_dag",
     "DQCoupling", "OptResult", "PlacementProblem", "exhaustive_search",
-    "greedy_transfer", "random_search", "scenario_robust_search",
-    "simulated_annealing", "random_placement", "uniform_placement",
+    "greedy_transfer", "projected_gradient", "random_search",
+    "scenario_robust_search", "simulated_annealing", "SmoothConfig",
+    "make_latency_fn", "make_objective_fn", "random_placement", "uniform_placement",
     "validate_placement",
 ]

@@ -59,7 +59,8 @@ from repro_torch.core.costmodel import (CostConfig, device_occupancy,
                                         objective_F)
 from repro_torch.core.devices import ExplicitFleet, RegionFleet
 from repro_torch.core.graph import OpGraph
-from repro_torch.core.torchmodel import (_edge_tensors, critical_path_dp,
+from repro_torch.core.torchmodel import (SmoothConfig, _edge_tensors, _f32,
+                                         critical_path_dp,
                                          make_edge_latencies_com_fn,
                                          make_edge_latencies_region_fn,
                                          region_mass, region_onehot,
@@ -97,8 +98,8 @@ def _op_loads(graph: OpGraph) -> np.ndarray:
                     dtype=np.float64)
 
 
-def _f32(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+def _smooth_cfg(cfg: CostConfig) -> SmoothConfig:
+    return SmoothConfig(alpha=cfg.alpha)
 
 
 # -- latency-F ----------------------------------------------------------------

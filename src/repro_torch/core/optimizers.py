@@ -24,8 +24,9 @@ definitions (:class:`PlacementProblem`, :class:`DQCoupling`,
 function-local so the dependency arrow (search → sim → core) stays
 one-directional.
 
-``projected_gradient`` descends a smoothed cost model with autodiff; its
-smoothed model is not ported yet, so it raises (ROADMAP A9).
+``projected_gradient`` descends the smoothed cost model
+(:mod:`repro_torch.core.torchmodel`) with torch autograd, on the card by
+default.
 """
 
 from __future__ import annotations
@@ -34,11 +35,15 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 from repro_torch.core.costmodel import CostConfig, latency, objective_F
 from repro_torch.core.devices import ExplicitFleet, RegionFleet
 from repro_torch.core.graph import OpGraph
-from repro_torch.core.objectives import ObjectiveSet
+from repro_torch.core.objectives import ObjectiveSet, _smooth_cfg
+from repro_torch.core.placement import project_with_caps
+from repro_torch.core.torchmodel import make_latency_fn
+from repro_torch.kernels import dispatch
 
 __all__ = [
     "DQCoupling",
@@ -188,17 +193,120 @@ def simulated_annealing(prob: PlacementProblem, rng: np.random.Generator,
     return impl(prob, rng, steps=steps, t0=t0, t1=t1, x0=x0, device=device)
 
 
+def _adam_step(p, m, v, g, t: int, lr: float):
+    """One Adam update of a float32 tensor in the reference's order of
+    operations: the moments, their bias corrections, then
+    ``p − lr·m̂ / (√v̂ + 1e-8)``.  The square root is taken in float64 and
+    rounded once, which is the correctly rounded float32 root XLA computes
+    (torch's vectorized CPU ``sqrt`` is not: it differs in the last bit)."""
+    m = 0.9 * m + 0.1 * g
+    v = 0.999 * v + 0.001 * g * g
+    mhat = m / (1 - 0.9 ** t)
+    vhat = v / (1 - 0.999 ** t)
+    root = torch.sqrt(vhat.double()).to(vhat.dtype)
+    return p - lr * mhat / (root + 1e-8), m, v
+
+
+def projected_gradient_loss(prob: PlacementProblem, temp: float,
+                            cap_penalty: float = 50.0, device=None):
+    """``loss(z, w)`` of :func:`projected_gradient` at one temperature, on
+    ``device``: the smoothed F of ``x = softmax(z + availability mask)``
+    at ``dq = sigmoid(w)`` (0 when β = 0), plus ``cap_penalty`` times the
+    squared overflow of the coupling's caps."""
+    dev = dispatch.resolve_device(device)
+    mask = torch.where(torch.as_tensor(prob.availability(), device=dev),
+                       torch.tensor(0.0, device=dev),
+                       torch.tensor(-math.inf, device=dev))
+    lat_fn = make_latency_fn(
+        prob.graph, prob.fleet,
+        dataclasses.replace(_smooth_cfg(prob.cost_cfg), temp=temp),
+        device=dev)
+    beta, caps_cfg = prob.beta, prob.dq
+    if caps_cfg is not None:
+        cap0, load = (torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                      device=dev)
+                      for a in (caps_cfg.cap0, caps_cfg.load))
+
+    def loss(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        x = torch.softmax(z + mask, dim=1)
+        dq = torch.sigmoid(w) if beta > 0.0 else 0.0
+        f = lat_fn(x) / (1.0 + beta * dq)
+        if caps_cfg is not None:
+            over = torch.clamp(x.sum(dim=0) - (cap0 - dq * load), min=0.0)
+            f = f + cap_penalty * torch.sum(over ** 2)
+        return f
+
+    return loss
+
+
 def projected_gradient(prob: PlacementProblem, steps: int = 400,
                        lr: float = 0.05,
                        temps: tuple[float, ...] = (0.1, 0.02, 0.005),
-                       cap_penalty: float = 50.0, seed: int = 0) -> OptResult:
-    """Beyond-paper optimizer of the reference: Adam on softmax logits
-    through the logsumexp-smoothed model.  Not ported: the smoothed model
-    and its autodiff come with ROADMAP A9."""
-    raise NotImplementedError(
-        "projected_gradient needs the smoothed cost model and autodiff, "
-        "which are not ported yet (ROADMAP A9); use greedy_transfer, "
-        "simulated_annealing or random_search")
+                       cap_penalty: float = 50.0, seed: int = 0,
+                       device=None, z0: np.ndarray | None = None) -> OptResult:
+    """Beyond-paper optimizer: anneal a logsumexp-smoothed F with Adam on
+    softmax logits; availability via −inf mask; caps via quadratic penalty;
+    DQ via a sigmoid-parameterized scalar.  Final score is the exact model.
+
+    The loss and its gradient (one ``torch.autograd.grad`` per step) run on
+    ``device`` (``None`` → the card) in float32; ``dispatches`` counts
+    those steps, steps × len(temps).  The start logits are
+    ``0.01·N(0, 1)`` drawn from a ``torch.Generator`` seeded with ``seed``
+    — not the reference's ``jax.random`` numbers — unless ``z0``
+    (n_ops, V) hands them over.  Everything after the loop (the snap to
+    the dq grid, ``project_with_caps``, the exact score) is numpy float64,
+    as in the reference."""
+    avail = prob.availability()
+    n_ops, n_dev = avail.shape
+    dev = dispatch.resolve_device(device)
+    if z0 is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        z = 0.01 * torch.randn((n_ops, n_dev), generator=gen, device=dev)
+    else:
+        z = torch.tensor(np.asarray(z0), dtype=torch.float32, device=dev)
+        if z.shape != (n_ops, n_dev):
+            raise ValueError(f"z0 has shape {tuple(z.shape)}, want "
+                             f"{(n_ops, n_dev)}")
+    w = torch.tensor(-1.0, device=dev)  # dq = sigmoid(w); starts low
+    history, evals = [], 0
+    dispatches = 0  # gradient steps, steps x len(temps)
+    for temp in temps:
+        loss = projected_gradient_loss(prob, temp, cap_penalty, dev)
+        m = (torch.zeros_like(z), torch.zeros_like(w))
+        v = (torch.zeros_like(z), torch.zeros_like(w))
+        for t in range(1, steps + 1):
+            with torch.enable_grad():
+                zg, wg = z.requires_grad_(), w.requires_grad_()
+                val = loss(zg, wg)
+                gz, gw = torch.autograd.grad(val, (zg, wg),
+                                             allow_unused=True,
+                                             materialize_grads=True)
+            evals += 1
+            dispatches += 1
+            z, mz, vz = _adam_step(z.detach(), m[0], v[0], gz, t, lr)
+            w, mw, vw = _adam_step(w.detach(), m[1], v[1], gw, t, lr)
+            m, v = (mz, mw), (vz, vw)
+            history.append(float(val.detach()))
+    with torch.no_grad():
+        x = torch.softmax(z.masked_fill(~torch.as_tensor(avail, device=dev),
+                                        -math.inf), dim=1)
+        x = x.cpu().numpy().astype(np.float64)
+        dq_soft = float(torch.sigmoid(w)) if prob.beta > 0.0 else 0.0
+    x = x / x.sum(axis=1, keepdims=True)
+    # snap to the best feasible dq on the grid — which always includes the
+    # relaxed optimum itself (exact, not rounded)
+    best_dq, best_f = 0.0, math.inf
+    for dq in _dq_grid(prob, steps=10, include=(dq_soft,)):
+        if prob.dq is not None:
+            xf = project_with_caps(x, prob.dq.caps(dq), avail)
+        else:
+            xf = x
+        f = prob.score(xf, dq)
+        evals += 1
+        if f < best_f:
+            best_f, best_dq, best_x = f, dq, xf
+    return OptResult.of(prob, best_x, best_dq, history, evals,
+                        dispatches=dispatches)
 
 
 # -- scenario-robust search (min–max over a generated what-if family) ---------

@@ -1,11 +1,16 @@
-"""Batched PyTorch twin of the paper's cost model — the hard-max what-if
-half of ``repro.core.jaxmodel``.
+"""PyTorch twin of the paper's cost model — the counterpart of
+``repro.core.jaxmodel``, in two halves.
 
-Hard mode only (``temp = 0``): these are the scorers behind
-``BatchedEvaluator``; the smoothed latency and its gradient path come with
-the optimizer slice.  Unlike the JAX twins, which score one placement and
-are ``vmap``-ed by the evaluator, every function here takes a leading batch
-axis: ``x`` is (B, n_ops, V), a dense ``com`` is (Bc, V, V) and a
+The smoothed model (:class:`SmoothConfig`, :func:`make_latency_fn`,
+:func:`make_objective_fn`) scores ONE placement with every max optionally
+replaced by ``temp·logsumexp(·/temp)`` and the enabledLinks indicator by
+``x/(x + link_eps)``, so the objective is C¹ and torch autograd gives the
+gradient ``projected_gradient`` descends.  It is plain tensor code: the
+reference computes it without a Pallas kernel too.
+
+The hard-max what-if scorers behind ``BatchedEvaluator`` (``temp = 0``).
+Unlike the JAX twins, which score one placement and are ``vmap``-ed by the
+evaluator, each of them takes a leading batch axis: ``x`` is (B, n_ops, V), a dense ``com`` is (Bc, V, V) and a
 structured scenario is ``inter`` (Sb, R, R) + ``degrade`` (Sb, V), with
 Bc, Sb ∈ {1, B} (1 = one scenario shared by the whole batch, never
 replicated).
@@ -27,13 +32,17 @@ that changes from run to run, the product does not.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core.devices import ExplicitFleet, RegionFleet
 from repro_torch.core.graph import OpGraph
 from repro_torch.kernels import dispatch
 
-__all__ = ["edge_endpoints", "links_term", "critical_path_dp",
+__all__ = ["SmoothConfig", "make_latency_fn", "make_objective_fn",
+           "edge_endpoints", "links_term", "critical_path_dp",
            "make_edge_latencies_com_fn", "region_factors", "region_onehot",
            "region_mass", "structured_edge_latency",
            "make_edge_latencies_region_fn", "require_fp32_matmul"]
@@ -191,3 +200,120 @@ def make_edge_latencies_region_fn(graph: OpGraph, region: np.ndarray,
         return out
 
     return elat
+
+
+# -- the smoothed single-placement model (the gradient path) -----------------
+
+@dataclasses.dataclass(frozen=True)
+class SmoothConfig:
+    """temp=0 ⇒ hard max (paper-exact); temp>0 ⇒ logsumexp smoothing.
+    link_eps smooths the enabledLinks indicator: nz(x) ≈ x/(x+eps)."""
+
+    alpha: float = 0.0
+    temp: float = 0.0
+    link_eps: float = 1e-4
+
+
+def _smax(v: torch.Tensor, temp: float, dim: int) -> torch.Tensor:
+    """Hard max at temp 0, else ``temp·logsumexp(v/temp)``.  The logsumexp
+    is written out as JAX's (a max with no gradient, exp, sum, log), so
+    autograd forms the reference's gradient ``exp(a − max)/Σ`` with its
+    roundings: ``torch.logsumexp``'s backward, ``exp(a − lse)``, loses
+    |lse|·ε in the exponent, 5e-6 relative at temp 0.005."""
+    if temp <= 0.0:
+        return v.amax(dim=dim)
+    a = v / temp
+    amax = a.amax(dim=dim, keepdim=True).detach()
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    s = torch.exp(a - amax).sum(dim=dim)
+    return temp * (torch.log(s) + amax.squeeze(dim))
+
+
+def _soft_nz(x: torch.Tensor, eps: float, hard: bool) -> torch.Tensor:
+    if hard:
+        return (x > 0).to(x.dtype)
+    return x / (x + eps)
+
+
+def _edge_latency(x_i, x_j, s_i, t, cfg: SmoothConfig) -> torch.Tensor:
+    """(E,) edge latencies from the (E, V) endpoint rows, the (E, 1)
+    source selectivities and the (E, V) transfer times ``t = com·x_j``:
+    the reference's per-edge ``_edge_latency``, for every edge at once."""
+    base = _smax(x_i * s_i * t, cfg.temp, dim=-1)
+    if cfg.alpha:
+        hard = cfg.temp <= 0.0
+        nz_i = _soft_nz(x_i, cfg.link_eps, hard)
+        nz_j = _soft_nz(x_j, cfg.link_eps, hard)
+        links = nz_i.sum(dim=-1) * nz_j.sum(dim=-1) \
+            - (nz_i * nz_j).sum(dim=-1)
+        base = base + cfg.alpha * links
+    return base
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def make_latency_fn(graph: OpGraph, fleet: ExplicitFleet | RegionFleet,
+                    cfg: SmoothConfig = SmoothConfig(), device=None):
+    """Returns ``lat(x) -> scalar`` for one float32 (n_ops, V) placement on
+    ``device`` (``None`` → the card; ``"cpu"`` for the CPU).
+
+    The transfer times of every edge come from one product: ``x_j @ comᵀ``
+    for an :class:`ExplicitFleet`; for a :class:`RegionFleet` the region
+    masses (``region_mass``, the degrade-weighted one-hot product) times the
+    (V, R) degrade-scaled inter costs, plus the self-cost correction, as the
+    reference's ``com_times``.  Both are float32 cuBLAS products on the
+    card, so they raise when TF32 matmuls are on
+    (:func:`require_fp32_matmul`).  The critical-path DP unrolls over the
+    static topo order; with temp>0 the max over parents and sinks is also
+    smoothed, so the whole objective is C¹ and autograd differentiates it.
+    """
+    dev = dispatch.resolve_device(device)
+    src, dst, sel = _edge_tensors(graph, dev)
+    sel = sel[:, None]
+    if isinstance(fleet, RegionFleet):
+        d = fleet.degrade_or_ones()
+        inter_dev_t = _f32((fleet.inter[fleet.region] * d[:, None]).T, dev)
+        corr = _f32(fleet.self_cost - d * d
+                    * np.diag(fleet.inter)[fleet.region], dev)
+        d_row = _f32(d, dev)[None]
+        onehot = region_onehot(torch.as_tensor(
+            np.asarray(fleet.region, dtype=np.int64), device=dev),
+            fleet.n_regions)
+
+        def com_times(x_j):
+            mass = region_mass(x_j, d_row, onehot)          # (E, R)
+            return torch.matmul(mass, inter_dev_t) + corr * x_j
+    else:
+        com_t = _f32(fleet.com_cost, dev).T
+
+        def com_times(x_j):
+            require_fp32_matmul(x_j, "the smoothed model's transfer times")
+            return torch.matmul(x_j, com_t)
+
+    def lat(x: torch.Tensor) -> torch.Tensor:
+        x_j = x[dst]
+        elat = _edge_latency(x[src], x_j, sel, com_times(x_j), cfg)
+        zero = x.new_zeros(())
+        dist: dict[int, torch.Tensor] = {}
+        for i in graph.topo_order:
+            incoming = [dist[ip] + elat[e] for ip, e in graph.in_edges(i)]
+            dist[i] = (_smax(torch.stack(incoming), cfg.temp, dim=0)
+                       if incoming else zero)
+        sinks = [dist[s] for s in graph.sinks]
+        return _smax(torch.stack(sinks), cfg.temp, dim=0) if sinks else zero
+
+    return lat
+
+
+def make_objective_fn(graph: OpGraph, fleet: ExplicitFleet | RegionFleet,
+                      beta: float, cfg: SmoothConfig = SmoothConfig(),
+                      device=None):
+    """``obj(x, dq_fraction) -> F`` (paper eq. 8), differentiable in both."""
+    lat = make_latency_fn(graph, fleet, cfg, device)
+
+    def obj(x: torch.Tensor, dq_fraction) -> torch.Tensor:
+        return lat(x) / (1.0 + beta * dq_fraction)
+
+    return obj

@@ -9,6 +9,12 @@ and the compiler flags, so an edited source or header is rebuilt and an
 unchanged one is reused.  Nothing is built when the
 module is imported: the CPU test suite imports it on machines without
 ``nvcc``.
+
+:data:`events` counts what the process spent making kernels ready — the
+port's counterpart of JAX's compiles, which ``repro_torch.obs.bench``
+reports for a timed region: ``builds`` (``nvcc`` runs), ``loads``
+(libraries opened by :func:`load`) and ``seconds`` (wall time inside
+:func:`load`, builds included).
 """
 
 from __future__ import annotations
@@ -23,8 +29,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "find_nvcc",
-           "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "events",
+           "find_nvcc", "build_all", "load"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -35,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+events = {"builds": 0, "loads": 0, "seconds": 0.0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +108,7 @@ def build_all() -> list[BuildResult]:
             continue
         path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)   # atomic: a reader never sees half a library
+        events["builds"] += 1
         results.append(BuildResult(src.stem, path, seconds, log))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -113,8 +121,13 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            paths = {r.name: r.path for r in build_all()}
-            if name not in paths:
-                raise ValueError(f"no kernel source csrc/{name}.cu")
-            lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+            t0 = time.perf_counter()
+            try:
+                paths = {r.name: r.path for r in build_all()}
+                if name not in paths:
+                    raise ValueError(f"no kernel source csrc/{name}.cu")
+                lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+                events["loads"] += 1
+            finally:
+                events["seconds"] += time.perf_counter() - t0
         return lib

@@ -15,7 +15,11 @@
 // (the last q tile has the most keys under a causal mask).  Rows and keys
 // past the end load as 0 (keys are masked, rows are not stored), so any S
 // works.  The operands are read in their strided (B, S, H, D) layout, never
-// transposed.
+// transposed.  The grid is (B * H, q tiles): B * H on the x dimension,
+// which takes 2^31 - 1 blocks (as the reference folds B and H into its
+// grid's axis 0), the q tiles on y.  A block maps its linear index to
+// (b·h, q tile) with the tiles of one head adjacent, as they were when the
+// tiles were on x.  Any head dim D of 8, 16, 32, 64 or 128.
 //
 // Bound on this card: operations.  At the LM-scoring shape (a shard of 11
 // rows x 2048 tokens, 16 heads of 128, bf16) one launch does
@@ -38,7 +42,9 @@
 //     transposes), in 64 d x 64 row boxes with the 128-byte swizzle, so
 //     shared memory holds [D / 64][rows][64] bf16 in wgmma's canonical
 //     layout.  Rows past S, and d past D for a head dim under 64, are
-//     TMA's zero fill.  cuTensorMapEncodeTiled is reached through the
+//     TMA's zero fill (so a head dim of 8 is padded with zeros to wgmma's
+//     depth of 16 by the loads; the scale stays D^-1/2).
+//     cuTensorMapEncodeTiled is reached through the
 //     CUDA runtime's entry-point query (no -lcuda); a refused map or launch
 //     raises in the wrapper, with no fallback.
 //   - S_j = Q K_j^T is wgmma m64n64k16 with both operands in shared memory
@@ -82,7 +88,8 @@
 //   computes a 4 x 4 block of scores with float4 reads, the 16 threads of a
 //   row group agree on the row max with shuffles, p goes to shared memory,
 //   V replaces K in the same buffer, and each thread adds p v into its
-//   4 x D/16 accumulator.
+//   4 x D/16 accumulator (at D 8, 4 x 1 on the first 8 threads of a row
+//   group; the other 8 only score).
 //
 // The summation order is fixed by the tiling, so a repeat launch is
 // bitwise identical.  The entry point takes raw pointers, element strides
@@ -99,6 +106,19 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr float L_FLOOR = 1e-30f;
+
+// The grid is (B * H, q tiles); a block takes the (b·h, tile) of its index
+// in launch order (x fastest), so the q tiles of one head run side by side,
+// heaviest first, and share its K and V in L2.
+__device__ __forceinline__ int64_t block_linear() {
+  return (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+}
+__device__ __forceinline__ int64_t block_bh() {
+  return block_linear() / gridDim.y;
+}
+__device__ __forceinline__ int64_t block_tile() {
+  return block_linear() % gridDim.y;
+}
 
 // -- bfloat16: tensor cores (wgmma) -------------------------------------------
 
@@ -325,7 +345,7 @@ __device__ __forceinline__ void issue_s(float (&s)[32], uint32_t q_s,
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
+  for (int ks = 0; ks < (D < 16 ? 1 : D / 16); ++ks)   // D 8: zero-padded
     wgmma_ss_n64(s,
                  make_desc(q_s + (ks / 4) * (BQ * 128) + (ks % 4) * 32, 16,
                            1024),
@@ -412,8 +432,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   auto empty = [&](int i) { return bars + 8 * (1 + 2 * STAGES + i); };
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t q0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t bh = block_bh(), b = bh / H, h = bh % H;
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - block_tile()) * BQ;
   const int64_t kend = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
   const int ntiles = (int)((kend + BK - 1) / BK);
 
@@ -632,7 +652,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
                            float scale, int causal) {
   constexpr int PITCH = D + 4, PPITCH = BK + 4;
-  constexpr int CPT = D / 16;                   // output columns per thread
+  constexpr int CPT = D < 16 ? 1 : D / 16;      // output columns per thread
   constexpr int VW = CPT < 4 ? CPT : 4;         // ... read/written VW at once
   constexpr int NV = CPT / VW;                  // ... in NV vectors
   extern __shared__ __align__(16) float smem[];
@@ -641,8 +661,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   float* Ps = KVs + BK * PITCH;     // [BQ][PPITCH]
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int64_t b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t q0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t bh = block_bh(), b = bh / H, h = bh % H;
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - block_tile()) * BQ;
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
@@ -734,7 +754,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         pv[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * PPITCH + kk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float* vrow = KVs + (kk + e) * PITCH + tx * VW;
+        // D 8: threads tx >= 8 read column 0 again and store nothing
+        const float* vrow =
+            KVs + (kk + e) * PITCH + (tx * VW < D ? tx * VW : 0);
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           float vv[VW];
@@ -761,7 +783,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       lt += __shfl_xor_sync(0xffffffffu, lt, off);
     lt = fmaxf(lt, L_FLOOR);
     const int64_t qp = q0 + ty * 4 + i;
-    if (qp < Sq) {
+    if (qp < Sq && tx * VW < D) {
       float* orow = ob + qp * o_ss + tx * VW;
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
@@ -839,7 +861,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Sq + tc::BQ - 1) / tc::BQ), (unsigned)(B * H));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + tc::BQ - 1) / tc::BQ));
   kern<<<grid, tc::NT, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), H, Sq, Skv, st[9], st[10],
       st[11], (float)(scale * 1.4426950408889634), causal);
@@ -860,8 +882,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((unsigned)((Sq + fp32::BQ - 1) / fp32::BQ),
-                    (unsigned)(B * H));
+    const dim3 grid((unsigned)(B * H),
+                    (unsigned)((Sq + fp32::BQ - 1) / fp32::BQ));
     kern<<<grid, fp32::NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), H, Sq, Skv,
@@ -877,6 +899,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int64_t D, const int64_t* st, double scale, int causal,
                      cudaStream_t stream) {
   switch (D) {
+    case 8: return launch<BF16, 8>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
     case 16: return launch<BF16, 16>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
     case 32: return launch<BF16, 32>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
     case 64: return launch<BF16, 64>(q, k, v, o, B, H, Sq, Skv, st, scale, causal, stream);
@@ -890,9 +913,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o: (B, S, H, D) with element strides (batch, seq, head) each and
-// a contiguous D in {16, 32, 64, 128}; bf16 != 0 means bfloat16 operands
-// (tensor cores, grid (ceil(Sq / 128), B * H)), else float32 (CUDA cores,
-// grid (ceil(Sq / 64), B * H)).  scale is D^-1/2.
+// a contiguous D in {8, 16, 32, 64, 128}; bf16 != 0 means bfloat16 operands
+// (tensor cores, grid (B * H, ceil(Sq / 128))), else float32 (CUDA cores,
+// grid (B * H, ceil(Sq / 64))).  scale is D^-1/2.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int64_t B, int64_t H, int64_t Sq,
                            int64_t Skv, int64_t D,
@@ -902,7 +925,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
                            int64_t bf16, int64_t causal, double scale,
                            void* stream) {
-  if (B * H > 65535 || B * H < 1 || Sq < 1)
+  if (B * H > 2147483647 || B * H < 1 || Sq < 1 ||
+      (Sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};

@@ -15,8 +15,11 @@
 // x (b, L, H, P) and B, C (b, L, N) in float32 or bfloat16 (one dtype for
 // the three, P <= 64, N <= 128), dt (b, L, H), A and D (H,) in float32; y in
 // x's dtype (bfloat16 rounds to nearest even).  B and C are shared by all
-// heads.  The final state is not returned.  Any L (the ragged last chunk is
-// the reference's zero padding; rows past L are not stored), any H and any Q
+// heads.  On request the final state S_n (b, H, N, P) is written in float32
+// too (ssd_chunked's second output, the Mamba2 prefill's cache); y is the
+// same whether or not it is asked for.  Any L (the ragged last chunk is the
+// reference's zero padding: dt 0 past L, so the last chunk's decay and
+// weights end at row L - 1; rows past L are not stored), any H and any Q
 // from the caller.
 //
 // Bound on this card: bytes.  At the LM-scoring shape (a shard of 11 rows
@@ -37,11 +40,15 @@
 //      cum_j) dt_j from reverse sums), then s_c = B^T (w x) over the
 //      chunk's 64-row tiles with wgmma (m64n64k16, B^T and w x both
 //      MN-major from shared memory), written in float32 to a
-//      (b, n - 1, H, N, P) scratch;
+//      (b, n - 1, H, N, P) scratch (the last chunk's, only when the final
+//      state is asked for, straight into the final-state output);
 //   2. state passing (ssd_scan_pass_kernel), S_{c+1} = exp(total_c) S_c +
 //      s_c in float32, sequential over the n chunks and parallel over
 //      (b, H, N, P); each S is written rounded to bf16 in pass 3's
-//      swizzled (Npad, 64) tile;
+//      swizzled (Npad, 64) tile; the final state exp(total_{n-1}) S_{n-1} +
+//      s_{n-1} is written in float32 when asked for (with one chunk pass 1
+//      has written s_0, which is the final state, and this pass is not
+//      launched);
 //   3. output (ssd_scan_output_kernel), one CTA per (batch, chunk, 64-row
 //      tile, 2 heads), one warpgroup per head: the carried term
 //      exp(cum_i) C_i S_c and, per key tile j <= i, C_i B_j^T, M = C.B^T
@@ -98,6 +105,8 @@
 //   memory, in 32-row sub-tiles; the intra-chunk exponent cum_i - cum_j is
 //   summed from the diagonal outwards and total - cum_j from a reverse
 //   scan, so their float32 error scales with the exponent, not with |cum|.
+//   It updates the states after the last chunk only when the final state
+//   is asked for, and then writes them out.
 //
 // No atomics, and the summation order is fixed by the tiling, so a repeat
 // launch is bitwise identical.  Every entry point takes raw pointers and
@@ -180,6 +189,7 @@ struct Args {
   const float* A;
   const float* D;
   void* y;
+  float* fs;                  // (b, H, N, P) final states, or null
   int64_t b, L, H, P, N, Q;
   int64_t x_sb, x_sl, x_sh;   // x strides (P contiguous)
   int64_t B_sb, B_sl;         // B strides (N contiguous)
@@ -367,7 +377,7 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_f32_kernel(Args a) {
     }
 
     // ---- state update: S <- exp(total) S + sum_j w_j B_j (x) x_j ---------
-    if (c + 1 == nchunks) break;  // the final state is not returned
+    if (c + 1 == nchunks && a.fs == nullptr) break;  // not asked for
     for (int e = tid; e < HB * N * P; e += NT)
       S[e] *= expf(cum[(e / (N * P)) * Q + Q - 1]);
     for (int jt = 0; jt < ntiles; ++jt) {
@@ -413,6 +423,12 @@ __global__ void __launch_bounds__(NT, 1) ssd_scan_f32_kernel(Args a) {
               Sh[(tn * 4 + r) * P + tp + 8 * q] += acc[r][q];
       }
     }
+  }
+  if (a.fs == nullptr) return;
+  __syncthreads();
+  for (int e = tid; e < HB * N * P; e += NT) {
+    const int64_t h = h0 + e / (N * P);
+    if (h < a.H) a.fs[(bi * a.H + h) * N * P + e % (N * P)] = S[e];
   }
 }
 
@@ -471,6 +487,7 @@ struct Args {
   float* cum;               // (b, n, H, Q) cumsum(dt * A) inside each chunk
   float* s;                 // (b, n - 1, H, N, P) chunk-local end states
   __nv_bfloat16* Sb;        // (b, n - 1, H, Npad, 64) carried-in states
+  float* fs;                // (b, H, N, P) final states, or null
   int64_t b, L, H, P, N, Q, n;
   int64_t x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl, d_sb, d_sl, d_sh;
 };
@@ -660,7 +677,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // in place (rounded to bf16 once) and adds s += B^T (w x): wgmma with B^T
 // MN-major (N in m64 halves; the second is zero for N <= 64) and w x
 // MN-major.  The last chunk's state is
-// not needed: its CTAs only scan.
+// needed only for the final state, written straight to its output; when
+// that is not asked for, the last chunk's CTAs only scan.
 template <bool VEC>
 __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -682,7 +700,8 @@ __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
   const int rows = (int)(a.L - l0 < Q ? a.L - l0 : Q);
   const int64_t h = hb * HB1 + wg;
   const bool hv = h < a.H;
-  const bool last = c + 1 == a.n;    // the final state is not returned
+  const bool last = c + 1 == a.n;
+  const bool keep = !last || a.fs != nullptr;   // this chunk's state is used
   const int ntiles = (rows + TR - 1) / TR;
 
   auto issue = [&](int rt, int st) {
@@ -711,8 +730,8 @@ __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
         ok ? 4 : 0);
   }
   cp_commit();
-  if (!last) issue(0, 0);
-  if (last) cp_wait<0>(); else cp_wait<1>();
+  if (keep) issue(0, 0);
+  if (keep) cp_wait<1>(); else cp_wait<0>();
   __syncthreads();
 
   if (wt < 32) {     // the scan of head h, by the warpgroup's first warp
@@ -748,7 +767,7 @@ __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
       w[r] = expf(rev) * d;
     }
   }
-  if (last) return;
+  if (!keep) return;
   __syncthreads();
 
   float acc[NBLK][32];
@@ -803,7 +822,8 @@ __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
 
   if (!hv) return;
   const int warp = wt / 32, g = lane / 4, t = lane % 4;
-  float* s = a.s + ((bi * (a.n - 1) + c) * a.H + h) * (int64_t)N * P;
+  float* s = last ? a.fs + (bi * a.H + h) * (int64_t)N * P
+                  : a.s + ((bi * (a.n - 1) + c) * a.H + h) * (int64_t)N * P;
   if (P % 32 == 0) {
     // through shared memory (the stages are free): the warpgroup's (N, P)
     // tile with its 16-byte column chunks XOR-swizzled by row, then out in
@@ -848,7 +868,9 @@ __global__ void __launch_bounds__(NT1, 2) ssd_scan_states_kernel(Args a) {
 // groups of V columns); each S_{c+1} is written rounded to bf16 in pass
 // 3's swizzled (Npad, 64) tile, zero where n >= N or p >= P.  V = 4 (float4
 // loads, 8-byte stores) where P % 4 == 0.  The loads of 8 chunks are issued
-// before their chain of multiply-adds.
+// before their chain of multiply-adds.  When the final state is asked for,
+// pass 1 has put s_{n-1} there, and S_n = exp(total_{n-1}) S_{n-1} +
+// s_{n-1} replaces it.
 template <int V>
 __global__ void __launch_bounds__(NT2) ssd_scan_pass_kernel(Args a) {
   const int64_t N = a.N, P = a.P, Q = a.Q, npad = npad_of(N);
@@ -901,6 +923,11 @@ __global__ void __launch_bounds__(NT2) ssd_scan_pass_kernel(Args a) {
       }
     }
   }
+  if (a.fs == nullptr || !ok) return;
+  const float dec = expf(cum[(a.n - 1) * cs]);
+  float* __restrict__ f = a.fs + (bi * a.H + h) * N * P + n * P + p;
+#pragma unroll
+  for (int v = 0; v < V; ++v) f[v] = fmaf(dec, S[v], f[v]);
 }
 
 // Pass 3, output.  One CTA per (batch, chunk, 64-row tile, 2 heads), one
@@ -1190,7 +1217,8 @@ bool vec_ok(const Args& a) {
 #define SSD_ARGS                                                              \
   const void *x, const void *B, const void *C, const void *dt,              \
       const void *A, const void *D, void *y, void *cum, void *s, void *Sb,  \
-      int64_t b, int64_t L, int64_t H, int64_t P, int64_t N, int64_t Q,     \
+      void *fs, int64_t b, int64_t L, int64_t H, int64_t P, int64_t N,     \
+      int64_t Q,                                                            \
       int64_t x_sb, int64_t x_sl, int64_t x_sh, int64_t B_sb, int64_t B_sl, \
       int64_t C_sb, int64_t C_sl, int64_t d_sb, int64_t d_sl, int64_t d_sh, \
       void *stream
@@ -1210,7 +1238,7 @@ tc::Args tc_args(SSD_ARGS) {
                   static_cast<const float*>(D),
                   static_cast<__nv_bfloat16*>(y), static_cast<float*>(cum),
                   static_cast<float*>(s), static_cast<__nv_bfloat16*>(Sb),
-                  b, L, H, P, N, Q, (L + Q - 1) / Q, x_sb, x_sl, x_sh, B_sb,
+                  static_cast<float*>(fs), b, L, H, P, N, Q, (L + Q - 1) / Q, x_sb, x_sl, x_sh, B_sb,
                   B_sl, C_sb, C_sl, d_sb, d_sl, d_sh};
 }
 
@@ -1224,7 +1252,9 @@ extern "C" {
 // head); A, D (H,); y a new contiguous (b, L, H, P); the bf16 route's
 // scratch cum (b, n, H, Q) and s (b, n - 1, H, N, P) float32 and Sb
 // (b, n - 1, H, Npad, 64) bf16 with n = ceil(L / Q), Npad = N rounded up to
-// 16 (unused by the float32 route).
+// 16 (unused by the float32 route); fs a (b, H, N, P) float32 output for the
+// final state, or null when it is not asked for (every pass of a call takes
+// the same fs).
 
 // float32 operands, CUDA cores: grid (b, ceil(H / 4)).
 int ssd_scan_f32_launch(SSD_ARGS) {
@@ -1234,7 +1264,8 @@ int ssd_scan_f32_launch(SSD_ARGS) {
     return (int)cudaErrorInvalidValue;
   const fp32::Args a{x, B, C, static_cast<const float*>(dt),
                      static_cast<const float*>(A),
-                     static_cast<const float*>(D), y, b, L, H, P, N, Q, x_sb,
+                     static_cast<const float*>(D), y,
+                     static_cast<float*>(fs), b, L, H, P, N, Q, x_sb,
                      x_sl, x_sh, B_sb, B_sl, C_sb, C_sl, d_sb, d_sl, d_sh};
   return (int)fp32::launch(a, static_cast<cudaStream_t>(stream));
 }
@@ -1242,8 +1273,8 @@ int ssd_scan_f32_launch(SSD_ARGS) {
 // bf16, pass 1 (chunk states and the in-chunk cumsums): b * n * ceil(H / 4)
 // CTAs of 512 threads.
 int ssd_scan_states_launch(SSD_ARGS) {
-  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, b, L, H, P, N,
-                             Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
+  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, fs, b, L, H, P,
+                             N, Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
                              d_sb, d_sl, d_sh, stream);
   if (bad_shape(b, L, H, P, N, Q) || tc::states_smem(N, Q) > SMEM_LIMIT ||
       b * a.n * ((H + tc::HB1 - 1) / tc::HB1) > 2147483647)
@@ -1255,8 +1286,8 @@ int ssd_scan_states_launch(SSD_ARGS) {
 
 // bf16, pass 2 (state passing), n > 1 only: b * H * Npad * 64 threads.
 int ssd_scan_pass_launch(SSD_ARGS) {
-  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, b, L, H, P, N,
-                             Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
+  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, fs, b, L, H, P,
+                             N, Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
                              d_sb, d_sl, d_sh, stream);
   const int V = P % 4 == 0 ? 4 : 1;
   const int64_t blocks = (b * H * tc::npad_of(N) * (64 / V) + tc::NT2 - 1) /
@@ -1274,8 +1305,8 @@ int ssd_scan_pass_launch(SSD_ARGS) {
 // bf16, pass 3 (output): b * n * ceil(H / 2) * ceil(Q / 64) CTAs of 128
 // threads.
 int ssd_scan_output_launch(SSD_ARGS) {
-  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, b, L, H, P, N,
-                             Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
+  const tc::Args a = tc_args(x, B, C, dt, A, D, y, cum, s, Sb, fs, b, L, H, P,
+                             N, Q, x_sb, x_sl, x_sh, B_sb, B_sl, C_sb, C_sl,
                              d_sb, d_sl, d_sh, stream);
   if (bad_shape(b, L, H, P, N, Q) || tc::output_smem(N, Q) > SMEM_LIMIT ||
       b * a.n * ((H + tc::HB3 - 1) / tc::HB3) * (tc::qpad_of(Q) / tc::TR) >

@@ -142,9 +142,14 @@ def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
     return ref.rmsnorm_plain(x, w, eps)
 
 
-def ssd_scan(x, B, C, dt, A, D, chunk: int) -> torch.Tensor:
-    """The Mamba2 SSD chunked scan → y (b, L, H, P) in x's dtype: K6 on
-    the card, its plain version on the CPU."""
+def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
+             state_out=None):
+    """The Mamba2 SSD chunked scan → y (b, L, H, P) in x's dtype, or
+    (y, final state (b, H, N, P) float32) with ``final_state`` or a
+    ``state_out`` to write it into: K6 on the card, its plain version on
+    the CPU."""
+    into = {} if state_out is None else {"state_out": state_out}
     if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
-        return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk)
-    return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk)
+        return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk, final_state,
+                                   **into)
+    return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state, **into)

@@ -26,11 +26,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["KERNELS", "HEAD_DIMS", "launches", "reset_launches",
-           "flash_attention"]
+__all__ = ["KERNELS", "HEAD_DIMS", "MAX_Q_TILES", "launches",
+           "reset_launches", "check_shape", "flash_attention"]
 
 KERNELS = ("flash_attention",)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_Q_TILES = 65535          # the grid's y dimension holds the q tiles
 launches = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -71,6 +72,18 @@ def _check(name: str, t: torch.Tensor, device) -> None:
                          f"16-byte aligned start; got strides {t.stride()}")
 
 
+def check_shape(B: int, Sq: int, H: int, D: int) -> None:
+    """Raise unless the kernel takes (B, Sq, H, D): a built head dim and
+    at most :data:`MAX_Q_TILES` 64-row q tiles.  B·H is the grid's x
+    dimension, which holds any batch the card can store."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if -(-Sq // 64) > MAX_Q_TILES:
+        raise ValueError(f"Sq = {Sq} needs more than the grid's "
+                         f"{MAX_Q_TILES} q tiles")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """K5: q, k, v (B, S, H, D), kv repeated to H, float32 or bfloat16 →
@@ -82,11 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(name, t, dev)
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
+    check_shape(B, Sq, H, D)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -15,7 +15,7 @@
   function ``repro.kernels.rmsnorm._rmsnorm_kernel`` computes.
 * The SSD scan (:func:`ssd_scan_plain`): the chunked form of
   ``repro.models.mamba2.ssd_chunked`` (what ``_ssd_kernel`` computes),
-  returning y.  Like the attention version it computes in float32, or in
+  returning y, and on request the final state too.  Like the attention version it computes in float32, or in
   float64 for float64 inputs.
 
 The device policy sends CPU tensors here, and ``chip_smoke.py`` holds the
@@ -162,18 +162,27 @@ def check_ssd_operands(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                    dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-                   chunk: int) -> torch.Tensor:
+                   chunk: int, final_state: bool = False,
+                   state_out: torch.Tensor | None = None):
     """The chunked SSD scan of ``repro.models.mamba2.ssd_chunked``: chunks
     of Q = min(chunk, L) rows, a ragged last chunk zero-padded, per chunk
     the intra-chunk form ``(C·Bᵀ ⊙ exp(cum_i − cum_j) ⊙ dt_j)·x`` masked to
     j ≤ i, the carried term ``exp(cum_i)·C_i·S``, ``D·x`` and the state
-    update, op for op.  Returns y (b, L, H, P) in x's dtype; the final
-    state is dropped."""
+    update, op for op.  Returns y (b, L, H, P) in x's dtype, or with
+    ``final_state`` the pair (y, S) with S (b, H, N, P) the state after
+    the last row, as ``ssd_chunked`` returns it (float32; float64 for
+    float64 inputs).  ``state_out`` (b, H, N, P) receives S and is
+    returned in its place (it implies ``final_state``)."""
+    if state_out is not None:
+        y, S = ssd_scan_plain(x, B, C, dt, A, D, chunk, True)
+        return y, state_out.copy_(S)
     b, L, H, Pd, N, Q = check_ssd_operands(x, B, C, dt, A, D, chunk)
     ct = torch.promote_types(x.dtype, torch.float32)
     n = -(-L // Q)
+    S = torch.zeros((b, H, N, Pd), dtype=ct, device=x.device)
     if n == 0:
-        return torch.empty((b, 0, H, Pd), dtype=x.dtype, device=x.device)
+        y = torch.empty((b, 0, H, Pd), dtype=x.dtype, device=x.device)
+        return (y, S) if final_state else y
     pad = n * Q - L
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
@@ -182,7 +191,6 @@ def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
     A, D, dt = A.to(ct), D.to(ct), dt.to(ct)
     mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    S = torch.zeros((b, H, N, Pd), dtype=ct, device=x.device)
     ys = []
     for c in range(n):
         rows = slice(c * Q, (c + 1) * Q)
@@ -203,4 +211,5 @@ def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             "bjN,bjh,bjhp->bhNp", B_c.to(ct), w, xf)
         y = y + D[None, None, :, None] * xf
         ys.append(y.to(x.dtype))
-    return torch.cat(ys, dim=1)[:, :L]
+    y = torch.cat(ys, dim=1)[:, :L]
+    return (y, S) if final_state else y

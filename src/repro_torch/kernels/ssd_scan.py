@@ -7,7 +7,9 @@ what bounds it and how it is tiled.  It reads x (b, L, H, P) and B, C
 (b, L, N) through their strides (the model passes views of one conv
 output), takes any L (the ragged last chunk is masked in the kernel), any
 H and the chunk Q from the caller, and writes a new contiguous y in x's
-dtype.
+dtype.  With ``final_state=True`` it also returns ``ssd_chunked``'s second
+output, the state after the last row, (b, H, N, P) in float32: the Mamba2
+prefill keeps it as its cache.  y is bitwise the same either way.
 
 The route is the dtype, stated here and nowhere else:
 
@@ -18,9 +20,12 @@ The route is the dtype, stated here and nowhere else:
   :func:`torch.empty`: the in-chunk cumsums (b, n, H, Q) and the chunk
   states (b, n − 1, H, N, P) in float32, the carried-in states
   (b, n − 1, H, N rounded up to 16, 64) in bfloat16, n = ceil(L / Q).
+  The final state, when asked for, is the last chunk's state from the
+  first pass, carried in by the second.
 * float32 operands take the CUDA cores (route ``"cuda_cores_f32"``), one
   kernel that walks the chunks in order: no tensor-core format keeps
-  float32's 1e-5.
+  float32's 1e-5.  With the final state asked for it also updates the
+  state after the last chunk and writes it.
 
 The wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to
@@ -73,7 +78,7 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("ssd_scan")
         for entry in _ENTRIES.values():
             fn = getattr(lib, entry)
-            fn.argtypes = [_P] * 10 + [_I] * 16 + [_P]
+            fn.argtypes = [_P] * 11 + [_I] * 16 + [_P]
             fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -115,10 +120,14 @@ def smem_bytes(N: int, P: int, Q: int) -> dict[str, int]:
 
 def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
-             chunk: int) -> torch.Tensor:
+             chunk: int, final_state: bool = False,
+             state_out: torch.Tensor | None = None):
     """K6: x (b, L, H, P), B and C (b, L, N) float32 or bfloat16 (one
     dtype), dt (b, L, H), A and D (H,) float32 → y (b, L, H, P) in x's
-    dtype, chunks of ``min(chunk, L)`` rows (see the module docstring)."""
+    dtype, chunks of ``min(chunk, L)`` rows (see the module docstring);
+    ``(y, state)`` with the float32 (b, H, N, P) final state when
+    ``final_state``, written into ``state_out`` (contiguous, on x's card)
+    when one is given."""
     b, L, H, P, N, Q = ref.check_ssd_operands(x, B, C, dt, A, D, chunk)
     dev = x.device
     for name, t in (("x", x), ("B", B), ("C", C), ("dt", dt), ("A", A),
@@ -129,6 +138,16 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                              f"{t.device}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if state_out is not None:
+        final_state = True
+        if (tuple(state_out.shape) != (b, H, N, P)
+                or state_out.dtype != torch.float32
+                or not state_out.is_contiguous()
+                or state_out.device != dev):
+            raise ValueError(
+                f"state_out must be a contiguous float32 {(b, H, N, P)} "
+                f"tensor on {dev}; got {tuple(state_out.shape)} "
+                f"{state_out.dtype} on {state_out.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x, B, C must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("dt", dt), ("A", A), ("D", D)):
@@ -150,10 +169,12 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                              f"memory in {k}, above {SMEM_LIMIT}")
     A, D = A.contiguous(), D.contiguous()
     y = torch.empty((b, L, H, P), dtype=x.dtype, device=dev)
-    if y.numel() == 0:
-        return y
-    n = -(-L // Q)
     f32 = dict(dtype=torch.float32, device=dev)
+    fs = state_out if state_out is not None else \
+        torch.empty((b, H, N, P), **f32) if final_state else None
+    if y.numel() == 0:
+        return (y, fs.zero_()) if final_state else y
+    n = -(-L // Q)
     if way == "tensor_cores":
         cum = torch.empty((b, n, H, Q), **f32)
         s = torch.empty((b, n - 1, H, N, P), **f32)
@@ -168,7 +189,8 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     with torch.cuda.device(dev):     # launch on the operands' card
         args = (x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
                 A.data_ptr(), D.data_ptr(), y.data_ptr(), cum.data_ptr(),
-                s.data_ptr(), Sb.data_ptr(), b, L, H, P, N, Q,
+                s.data_ptr(), Sb.data_ptr(),
+                None if fs is None else fs.data_ptr(), b, L, H, P, N, Q,
                 *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
                 *dt.stride(), torch.cuda.current_stream(dev).cuda_stream)
         for p in passes:
@@ -181,4 +203,4 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                 route_launches[p] += 1
     route_launches[way] += 1
     launches["ssd_scan"] += 1
-    return y
+    return (y, fs) if final_state else y

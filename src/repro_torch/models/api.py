@@ -9,8 +9,8 @@ torch dtypes.  ``build_model(cfg, device)`` returns a module exposing
   forward(batch)                -> (logits, aux_loss)
 
 The dense decoder family without experts and the Mamba2 SSM family are
-ported (ROADMAP A13); the cache paths (prefill / decode) come with the
-LM-serving slice.
+ported, with their serving paths (``init_cache``, ``prefill``,
+``decode_step``); the other families come with ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def build_model(cfg: ModelConfig, device=None):
     raise NotImplementedError(
         f"family {cfg.family!r}"
         + (f" with {cfg.moe_experts} experts" if cfg.moe_experts else "")
-        + " is not ported yet (ROADMAP A13); the port runs the dense "
+        + " is not ported yet (ROADMAP A13b); the port runs the dense "
           "decoder without experts and the Mamba2 SSM")
 
 

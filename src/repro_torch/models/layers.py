@@ -7,22 +7,28 @@ packages (``repro_torch.convert.decoder_lm_from_arrays``).  Numerics follow
 the reference op for op: norms, rotary and softmax in float32; matmuls read
 the weights cast to the activation dtype and return the activation dtype.
 
-RMSNorm with a weight runs K7 (:func:`rms_norm`).  Attention here is the
-self-attention path without a cache (the reference's
-training / scoring path).  Two routes, chosen by ``impl``:
+RMSNorm with a weight runs K7 (:func:`rms_norm`), qwen3's q/k-norm
+included.  Attention is causal self-attention, with or without a
+:class:`KVCache`.  Without a cache (the training / scoring path) two
+routes, chosen by ``impl``:
 
   * ``"pallas"`` — K5 through :mod:`repro_torch.kernels.dispatch`: the CUDA
     flash-attention kernel on the card, its plain version on the CPU;
   * ``"reference"`` — :func:`_sdpa_chunked`, query chunks with float32
     softmax rows.
 
-The KV-cache and cross-attention paths come with the LM-serving slice
-(ROADMAP A13).  The reference's mesh constraints (``shard``,
-``shard_div``, ``constrain_tree``) are identities on one device and have
-no counterpart.
+With a cache (prefill and decode) attention takes :func:`_sdpa_chunked`
+whatever ``impl`` says, as the reference does, except a one-token decode
+with grouped kv heads, which takes the reference's grouped einsum and
+never repeats the cache.  Cross-attention (``kv_source``, the VLM and the
+audio decoder) comes with ROADMAP A13b.  The reference's mesh constraints
+(``shard``, ``shard_div``, ``constrain_tree``) are identities on one
+device and have no counterpart.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +37,7 @@ from repro_torch.kernels import dispatch, ref
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "dense", "embed_lookup",
-    "rotary_embedding", "apply_rotary", "attention", "mlp",
+    "rotary_embedding", "apply_rotary", "KVCache", "attention", "mlp",
     "token_cross_entropy", "cross_entropy_loss",
 ]
 
@@ -143,39 +149,101 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+@dataclasses.dataclass
+class KVCache:
+    """k/v: (B, S_max, K·D) per layer (the model stacks a layer axis in
+    front), the head axis flat as in the reference.  Unlike the
+    reference's immutable arrays, attention writes new keys and values
+    into these tensors in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _grouped_decode(q, k, v, n_kv_heads: int, q_offset: int,
+                    causal: bool) -> torch.Tensor:
+    """One-token attention with G = H / K query heads per kv head: q
+    (B, 1, H, D) against k, v (B, S, K, D) without repeating them — the
+    reference's grouped-GQA einsum (float32 scores, −1e30 mask, weights
+    cast to v's dtype)."""
+    B, Sq, H, D = q.shape
+    G = H // n_kv_heads
+    ct = torch.promote_types(q.dtype, torch.float32)
+    q5 = q.reshape(B, Sq, n_kv_heads, G, D)
+    s = torch.einsum("bqkgd,bskd->bqkgs", q5.to(ct), k.to(ct)) * D ** -0.5
+    if causal:
+        kv_pos = torch.arange(k.shape[1], device=q.device)
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        mask = kv_pos[None, :] <= q_pos[:, None]              # (Sq, S)
+        s = s.masked_fill(~mask[None, :, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
 def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int, rope_theta: float | None = 1e4,
-              causal: bool = True, impl: str = "reference", chunk: int = 256,
+              causal: bool = True, cache: KVCache | None = None,
+              cache_pos: int | None = None,
+              kv_source: torch.Tensor | None = None,
+              impl: str = "reference", chunk: int = 256,
               qk_norm: bool = False) -> torch.Tensor:
-    """Self-attention over the full sequence, no cache: x (B, S, d) →
-    (B, S, d).  ``params`` maps wq, wk, wv, wo (flat layout) and, with
-    ``qk_norm``, q_norm / k_norm.  Causal attention with ``impl="pallas"``
-    runs K5; everything else runs :func:`_sdpa_chunked` (as the
-    reference)."""
+    """Causal self-attention, x (B, Sq, d) → out (B, Sq, d); a cache is
+    written in place.
+
+    ``params`` maps wq, wk, wv, wo (flat layout) and, with ``qk_norm``,
+    q_norm / k_norm (K7 on rows of ``head_dim``).  Modes, as the
+    reference's:
+
+      * train / score: ``cache=None`` — causal attention over x; with
+        ``impl="pallas"`` K5, else :func:`_sdpa_chunked`;
+      * prefill: a zeroed cache and ``cache_pos=0`` — rotary at positions
+        ``cache_pos + i``, the new keys and values written into the cache
+        at ``cache_pos`` (the reference's ``dynamic_update_slice``), then
+        attention over the whole cache with unwritten slots masked;
+      * decode: x (B, 1, d) and ``cache_pos`` the current length.
+
+    Cross-attention (``kv_source``, or a cache without ``cache_pos``)
+    raises: it comes with ROADMAP A13b."""
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention impl {impl!r} not one of "
                          f"{ATTENTION_IMPLS}")
-    B, S, _ = x.shape
+    if kv_source is not None or (cache is not None and cache_pos is None):
+        raise NotImplementedError(
+            "cross-attention (kv_source, or a cache read without "
+            "cache_pos) is not ported yet (ROADMAP A13b)")
+    B, Sq, _ = x.shape
     G = n_heads // n_kv_heads
-    q = dense(params["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = dense(params["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = dense(params["wv"], x).reshape(B, S, n_kv_heads, head_dim)
+    q = dense(params["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    k = dense(params["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
+    v = dense(params["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
+    base = int(cache_pos) if cache is not None else 0
     if rope_theta is not None:
-        cos, sin = rotary_embedding(torch.arange(S, device=x.device),
-                                    head_dim, rope_theta)
+        cos, sin = rotary_embedding(
+            base + torch.arange(Sq, device=x.device), head_dim, rope_theta)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    if G > 1:   # GQA: repeat kv heads to H, as the reference does
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    if impl == "pallas" and causal:
-        out = dispatch.flash_attention(q, k, v, causal=True)
+    if cache is not None:
+        cache.k[:, base:base + Sq] = k.reshape(B, Sq, -1).to(cache.k.dtype)
+        cache.v[:, base:base + Sq] = v.reshape(B, Sq, -1).to(cache.v.dtype)
+        S_c = cache.k.shape[1]
+        k = cache.k.reshape(B, S_c, n_kv_heads, head_dim)
+        v = cache.v.reshape(B, S_c, n_kv_heads, head_dim)
+    if G > 1 and Sq == 1:
+        out = _grouped_decode(q, k, v, n_kv_heads, base, causal)
     else:
-        out = _sdpa_chunked(q, k, v, causal=causal, chunk=chunk)
-    return dense(params["wo"], out.reshape(B, S, n_heads * head_dim))
+        if G > 1:   # GQA: repeat kv heads to H, as the reference does
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        if impl == "pallas" and causal and cache is None:
+            out = dispatch.flash_attention(q, k, v, causal=True)
+        else:
+            out = _sdpa_chunked(q, k, v, causal=causal, q_offset=base,
+                                chunk=chunk)
+    return dense(params["wo"], out.reshape(B, Sq, n_heads * head_dim))
 
 
 # ---------------------------------------------------------------- MLPs -----

@@ -1,6 +1,6 @@
 """Mamba2 (SSD, arXiv:2405.21060) — the counterpart of
-``repro.models.mamba2.Mamba2LM`` for ``family="ssm"``, the forward without
-a cache (the reference's training / scoring path).
+``repro.models.mamba2.Mamba2LM`` for ``family="ssm"``: the forward over a
+full sequence, and the serving path with an :class:`SSMCache`.
 
 The parameters mirror the reference's tree: ``embed`` (V_pad, d), one
 block per layer (``norm``, the projections ``wz``/``wx`` (d, d_inner),
@@ -29,11 +29,20 @@ promotions:
 * the head multiplies the final-normed activations with the float32 head
   in float32 and keeps every padded vocabulary column.
 
-Prefill and decode (``SSMCache``, ``ssd_decode_step``, the conv ring
-buffer) come with the LM-serving slice (ROADMAP A13).
+Serving follows the reference too.  The cache holds per layer the SSM
+state (B, H, N, P) in float32 and the last k−1 conv inputs (B, k−1, Dc) in
+the activation dtype.  Prefill runs the chunked scan through K6, which
+writes the state after the last token straight into the cache; like the
+reference's ``ssd_chunked``, it starts from a zero state whatever the
+cache holds (only the conv history is read).  Decode is the O(1)
+recurrence :func:`ssd_decode_step`, plain tensor code as in the reference
+(no kernel there).  Prefill and decode update each layer's state and conv
+history in the cache in place and return the cache.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +53,30 @@ from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed_lookup,
                                        rms_norm)
 
-__all__ = ["Mamba2LM", "mamba_block", "causal_conv"]
+__all__ = ["Mamba2LM", "SSMCache", "mamba_block", "causal_conv",
+           "ssd_decode_step"]
+
+
+@dataclasses.dataclass
+class SSMCache:
+    """state: (B, H, N, P) float32; conv: (B, k−1, Dc) recent conv inputs
+    (the model stacks a layer axis in front of both)."""
+
+    state: torch.Tensor
+    conv: torch.Tensor
+
+
+def ssd_decode_step(x, B, C, dt, A, D, state):
+    """One-token recurrence: x (b, 1, H, P); B, C (b, 1, N); dt (b, 1, H);
+    A, D (H,); state (b, H, N, P) float32, updated in place → y (b, 1, H,
+    P) in x's dtype: S ← exp(A·dt)·S + dt·B⊗x, y = C·S + D·x (the
+    reference's ops in its order)."""
+    dtA = torch.exp(dt[:, 0] * A[None, :])                 # (b, H)
+    S = state.mul_(dtA[..., None, None]).add_(torch.einsum(
+        "bN,bh,bhp->bhNp", B[:, 0].float(), dt[:, 0], x[:, 0].float()))
+    y = torch.einsum("bN,bhNp->bhp", C[:, 0].float(), S) \
+        + D[None, :, None] * x[:, 0].float()
+    return y[:, None].to(x.dtype)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -74,25 +106,36 @@ class _Block(nn.Module):
         self.out_proj = _param((di, d), pd, device)
 
 
-def causal_conv(u: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv without a cache: u (B, L, Dc), w (k, Dc),
-    b (Dc,) → (B, L, Dc) in the promoted dtype (float32 for bf16 inputs
-    and float32 weights), summed tap by tap from tap 0 as the reference."""
+def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                conv_cache: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv: u (B, L, Dc), w (k, Dc), b (Dc,) → y (B, L,
+    Dc) in the promoted dtype (float32 for bf16 inputs and float32
+    weights), summed tap by tap from tap 0 as the reference.  The history
+    before u is ``conv_cache`` (B, k−1, Dc) or zeros; a ``conv_cache`` is
+    then overwritten in place with the last k−1 rows of history + u."""
     k, L = w.shape[0], u.shape[1]
-    hist = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
-                       device=u.device)
+    if conv_cache is None:
+        hist = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
+                           device=u.device)
+    else:
+        hist = conv_cache.to(u.dtype)
     full = torch.cat([hist, u], dim=1)                  # (B, L+k−1, Dc)
     y = full[:, 0:L] * w[0]
     for i in range(1, k):
         y = y + full[:, i:i + L] * w[i]
+    if conv_cache is not None and k > 1:
+        conv_cache.copy_(full[:, -(k - 1):])
     return y + b
 
 
-def mamba_block(blk: _Block, x: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Pre-norm residual Mamba2 block without a cache: x (b, L, d) →
-    (b, L, d) in x's dtype."""
+def mamba_block(blk: _Block, x: torch.Tensor, cfg: ModelConfig,
+                cache: SSMCache | None = None,
+                decode: bool = False) -> torch.Tensor:
+    """Pre-norm residual Mamba2 block: x (b, L, d) → x + out in x's dtype.
+    With a cache (one layer's), it is updated in place: the conv continues
+    its history, and the scan (K6) writes its final state into
+    ``cache.state`` (prefill) or ``decode`` runs the one-token recurrence
+    on it."""
     b, L, _ = x.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     h = apply_norm(cfg.norm_type, x, blk.norm)
@@ -103,14 +146,20 @@ def mamba_block(blk: _Block, x: torch.Tensor,
     pt = torch.promote_types(h.dtype, blk.wdt.dtype)     # JAX's promotion
     dt_raw = torch.matmul(h.to(pt), blk.wdt.to(pt)).float()
     conv = causal_conv(torch.cat([xin, Bin, Cin], dim=-1), blk.conv_w,
-                       blk.conv_b)
+                       blk.conv_b, None if cache is None else cache.conv)
     conv = F.silu(conv.float()).to(x.dtype)
     xs = conv[..., :di].reshape(b, L, H, Pd)             # views of conv
     Bs = conv[..., di:di + N]
     Cs = conv[..., di + N:]
     dt = F.softplus(dt_raw + blk.dt_bias)
     A = -torch.exp(blk.A_log)
-    y = dispatch.ssd_scan(xs, Bs, Cs, dt, A, blk.D, cfg.ssm_chunk)
+    if decode:
+        y = ssd_decode_step(xs, Bs, Cs, dt, A, blk.D, cache.state)
+    elif cache is not None:
+        y, _ = dispatch.ssd_scan(xs, Bs, Cs, dt, A, blk.D, cfg.ssm_chunk,
+                                 state_out=cache.state)
+    else:
+        y = dispatch.ssd_scan(xs, Bs, Cs, dt, A, blk.D, cfg.ssm_chunk)
     y = y.reshape(b, L, di) * F.silu(z.float()).to(x.dtype)
     y = rms_norm(y, blk.gate_norm)
     return x + dense(blk.out_proj, y)
@@ -126,7 +175,7 @@ class Mamba2LM(nn.Module):
         if cfg.family != "ssm" or cfg.moe_experts:
             raise NotImplementedError(
                 f"Mamba2LM runs the ssm family; got family {cfg.family!r}, "
-                f"{cfg.moe_experts} experts (ROADMAP A13)")
+                f"{cfg.moe_experts} experts (ROADMAP A13b)")
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         dev, d, vp = self.device, cfg.d_model, cfg.vocab_padded
@@ -178,8 +227,46 @@ class Mamba2LM(nn.Module):
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
         aux loss 0.0) over the full sequence."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = embed_lookup(self.embed, tokens, self.cfg.adtype)
+        x = self._embed(batch["tokens"])
         for blk in self.blocks:
             x = mamba_block(blk, x, self.cfg)
         return self.logits(x), torch.zeros((), device=self.device)
+
+    def _embed(self, tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return embed_lookup(self.embed, tokens, self.cfg.adtype)
+
+    # ------------------------------------------------------------- cache --
+    def init_cache(self, batch_size: int, max_seq: int) -> SSMCache:
+        """A zeroed cache: state (L, B, H, N, P) float32 and conv
+        (L, B, k−1, d_inner + 2N) in the activation dtype.  ``max_seq`` is
+        unused: the state's size does not grow with the context."""
+        cfg = self.cfg
+        L, dev = cfg.n_layers, self.device
+        return SSMCache(
+            torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_state,
+                         cfg.ssm_head_dim), dtype=torch.float32, device=dev),
+            torch.zeros((L, batch_size, cfg.ssm_conv - 1,
+                         cfg.d_inner + 2 * cfg.ssm_state), dtype=cfg.adtype,
+                        device=dev))
+
+    def _run_cached(self, x: torch.Tensor, cache: SSMCache,
+                    decode: bool) -> torch.Tensor:
+        for li, blk in enumerate(self.blocks):
+            x = mamba_block(blk, x, self.cfg,
+                            SSMCache(cache.state[li], cache.conv[li]),
+                            decode=decode)
+        return x
+
+    def prefill(self, batch, cache: SSMCache):
+        """Full-prompt pass writing the cache; returns (the last position's
+        logits (B, 1, V_pad) float32, cache)."""
+        x = self._run_cached(self._embed(batch["tokens"]), cache, False)
+        # contiguous: K7 takes whole rows in order
+        return self.logits(x[:, -1:, :].contiguous()), cache
+
+    def decode_step(self, cache: SSMCache, pos: int, tokens):
+        """tokens (B, 1) → (logits (B, 1, V_pad) float32, cache); ``pos``
+        is unused (the recurrence carries no position)."""
+        x = self._run_cached(self._embed(tokens), cache, True)
+        return self.logits(x), cache

@@ -1,6 +1,7 @@
-"""Dense decoder-only LM (OLMo-style) — the counterpart of
-``repro.models.transformer.DecoderLM`` for ``family="dense"`` without
-experts.
+"""Dense decoder-only LM (olmo, granite, deepseek, qwen3) — the counterpart
+of ``repro.models.transformer.DecoderLM`` for ``family="dense"`` without
+experts: the forward over a full sequence, and the serving path
+(``init_cache``, ``prefill``, ``decode_step``) with a KV cache.
 
 The parameters mirror the reference's tree: ``embed`` (V_pad, d), one
 block per layer (``ln1`` / ``ln2`` norm weights, ``attn`` wq/wk/wv/wo flat,
@@ -15,6 +16,11 @@ Two numerics of the reference are kept on purpose:
   in float32 — JAX promotes the mixed einsum — so the head is never cast
   to the activation dtype;
 * the logits keep every padded vocabulary column.
+
+The cache is the reference's: a :class:`~repro_torch.models.layers.KVCache`
+of (L, B, S_max, K·hd) tensors in the activation dtype.  Prefill and
+decode write each layer's new keys and values into it in place and
+return it.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from torch import nn
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.layers import apply_norm, attention, embed_lookup, mlp
+from repro_torch.models.layers import (KVCache, apply_norm, attention,
+                                       embed_lookup, mlp)
 
 __all__ = ["DecoderLM"]
 
@@ -65,7 +72,7 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 f"DecoderLM runs the dense family without experts; got "
                 f"family {cfg.family!r}, {cfg.moe_experts} experts "
-                f"(ROADMAP A13)")
+                f"(ROADMAP A13b)")
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         dev, d, vp = self.device, cfg.d_model, cfg.vocab_padded
@@ -105,12 +112,15 @@ class DecoderLM(nn.Module):
         return self
 
     # ----------------------------------------------------------- forward --
-    def _block(self, blk: _Block, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, blk: _Block, x: torch.Tensor,
+               cache: KVCache | None = None,
+               cache_pos: int | None = None) -> torch.Tensor:
         cfg = self.cfg
         h = apply_norm(cfg.norm_type, x, blk.ln1)
         x = x + attention(blk.attn, h, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                           rope_theta=cfg.rope_theta, causal=True,
+                          cache=cache, cache_pos=cache_pos,
                           impl=cfg.attention_impl, chunk=cfg.attn_chunk,
                           qk_norm=cfg.qk_norm)
         h = apply_norm(cfg.norm_type, x, blk.ln2)
@@ -125,8 +135,39 @@ class DecoderLM(nn.Module):
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
         aux loss 0.0) over the full sequence."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = embed_lookup(self.embed, tokens, self.cfg.adtype)
+        x = self._embed(batch["tokens"])
         for blk in self.blocks:
             x = self._block(blk, x)
         return self.logits(x), torch.zeros((), device=self.device)
+
+    def _embed(self, tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return embed_lookup(self.embed, tokens, self.cfg.adtype)
+
+    # ------------------------------------------------------------- cache --
+    def init_cache(self, batch_size: int, max_seq: int) -> KVCache:
+        """A zeroed cache: k and v (L, B, max_seq, K·hd) in the activation
+        dtype on the model's device."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads * cfg.hd)
+        return KVCache(*(torch.zeros(shape, dtype=cfg.adtype,
+                                     device=self.device) for _ in range(2)))
+
+    def _run_cached(self, x: torch.Tensor, cache: KVCache,
+                    pos: int) -> torch.Tensor:
+        for li, blk in enumerate(self.blocks):
+            x = self._block(blk, x, KVCache(cache.k[li], cache.v[li]), pos)
+        return x
+
+    def prefill(self, batch, cache: KVCache):
+        """Full-prompt pass writing the cache from position 0; returns (the
+        last position's logits (B, 1, V_pad) float32, cache)."""
+        x = self._run_cached(self._embed(batch["tokens"]), cache, 0)
+        # contiguous: K7 takes whole rows in order
+        return self.logits(x[:, -1:, :].contiguous()), cache
+
+    def decode_step(self, cache: KVCache, pos: int, tokens):
+        """tokens (B, 1) at position ``pos`` → (logits (B, 1, V_pad)
+        float32, cache)."""
+        x = self._run_cached(self._embed(tokens), cache, int(pos))
+        return self.logits(x), cache

@@ -1,5 +1,6 @@
 """repro_torch.obs — the port's copy of ``repro.obs``: spans and metrics
-across sim → serve (the jax compile hooks have no counterpart here).
+across sim → serve, and the benchmark timing harness (:mod:`.bench`; the
+jax compile hooks have no counterpart: it counts kernel builds instead).
 
 Zero-dependency and opt-in-cheap: the default registry is DISABLED until
 :func:`enable` — every instrumentation site guards on one attribute read,
@@ -16,6 +17,7 @@ and enabling never changes numerics (gated in ``benchmarks/bench_obs.py``).
 See ``src/repro/obs/README.md`` for the telemetry flow diagram.
 """
 
+from repro_torch.obs.bench import Timing, measure, time_once
 from repro_torch.obs.registry import (Counter, Gauge, Histogram, MetricsRegistry,
                                 disable, enable, enabled, registry,
                                 set_registry)
@@ -28,5 +30,5 @@ __all__ = [
     "registry", "set_registry", "enable", "disable", "enabled",
     "Span", "span", "current_span", "counter_sample",
     "trace_events", "clear_trace", "export_trace", "load_trace",
-    "validate_events",
+    "validate_events", "Timing", "measure", "time_once",
 ]

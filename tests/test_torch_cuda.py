@@ -261,6 +261,32 @@ def test_rmsnorm_kernel_at_serving_shapes_on_the_card(card, dtype, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows, D", [
+    (262144, 128), (32768, 128), (512, 128), (64, 128),   # qwen3 qk-norms
+    (4096, 5120), (8, 5120),                    # qwen3 block / final norms
+    (4096, 4096), (8, 4096),            # granite; Mamba2-1.3B's gate norm
+    (4096, 2048), (8, 2048)])                     # Mamba2-1.3B's norms
+def test_rmsnorm_kernel_at_lm_serve_shapes_on_the_card(card, dtype, rows, D):
+    """K7 at the rows the LM token server hands it (8 prompts of 512 in
+    prefill, 8 rows a decode step; qwen3's q/k-norms over 64 / 8 heads of
+    128, where every warp of the rows kernel walks many rows), with the
+    bars of the other kernels; bitwise on a repeat."""
+    rng = np.random.default_rng(rows + D)
+    x = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32)
+                         ).to(card).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(card)
+    got = rk.rmsnorm(x, w)
+    if dtype == "float32":
+        want, bar = ref.rmsnorm_plain(x.double(), w.double()), 1e-5
+    else:
+        want, bar = ref.rmsnorm_plain(x, w), 1e-2
+    err = (got.double() - want.double()).abs().max()
+    assert float(err / want.double().abs().max()) <= bar
+    assert torch.equal(got, rk.rmsnorm(x, w))
+
+
+@pytest.mark.cuda
 def test_mamba2_smoke_model_runs_k6_and_k7_on_the_card(card):
     """The Mamba2 smoke model on the card: K6 once per layer, K7 2·layers+1
     times per forward, and logits within 1e-5 relative of the same forward
@@ -634,3 +660,99 @@ def test_fit_prior_on_the_card_is_its_cpu_fit(card, ridge):
     got, want = fit_prior(**kw, device=card), fit_prior(**kw, device="cpu")
     assert np.array_equal(got.w_device, want.w_device)
     assert got.device_residual_var == want.device_residual_var
+
+
+# -- the tenth slice: K5's repaired limits, K6's final state, serving -------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_takes_b_times_h_past_the_old_grid_limit(card, dtype):
+    """B·H = 65 536 (the grid's y dimension held B·H and refused more than
+    65 535; it is now on x) with a short S, causal, against its plain
+    version (float32: the float64 plain version at ≤1e-5; bf16 ≤1e-2)."""
+    rng = np.random.default_rng(41)
+    t = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4096, 24, 16, 64))
+                                .astype(np.float32)).to(card).to(t)
+               for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    if dtype == "float32":
+        want = ref.flash_attention_plain(q.double(), k.double(), v.double())
+        bar = 1e-5
+    else:
+        want, bar = ref.flash_attention_plain(q, k, v), 1e-2
+    err = (got.double() - want.double()).abs().max()
+    assert float(err / want.double().abs().max()) <= bar
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_final_state_matches_plain_on_the_card(card, dtype):
+    """K6's final state (b, H, N, P) float32 against the plain version's
+    (float32 inputs: the float64 plain version at ≤1e-5; bf16: the plain
+    version in float32 math at ≤1e-2), one chunk, ragged and many chunks,
+    slow decay included; y bitwise the y of the call without the state,
+    both bitwise on a repeat and when the state is written into a given
+    buffer (``state_out``, as the model's prefill writes its cache)."""
+    rng = np.random.default_rng(42)
+    cases = [(c, False) for c in SSD_CASES] + [(c, True) for c in
+                                               SSD_SLOW_CASES[:2]]
+    for (b, L, H, P, N, Q), slow in cases:
+        args = _ssd_operands(card, rng, b, L, H, P, N, dtype, slow=slow)
+        y, st = sk.ssd_scan(*args, chunk=Q, final_state=True)
+        if dtype == "float32":
+            _, want = ref.ssd_scan_plain(*(a.double() for a in args),
+                                         chunk=Q, final_state=True)
+            bar = 1e-5
+        else:
+            _, want = ref.ssd_scan_plain(*args, chunk=Q, final_state=True)
+            bar = 1e-2
+        assert st.shape == (b, H, N, P) and st.dtype == torch.float32
+        err = (st.double() - want.double()).abs().max()
+        assert float(err / want.double().abs().max()) <= bar, (b, L, H, Q)
+        assert torch.equal(y, sk.ssd_scan(*args, chunk=Q))
+        y2, st2 = sk.ssd_scan(*args, chunk=Q, final_state=True)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        buf = torch.full((b, H, N, P), float("nan"), device=card)
+        y3, st3 = sk.ssd_scan(*args, chunk=Q, state_out=buf)
+        assert st3 is buf and torch.equal(st3, st) and torch.equal(y3, y)
+
+
+@pytest.mark.cuda
+def test_ssd_state_out_refuses_a_mismatched_buffer(card):
+    """K6 writes its final state only into a contiguous float32
+    (b, H, N, P) tensor on x's card."""
+    rng = np.random.default_rng(44)
+    args = _ssd_operands(card, rng, 2, 40, 3, 8, 16, "float32")
+    good = torch.empty((2, 3, 16, 8), device=card)
+    for bad in (good[..., :4], good.transpose(2, 3),
+                good.double(), torch.empty((2, 3, 16, 8))):
+        with pytest.raises(ValueError, match="state_out"):
+            sk.ssd_scan(*args, chunk=16, state_out=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmo_1b", "granite_8b",
+                                  "deepseek_coder_33b", "qwen3_32b",
+                                  "mamba2_1_3b"])
+def test_serve_wave_on_the_card_matches_the_cpu_route(card, arch):
+    """The smoke models serve the same greedy tokens on the card (K6 in
+    Mamba2's prefill, K7 in every RMSNorm, float32) as on the CPU route,
+    with the launches the model implies."""
+    from repro_torch.launch.serve import serve_wave
+    cfg = get_smoke_config(arch)
+    host = build_model(cfg, device="cpu")
+    host.init_params(torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=card)
+    model.load_state_dict(host.state_dict())
+    prompts = np.random.default_rng(43).integers(0, cfg.vocab, (4, 20),
+                                                 dtype=np.int32)
+    want, _ = serve_wave(host, cfg, prompts, 6)
+    before = (sk.launches["ssd_scan"], rk.launches["rmsnorm"])
+    got, _ = serve_wave(model, cfg, prompts, 6)
+    np.testing.assert_array_equal(got, want)
+    per = chip_smoke.expected_launches(cfg)
+    assert (sk.launches["ssd_scan"] - before[0],
+            rk.launches["rmsnorm"] - before[1]) == \
+        (per.get("ssd_scan", 0), per["rmsnorm"] * 6)

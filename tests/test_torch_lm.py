@@ -114,8 +114,8 @@ def test_full_config_and_accounting_match_jax():
 
 
 def test_registry_and_builder_refuse_what_is_not_ported(monkeypatch):
-    with pytest.raises(KeyError, match="A13"):
-        get_config("qwen3-32b")
+    with pytest.raises(KeyError, match="A13b"):
+        get_config("zamba2-1.2b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("gpt-5")
     smoke = get_smoke_config("olmo_1b")

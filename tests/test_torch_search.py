@@ -426,9 +426,15 @@ def test_old_entry_points_are_shims():
 
 
 def test_projected_gradient_raises_naming_a9():
+    """It raised naming A9 until the smoothed model was ported; now it runs
+    on the CPU route and lands on the simplex (its parity with the JAX
+    package is in tests/test_torch_smooth.py)."""
     from repro_torch.core.optimizers import projected_gradient
-    with pytest.raises(NotImplementedError, match="A9"):
-        projected_gradient(_paper(T), steps=10)
+    prob = _paper(T)
+    res = projected_gradient(prob, steps=10, device=CPU)
+    np.testing.assert_allclose(res.x.sum(axis=1), 1.0, atol=1e-9)
+    assert (res.x >= 0).all() and res.dispatches == 10 * 3
+    assert prob.feasible(res.x, res.dq_fraction)
 
 
 # -- robust search against the JAX package ------------------------------------
