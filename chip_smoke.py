@@ -123,6 +123,16 @@ bitwise equal.
    scores, one shard's scores against the same forward with K6/K7 swapped
    for their plain versions (inside the check only) within 1e-2, and the
    row counts; it prints what phase 6 prints.
+8b. lm_score_zamba2: the job with Zamba2-1.2B at its published widths
+   (arXiv:2411.15242: 38 Mamba2 layers, d 2048, d_inner 4096, 64 SSM
+   heads of 64, state 64, chunk 256; one shared attention block of 32
+   heads of 64 and a d_ff 8192 SwiGLU at ⌈38/6⌉ = 7 sites; vocab 32 000),
+   K5's route: K5 7, K6 38 and K7 91 (2 a layer, 2 a site, the final norm)
+   launches in every shard call, one shard within 1e-2 of the plain route
+   (reference attention, K6/K7's plain versions), and K5, K6 and K7 held
+   against their plain versions on the operands one shard hands them
+   (phase 5's bars, bitwise on repeat), with their times beside the plain
+   versions', the bounds and (K5) ``scaled_dot_product_attention``'s.
 
 9. search_dense: ``BatchedProblem`` on a ``random_fleet`` of 8 regions ×
    512 devices (V 4096, an ``ExplicitFleet``), the DAG of phase 3, β 1 and
@@ -213,10 +223,27 @@ bitwise equal.
    weights: K7 launched once per RMSNorm of the prefill and of every
    decode step, K6 once per Mamba2 layer in the prefill, no K5 (a cache
    routes attention to ``_sdpa_chunked``); prefill and 8 teacher-forced
-   decode steps against the plain K6/K7 route within 1e-2, or the plain
-   route's own bf16 error against float32 activations where larger; it
+   decode steps against the plain K6/K7 route, over the first 2 layers and
+   at full depth, within 1e-2, or the plain route's own bf16 error against
+   float32 activations at that depth where larger; it
    prints prefill s, decode ms/step and tokens/s, peak memory and the
-   profile of one decode step.
+   profile of one decode step.  Zamba2-1.2B is served too (K7 91 a
+   prefill and a decode step, K6 38 a prefill, no K5).
+17. perf_record: ``repro_torch.obs.perfbridge.perf_record`` of one
+   lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B and
+   Zamba2-1.2B, and (after phase 3) of one serve_dense dispatch: counted
+   FLOPs and bytes (aten ops through ``repro_torch.perf.counts``, the
+   kernels' launches reporting their terms), analytic FLOPs, the useful
+   fraction, ``mfu_bound``, the measured model-FLOPs share of the bf16
+   tensor-core peak and the roofline fraction; the card's count against
+   the plain route's count of the same work on fake CPU tensors (equal
+   outside the kernels; K5 the causal half; K6 less the upper triangle;
+   K1 equal).  It also holds the disarmed counting hooks to ≤5 % over no
+   hooks on a host-bound loop of K7 dispatches at a decode step's shape
+   (``benchmarks/bench_obs.py``'s bar).
+18. compile_span: a span around K7's first use in a fresh build
+   directory records its ``nvcc`` build and load (``compile_s`` > 0,
+   ``obs.bench.measure``'s ``n_recompiles`` 2), a later call none.
 
 Phase 5 also holds K5 at head dim 8 and at B·H 65 536 (ROADMAP C4), and
 phase 7 K6's final state at the case shapes and the serving shapes
@@ -231,6 +258,7 @@ card, one JSON object listing every ported kernel and, last,
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import statistics
@@ -358,13 +386,26 @@ PG_PAPER_F = 1e-5
 # layers (131 GB of float32 parameters at full depth, 21.8 GB at 8)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_FORCED = 8, 512, 64, 8
 SERVE_ARCHS = (("olmo_1b", None), ("granite_8b", None), ("qwen3_32b", 8),
-               ("mamba2_1_3b", None))
-# lm_serve's logits are held to LM_REF_REL against the plain K6/K7 route
-# on the model cut to its first layers, where bf16 drift stays inside it
-# (an H100 read granite / qwen3 / mamba2 at 4.9e-3 / 4.8e-3 / 4.3e-3 over
-# one layer, 8.0e-3 / 8.0e-3 / 6.4e-3 over two, 9.3e-3 / 1.11e-2 / 1.25e-2
-# over four)
+               ("mamba2_1_3b", None), ("zamba2_1_2b", None))
+# lm_serve's logits are held against the plain K6/K7 route on the model
+# cut to its first layers, where bf16 drift is smaller than at full depth,
+# to LM_REF_REL or, where larger, the plain route's own bf16 error at that
+# depth (an H100 read granite / qwen3 / mamba2 at 4.9e-3 / 4.8e-3 / 4.3e-3
+# over one layer, 8.0e-3 / 8.0e-3 / 6.4e-3 over two, 9.3e-3 / 1.11e-2 /
+# 1.25e-2 over four; zamba2 at 1.170e-2 over two layers, which are three
+# blocks: the first site's shared block runs before them)
 SERVE_STRICT_LAYERS = 2
+# the eleventh slice: the perf records' timed samples and the reference's
+# disabled-telemetry bar (benchmarks/bench_obs.py); zamba2 served and
+# scored at its published widths (arXiv:2411.15242)
+PERF_SAMPLES = 11
+MAX_DISABLED_OVERHEAD = 0.05
+# the gate's hot loop: K7 dispatches at a decode step's shape (8 rows of
+# d 2048, bf16), where the host's cost per call is the step's (lm_serve's
+# decode profile reads the card idle 78-89 % of a step)
+HOOK_CALLS, HOOK_SAMPLES = 500, 20
+HYBRID_ARCH = "zamba2_1_2b"
+PERF_ARCHS = ("olmo_1b", "mamba2_1_3b", "zamba2_1_2b")
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -1316,12 +1357,19 @@ def example_fleet(np, ExplicitFleet):
 
 def expected_launches(cfg) -> dict[str, int]:
     """Launches of each LM kernel in one forward of ``cfg`` (one lm_score
-    shard call): K5 once per layer on the "pallas" attention route; K6 once
-    per Mamba2 layer; K7 for every RMSNorm with a weight (block and final
-    norms, qk-norms, Mamba2's gate norms)."""
+    shard call): K5 once per attention layer (the hybrid: per shared-block
+    site) on the "pallas" attention route; K6 once per Mamba2 layer; K7 for
+    every RMSNorm with a weight (block and final norms, qk-norms, Mamba2's
+    gate norms, the shared block's two norms per site)."""
     L, rms = cfg.n_layers, cfg.norm_type == "rmsnorm"
     if cfg.family == "ssm":
         return {"ssd_scan": L, "rmsnorm": (2 * L + 1) if rms else L}
+    if cfg.family == "hybrid":
+        sites = -(-L // cfg.shared_attn_every)
+        return {"flash_attention":
+                sites if cfg.attention_impl == "pallas" else 0,
+                "ssd_scan": L,
+                "rmsnorm": (2 * L + 2 * sites + 1) if rms else L}
     return {"flash_attention": L if cfg.attention_impl == "pallas" else 0,
             "rmsnorm": ((2 * L + 1) if rms else 0)
             + (2 * L if cfg.qk_norm else 0)}
@@ -1365,34 +1413,6 @@ def plain_ssm_kernels():
     return swapped_ssm_kernels()
 
 
-@contextlib.contextmanager
-def recorded_ssm_inputs(seen: dict, stage: dict):
-    """Inside the block K6 and K7 still launch, and ``seen`` keeps the
-    first operands each is handed for every shape and dtype, keyed
-    ``(kernel, rows or x's shape, D, dtype)``, with ``stage["now"]`` (the
-    part of the run they came from).  K7's x is copied; K6's operands
-    (views of one conv output) are kept as they are: nothing writes them
-    after the call."""
-    from repro_torch.kernels import rmsnorm as rk
-    from repro_torch.kernels import ssd_scan as sk
-    kernel_ssd, kernel_rms = sk.ssd_scan, rk.rmsnorm
-
-    def ssd(*args, **kw):
-        x = args[0]
-        seen.setdefault(("ssd_scan", tuple(x.shape), x.shape[-1], x.dtype),
-                        (stage["now"], args[:7]))
-        return kernel_ssd(*args, **kw)
-
-    def rms(x, w, eps=1e-6):
-        D = x.shape[-1]
-        seen.setdefault(("rmsnorm", x.numel() // D, D, x.dtype),
-                        (stage["now"], (x.clone(), w.clone(), eps)))
-        return kernel_rms(x, w, eps)
-
-    with swapped_ssm_kernels(ssd, rms):
-        yield
-
-
 def wrong_ssm_kernels(torch, cfg) -> dict:
     """The planted faults that lm_serve's logits check must catch, for the
     kernels ``cfg`` runs: K7 scaling each row by the RMS of the row before
@@ -1415,7 +1435,7 @@ def wrong_ssm_kernels(torch, cfg) -> dict:
     out = {}
     if cfg.norm_type == "rmsnorm" or cfg.qk_norm:
         out["K7 rows shifted"] = (None, rows_shifted)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         out["K6 state dropped"] = (state_dropped, None)
     return out
 
@@ -2238,12 +2258,155 @@ def belief_cold_start_phase(torch, np, dev, per_region: int, ticks: int,
             "passive": passive, "peak": peak}
 
 
+@contextlib.contextmanager
+def recorded_lm_inputs(seen: dict, stage: dict | None = None):
+    """Inside the block K5, K6 and K7 still launch, and ``seen`` keeps the
+    first operands each is handed for every shape and dtype, keyed
+    ``(kernel, shape, dtype)``, as ``(part of the run, operands,
+    keywords)`` with the part read from ``stage["now"]``.  K7's x is
+    copied; K5's and K6's operands are kept as they are (nothing writes
+    them after the call)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    saved = fa.flash_attention, sk.ssd_scan, rk.rmsnorm
+    stage = stage or {"now": ""}
+
+    def keep(name, t, operands, kw=None):
+        key = (name, tuple(t.shape), t.dtype)
+        if key not in seen:
+            seen[key] = (stage["now"], operands(), kw or {})
+
+    def attn(q, k, v, causal=True):
+        keep("flash_attention", q, lambda: (q, k, v), {"causal": causal})
+        return saved[0](q, k, v, causal=causal)
+
+    def ssd(*args, **kw):
+        keep("ssd_scan", args[0], lambda: args[:7])
+        return saved[1](*args, **kw)
+
+    def rms(x, w, eps=1e-6):
+        keep("rmsnorm", x, lambda: (x.clone(), w.clone(), eps))
+        return saved[2](x, w, eps)
+
+    fa.flash_attention, sk.ssd_scan, rk.rmsnorm = attn, ssd, rms
+    try:
+        yield
+    finally:
+        fa.flash_attention, sk.ssd_scan, rk.rmsnorm = saved
+
+
+def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
+                      timed: bool = True) -> dict:
+    """K5, K6 and K7 on the operands one ``run()`` of a path hands them
+    (:func:`recorded_lm_inputs`), one per shape and dtype, against their
+    plain versions: float32 against the float64 plain version at ``REL``
+    (K6: or the plain version's own float32 error), bfloat16 against the
+    plain version in float32 math at ``BF16_REL``.  K6 is held on y and
+    its final state, and its repeat writes the state into a NaN-filled
+    buffer as a cache hands it; every kernel is bitwise on repeat.  With
+    ``timed``, each kernel's, its plain version's and its bound's ms at
+    that shape, and for K5 ``scaled_dot_product_attention``'s (timed as a
+    yardstick only).  Returns, per key, the part of the run it came from
+    and the numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.perf import roofline
+    seen = {}
+    with recorded_lm_inputs(seen, stage):
+        run()
+    out = {}
+    for key, (st, args, kw) in seen.items():
+        name, shape, dtype = key
+        what = " ".join(filter(None, (phase, st, name, str(shape),
+                                      str(dtype)[6:])))
+        f32 = dtype == torch.float32
+        wide = tuple(a.double() if f32 and torch.is_tensor(a) else a
+                     for a in args)
+        library = None
+        if name == "flash_attention":
+            kernel = lambda: fa.flash_attention(*args, **kw)  # noqa: E731
+            plain = lambda: ref.flash_attention_plain(*args, **kw)  # noqa
+            got, again = kernel(), kernel()
+            want = ref.flash_attention_plain(*wide, **kw)
+            terms = roofline.flash_attention_terms(*shape, dtype,
+                                                   kw["causal"])
+            bar = REL if f32 else BF16_REL
+            # SDPA takes (B, H, S, D) with kv at q's heads: laid out for
+            # it up front
+            qt, kt, vt = (t.transpose(1, 2) for t in args[:3])
+            rep = qt.shape[1] // kt.shape[1]
+            qt, kt, vt = (t.repeat_interleave(r, dim=1).contiguous()
+                          for t, r in ((qt, 1), (kt, rep), (vt, rep)))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=kw["causal"])
+        elif name == "rmsnorm":
+            kernel = lambda: rk.rmsnorm(*args)  # noqa: E731
+            plain = lambda: ref.rmsnorm_plain(*args)  # noqa: E731
+            got, again = kernel(), kernel()
+            want = ref.rmsnorm_plain(*wide)
+            D = shape[-1]
+            terms = roofline.rmsnorm_terms(args[0].numel() // D, D, dtype)
+            bar = REL if f32 else BF16_REL
+        else:
+            kernel = lambda: sk.ssd_scan(*args)  # noqa: E731
+            plain = lambda: ref.ssd_scan_plain(*args)  # noqa: E731
+            b_, L_, H, P = shape
+            N = args[1].shape[-1]
+            got = sk.ssd_scan(*args, final_state=True)
+            again = sk.ssd_scan(*args, state_out=torch.full(
+                (b_, H, N, P), float("nan"), device=dev))
+            want = ref.ssd_scan_plain(*wide, final_state=True)
+            terms = roofline.ssd_scan_terms(b_, L_, H, P, N, args[6], dtype)
+            bar = BF16_REL
+            if f32:
+                own = ref.ssd_scan_plain(*args, final_state=True)
+                bar = max(REL, *(rel_err(o, w)[0] for o, w in zip(own,
+                                                                  want)))
+                del own
+        sync(torch, dev)
+        got, again, want = (t if isinstance(t, tuple) else (t,)
+                            for t in (got, again, want))
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        rel, err = max(e[0] for e in errs), max(e[1] for e in errs)
+        del want
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{what}: non-finite")
+        check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{what}: repeat differs")
+        del got, again
+        r = {"stage": st, "rel_err": rel, "max_abs_err": err, "bar": bar,
+             "bound_ms": terms.step_time_s * 1e3, "bound_by": terms.bound_by,
+             "library_ms": None}
+        if timed:
+            r["ms"] = time_ms(kernel, 5)
+            r["plain_ms"] = time_ms(plain, 3)
+            if library is not None:
+                r["library_ms"] = time_ms(library, 5)
+        out[key] = r
+        lib = ("" if r["library_ms"] is None
+               else f", sdpa {r['library_ms']:.4f} ms")
+        print(f"{what}: rel err {rel:.3e} (bar {bar:.0e}), bitwise on repeat"
+              + (f"; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
+                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                 if timed else ""))
+    return out
+
+
 def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
-                   profile: bool = True) -> dict:
+                   profile: bool = True, hold: bool = False) -> dict:
     """The example's streaming job with ``cfg`` as the LM-scoring operator
-    (see the module docstring, phases 6 and 8).  Returns the launches of
-    the family's main kernel (K5, or K6 for Mamba2) and of every LM kernel
-    on the main path, and the phase's numbers."""
+    (see the module docstring, phases 6, 8 and 8b).  With ``hold``, the LM
+    kernels are also held against their plain versions on the operands
+    one shard hands them (:func:`hold_path_kernels`).  Returns the
+    launches of the family's main kernel (K5, or K6 for Mamba2 and the
+    hybrid) and of every LM kernel on the main path, and the phase's
+    numbers."""
     from repro_torch.core.devices import ExplicitFleet
     from repro_torch.core.placement import uniform_placement
     from repro_torch.models import build_model
@@ -2251,8 +2414,9 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                                        model_op, quality_op, quality_scores,
                                        source, window_agg)
 
-    ssm = cfg.family == "ssm"
-    phase = "lm_score_mamba2" if ssm else "lm_score"
+    ssm = cfg.family in ("ssm", "hybrid")
+    phase = {"ssm": "lm_score_mamba2", "hybrid": "lm_score_zamba2"}.get(
+        cfg.family, "lm_score")
     main_kernel = "ssd_scan" if ssm else "flash_attention"
     want_per_call = expected_launches(cfg)
     fleet, speed = example_fleet(np, ExplicitFleet)
@@ -2333,23 +2497,28 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
               f"want {n_scored} scored -> {want_out}")
 
     # one shard against the same forward through the plain route: the
-    # chunked reference attention (dense) or K6/K7's plain versions (ssm)
+    # chunked reference attention (dense, hybrid) and K6/K7's plain
+    # versions (ssm, hybrid)
     shard_rows, got, _ = shards[0]
-    if ssm:
-        what = "K6/K7 vs their plain versions"
-        with plain_ssm_kernels():
-            want = model_op("reference", model).fn(shard_rows)
-    else:
-        what = "flash vs reference attention"
+    flash = cfg.attention_impl == "pallas"
+    what = " and ".join(
+        (["flash vs reference attention"] if flash else [])
+        + (["K6/K7 vs their plain versions"] if ssm else []))
+    ref_model = model
+    if flash:
         ref_model = build_model(cfg.replace(attention_impl="reference"),
                                 device=dev)
         ref_model.load_state_dict(model.state_dict())
+    with plain_ssm_kernels() if ssm else contextlib.nullcontext():
         want = model_op("reference", ref_model).fn(shard_rows)
-        del ref_model
+    del ref_model
     ref_rel = float(np.abs(got.astype(np.float64) - want).max()
                     / np.abs(want.astype(np.float64)).max())
     check(ref_rel <= LM_REF_REL,
           f"{phase}: {what} rel err {ref_rel:.3e} > {LM_REF_REL}")
+    held = hold_path_kernels(torch, dev, phase,
+                             lambda: score_fn(shard_rows),
+                             timed=dev.type == "cuda") if hold else {}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -2361,10 +2530,15 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
               f"{rep.rows_out}; lm_score {tok} tokens; wall {wall:.3f} s, "
               f"{tok / wall:.0f} tokens/s; peak memory {mem}; modeled "
               f"latency {rep.modeled_latency:.4f}")
-    width = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
-             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
-             f"{cfg.ssm_chunk}" if ssm
-             else f"{cfg.n_heads} heads of {cfg.hd}")
+    width = ", ".join(
+        ([f"{cfg.n_heads} heads of {cfg.hd}"] if cfg.family != "ssm" else [])
+        + ([f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
+            f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}"] if ssm else [])
+        + ([f"one shared attention block at "
+            f"{-(-cfg.n_layers // max(cfg.shared_attn_every, 1))} sites "
+            f"(every {cfg.shared_attn_every} layers)"]
+           if cfg.family == "hybrid" else []))
     print(f"{phase}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{width}, vocab {cfg.vocab_padded}) weights made in {init_s:.1f} "
           f"s; {calls} shard calls, launches {launched} ({want_per_call} "
@@ -2383,7 +2557,7 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
         print(f"{phase} profile (a third, profiled batch): {prof}")
     return {"launches": launched[main_kernel], "kernel_launches": launched,
             "calls": calls, "walls": walls, "tokens": tokens,
-            "ref_rel": ref_rel,
+            "ref_rel": ref_rel, "held": held,
             "shard_rows": max(len(r) for r, _, _ in shards)}
 
 
@@ -2684,17 +2858,16 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     per shape and dtype (block, qk- and gate norms; the prefill scan with
     its final state), goes through the kernel again against its plain
     version (``REL`` / ``BF16_REL``, float32 K6 widened to the plain
-    version's own error as phase 7), bitwise on repeat; (2) the model cut
-    to its first ``SERVE_STRICT_LAYERS`` layers: the logits within
-    ``LM_REF_REL`` of the same cut with K6 / K7's plain versions; (3) at
-    full depth, within ``LM_REF_REL`` or, where larger, the plain route's
-    own bf16 error (its logits against the same model with float32
-    activations).  Planted faults (:func:`wrong_ssm_kernels`) must fail
+    version's own error as phase 7), bitwise on repeat
+    (:func:`hold_path_kernels`); (2) the model cut to its first
+    ``SERVE_STRICT_LAYERS`` layers (a hybrid's first shared-attention site
+    runs ahead of them) and (3) the whole model: the logits against the
+    same depth with K6 / K7's plain versions, within ``LM_REF_REL`` or,
+    where larger, the plain route's own bf16 error at that depth (its
+    logits against the same model with float32 activations).  Planted
+    faults (:func:`wrong_ssm_kernels`) must fail
     both (2) and (3).  It prints prefill s, decode tokens/s, peak memory
     and a profile of one decode step."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as rk
-    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.launch.serve import ServeStats, serve_wave
     from repro_torch.models import build_model
     phase = f"lm_serve {cfg.name}"
@@ -2757,73 +2930,45 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
                 planted[name] = rel_err(run(), plain)[0]
         return rel_err(got, plain)[0], planted, plain
 
+    def own_error(plain) -> float:
+        """The plain route's own bf16 error: ``plain`` against the plain
+        route with float32 activations, at the model's current depth."""
+        saved = model.cfg
+        with plain_ssm_kernels():
+            model.cfg = saved.replace(act_dtype="float32")
+            try:
+                exact = run()
+            finally:
+                model.cfg = saved
+        return rel_err(plain, exact)[0]
+
     # (1) K7 / K6 on the operands this path hands them
-    seen = {}
-    with recorded_ssm_inputs(seen, stage):
-        run()
-    held = []
-    for key, (st, args) in seen.items():
-        name, dtype = key[0], key[-1]
-        what = f"{phase} {st} {name} {key[1:-1]} {dtype}"
-        f32 = dtype == torch.float32
-        if name == "rmsnorm":
-            out, again = rk.rmsnorm(*args), rk.rmsnorm(*args)
-            plain = ref.rmsnorm_plain(*(a.double() if f32 and torch.is_tensor(
-                a) else a for a in args))
-            bar = REL if f32 else BF16_REL
-            sync(torch, dev)
-            rel, _ = rel_err(out, plain)
-            check(bool(torch.isfinite(out).all()), f"{what}: non-finite")
-            check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
-            check(torch.equal(out, again), f"{what}: repeat differs")
-        else:
-            x = args[0]
-            b_, _, H, P = x.shape
-            buf = torch.full((b_, H, args[1].shape[-1], P), float("nan"),
-                             device=dev)
-            y, fs = sk.ssd_scan(*args, final_state=True)
-            y2, fs2 = sk.ssd_scan(*args, state_out=buf)
-            if f32:
-                yw, sw = ref.ssd_scan_plain(*(a.double() if torch.is_tensor(
-                    a) else a for a in args), final_state=True)
-                yo, so = ref.ssd_scan_plain(*args, final_state=True)
-                bar = max(REL, rel_err(yo, yw)[0], rel_err(so, sw)[0])
-            else:
-                yw, sw = ref.ssd_scan_plain(*args, final_state=True)
-                bar = BF16_REL
-            sync(torch, dev)
-            rel = max(rel_err(y, yw)[0], rel_err(fs, sw)[0])
-            check(bool(torch.isfinite(y).all() and torch.isfinite(fs).all()),
-                  f"{what}: non-finite")
-            check(rel <= bar, f"{what}: rel err {rel:.3e} > {bar:.3e}")
-            check(torch.equal(y, y2) and torch.equal(fs, fs2),
-                  f"{what}: repeat into the cache's buffer differs")
-        held.append(f"{st} {name} {key[1:-1]} {str(dtype)[6:]} {rel:.2e}")
-    del seen
+    held = [f"{h['stage']} {k[0]} {k[1]} {str(k[2])[6:]} {h['rel_err']:.2e}"
+            for k, h in hold_path_kernels(torch, dev, phase, run, stage,
+                                          timed=False).items()]
     faults = wrong_ssm_kernels(torch, cfg)
-    # (2) the first layers, where bf16 drift stays inside LM_REF_REL
-    with depth_cut(model, min(SERVE_STRICT_LAYERS, cfg.n_layers)):
-        rel_cut, planted_cut, _ = against_plain(faults)
-    check(rel_cut <= LM_REF_REL,
-          f"{phase}: first {SERVE_STRICT_LAYERS} layers' logits vs the plain "
-          f"K6/K7 route rel err {rel_cut:.3e} > {LM_REF_REL}")
+    # (2) the first layers, where bf16 drift is smaller than at full depth:
+    # within LM_REF_REL or, where larger, the plain route's own bf16 error
+    # at that depth
+    strict = min(SERVE_STRICT_LAYERS, cfg.n_layers)
+    with depth_cut(model, strict):
+        rel_cut, planted_cut, plain = against_plain(faults)
+        own_cut = own_error(plain)
+    bar_cut = max(LM_REF_REL, own_cut)
+    check(rel_cut <= bar_cut,
+          f"{phase}: first {strict} layers' logits vs the plain K6/K7 route "
+          f"rel err {rel_cut:.3e} > {bar_cut:.3e}")
     # (3) full depth, within the plain route's own bf16 error
     rel, planted, plain = against_plain(faults)
-    with plain_ssm_kernels():
-        model.cfg = cfg.replace(act_dtype="float32")
-        try:
-            exact = run()
-        finally:
-            model.cfg = cfg
-    own, _ = rel_err(plain, exact)
+    own = own_error(plain)
     bar = max(LM_REF_REL, own)
-    del plain, exact
+    del plain
     check(rel <= bar, f"{phase}: logits vs the plain K6/K7 route rel err "
                       f"{rel:.3e} > {bar:.3e}")
     for name in faults:       # NaN logits fail the check too
-        check(not (planted_cut[name] <= LM_REF_REL or planted[name] <= bar),
+        check(not (planted_cut[name] <= bar_cut or planted[name] <= bar),
               f"{phase}: the planted fault {name!r} passes the logits check "
-              f"(first layers {planted_cut[name]:.3e}, bar {LM_REF_REL}; "
+              f"(first layers {planted_cut[name]:.3e}, bar {bar_cut:.3e}; "
               f"full depth {planted[name]:.3e}, bar {bar:.3e})")
     prof = "not measured (no card)"
     if profile:
@@ -2850,10 +2995,11 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
           f" steps vs their plain versions (bars {REL} / {BF16_REL}, bitwise "
           f"on repeat): " + ("; ".join(held) or "no kernel on this path"))
     print(f"{phase}: logits of prefill + {SERVE_FORCED} forced decode steps "
-          f"vs the plain K6/K7 route: first {SERVE_STRICT_LAYERS} layers "
-          f"{rel_cut:.3e} (bar {LM_REF_REL}), full depth {rel:.3e} (bar "
-          f"{bar:.3e}: {LM_REF_REL}, or the plain route's own bf16 error "
-          f"against float32 activations, {own:.3e}, where larger); planted "
+          f"vs the plain K6/K7 route (bars: {LM_REF_REL}, or the plain "
+          f"route's own bf16 error against float32 activations at that "
+          f"depth, where larger): first {strict} layers {rel_cut:.3e} (bar "
+          f"{bar_cut:.3e}, own {own_cut:.3e}), full depth {rel:.3e} (bar "
+          f"{bar:.3e}, own {own:.3e}); planted "
           f"faults, first layers / full depth (nan: non-finite logits): "
           + ("; ".join(
               f"{k} {planted_cut[k]:.3e} / {planted[k]:.3e}" for k in faults)
@@ -2862,8 +3008,322 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     del model
     torch.cuda.empty_cache()
     return {"summary": s, "launches": launched, "rel": rel, "own": own,
-            "rel_cut": rel_cut, "planted": planted,
+            "rel_cut": rel_cut, "own_cut": own_cut, "planted": planted,
             "planted_cut": planted_cut, "held": held, "peak": peak}
+
+
+# -- the eleventh slice: the perf record, the build hooks --------------------
+
+def hook_overhead_phase(torch, dispatch_fn, samples: int = HOOK_SAMPLES,
+                        calls: int = HOOK_CALLS) -> dict:
+    """The reference's disabled-telemetry gate (``benchmarks/bench_obs.py``,
+    ``MAX_DISABLED_OVERHEAD``) for the port's counting hooks, on a hot loop
+    whose cost is the host's (as the reference's ``score_batch`` loop): with
+    no counter open and the build hooks disarmed, ``dispatch_fn`` costs at
+    most 5 % more than with every hook site stubbed out (``kernel_scope`` a
+    bare null context, the wrappers' ``counts`` without a counter list to
+    read).  After a warm-up, samples alternate between the two in pairs
+    whose order flips, with the garbage collector off; each is ``calls``
+    calls and one synchronization; the medians are compared."""
+    import types
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import edge_latency as el
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.obs import kernelhooks
+    from repro_torch.perf import counts
+
+    check(not counts.ACTIVE, "hook_overhead: a counter is open")
+    kernelhooks.disarm()
+    null = contextlib.nullcontext()
+    stub = types.SimpleNamespace(ACTIVE=(), report_kernel=None)
+    mods = (el, fa, rk, sk)
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            dispatch_fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def stubbed() -> float:
+        saved = dispatch.kernel_scope, [m.counts for m in mods]
+        dispatch.kernel_scope = lambda name: null
+        for m in mods:
+            m.counts = stub
+        try:
+            return timed()
+        finally:
+            dispatch.kernel_scope = saved[0]
+            for m, c in zip(mods, saved[1]):
+                m.counts = c
+
+    for _ in range(3):
+        timed()
+    hooked, control = [], []
+    pair = ((hooked, timed), (control, stubbed))
+    gc.disable()        # a collection inside one sample dwarfs the effect
+    try:
+        # the order flips every pair, so a drift of the host's speed over
+        # the run falls on both alike
+        for i in range(samples):
+            for out, sample in (pair if i % 2 == 0 else pair[::-1]):
+                out.append(sample())
+    finally:
+        gc.enable()
+    # what the gate can see: the disarmed hook sites alone, on the host
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with dispatch.kernel_scope("rmsnorm"):
+            if rk.counts.ACTIVE:
+                pass
+    sites = (time.perf_counter() - t0) / calls
+    ratio = statistics.median(hooked) / statistics.median(control)
+    check(ratio <= 1.0 + MAX_DISABLED_OVERHEAD,
+          f"hook_overhead: disarmed hooks cost {ratio - 1:.2%} > "
+          f"{MAX_DISABLED_OVERHEAD:.0%}")
+    print(f"hook_overhead: {samples} alternating samples of {calls} "
+          f"calls: disarmed hooks "
+          f"{statistics.median(hooked) / calls * 1e6:.3f} us a call, no hooks "
+          f"{statistics.median(control) / calls * 1e6:.3f} us; ratio "
+          f"{ratio:.4f} (bar {1 + MAX_DISABLED_OVERHEAD}); the disarmed "
+          f"hook sites alone {sites * 1e6:.3f} us a call")
+    return {"ratio": ratio, "hooked": hooked, "control": control,
+            "sites_s": sites}
+
+
+def print_record(name: str, rec: dict, extra: str = "") -> None:
+    """One perf record's line: counted FLOPs and bytes, the roofline row's
+    useful fraction and bound, the measured roofline fraction."""
+    row = rec["roofline"]
+    print(f"perf_record {name}: counted {rec['counted_flops']:.6e} FLOPs, "
+          f"{rec['counted_bytes']:.6e} bytes; model {row['model_flops']:.6e}"
+          f" FLOPs, useful fraction {row['useful_fraction']:.4f}; bound "
+          f"{row['step_time_s'] * 1e3:.4f} ms ({row['dominant']}), "
+          f"mfu_bound {row['mfu_bound']:.4f}; measured "
+          f"{rec['measured_s'] * 1e3:.4f} ms, roofline fraction "
+          f"{rec['roofline_fraction']:.4f}; builds in the timed region "
+          f"{rec['n_recompiles']}" + extra)
+
+
+def perf_dispatch_phase(torch, np, dev, ev, packed, pack, dq, beta) -> dict:
+    """The perf record of one serve_dense dispatch (``score_grid`` of the
+    served rows against the S-scenario pack: S K1 launches) on the card,
+    its K1 FLOPs against the plain version's count at the launch shape on
+    the meta device (shapes without data): equal, since both
+    count ``2·B·E·V²``."""
+    from repro_torch.kernels import edge_latency as el
+    from repro_torch.kernels import ref
+    from repro_torch.obs import bench, kernelhooks, perfbridge
+    from repro_torch.perf import counts
+
+    shapes = []
+    kernel = el.edge_latency_dense
+
+    def recorded(x_i, x_j, com):
+        shapes.append((tuple(x_i.shape), tuple(com.shape)))
+        return kernel(x_i, x_j, com)
+
+    def fn():
+        return ev.score_grid(packed, pack, dq=dq, beta=beta)
+
+    snap = kernelhooks.snapshot()
+    timing = bench.measure(fn, n=5, warmup=1)
+    el.edge_latency_dense = recorded
+    try:
+        rec = perfbridge.perf_record(fn, measured_s=timing.seconds,
+                                     compile_snapshot=snap)
+    finally:
+        el.edge_latency_dense = kernel
+    k1 = rec["kernels"].get("edge_latency_dense", {})
+    check(k1.get("launches", 0) == len(shapes) > 0,
+          f"perf_record serve_dense: {k1} reported for {len(shapes)} K1 "
+          f"launches")
+    plain = 0.0
+    for (B, E, V), (bc, _, _) in shapes:
+        meta = [torch.empty(s, device="meta") for s in
+                ((B, E, V), (B, E, V), (bc, V, V))]
+        plain += counts.analyze_call(ref.edge_latency_dense_plain,
+                                     tuple(meta)).flops
+    check(k1["flops"] == plain,
+          f"perf_record serve_dense: K1 reported {k1['flops']:.6e} FLOPs, "
+          f"its plain version counts {plain:.6e} (bar: equal)")
+    print_record("serve_dense", rec,
+                 f"; K1 {k1['launches']} launches at {shapes[0]}, reported "
+                 f"{k1['flops']:.6e} FLOPs == the plain version's count on "
+                 f"the meta device")
+    return rec
+
+
+def perf_lm_phase(torch, np, dev, cfg, rows: int, seq: int) -> dict:
+    """The perf record of one lm_score shard (the forward of ``rows`` ×
+    ``seq`` tokens) of ``cfg`` (K5's route for attention) on the card, and
+    its count against the plain (CPU) route's count of the same shard on
+    fake CPU tensors (``counts.without_data``: shapes, no data).  Bars,
+    each with its reason:
+
+    * everything outside the kernels (the GEMMs, the head) equal: the same
+      aten ops at the same shapes;
+    * K5: the card reports the causal half, S(S+1)/2 (query, key) pairs
+      per head, where the plain version multiplies all S²: card / plain =
+      (S+1)/(2S) within 1e-9;
+    * K6: the card reports the lower-triangular M·x, Q(Q+1)·H·P a chunk,
+      where the plain version multiplies the full Q²: card = plain −
+      layers·b·n·(Q²−Q)·H·P, exact where torch runs the plain version's
+      three-operand state-update einsum's outer product elementwise (as
+      2.13 does); the bar admits that outer product as one more product,
+      layers·b·n·2Q·H·max(N, P), should the card's torch pick a path that
+      routes it through a bmm;
+    * K7: its four operations a row element are elementwise, which
+      FlopCounterMode counts as 0: the launches equal the plain calls.
+
+    It prints the counted and analytic FLOPs, bytes, the useful fraction,
+    ``mfu_bound``, the measured model-FLOPs share of the bf16 tensor-core
+    peak and the roofline fraction."""
+    from repro_torch.models import analytic_flops, build_model
+    from repro_torch.obs import bench, kernelhooks, perfbridge
+    from repro_torch.perf import counts
+    from repro_torch.perf.roofline import PEAK_BF16_TC
+
+    name = f"lm_score {cfg.name}"
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (rows, seq),
+                                        dtype=np.int32), device=dev)
+    model_flops = analytic_flops(cfg, seq, rows, mode="prefill")
+    with torch.inference_mode():
+        def fn():
+            return model({"tokens": toks})
+        snap = kernelhooks.snapshot()
+        timing = bench.measure(fn, n=3, warmup=1)
+        rec = perfbridge.perf_record(fn, measured_s=timing.seconds,
+                                     model_flops=model_flops,
+                                     compile_snapshot=snap)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with counts.without_data(), torch.inference_mode():
+        host = build_model(cfg, device="cpu")
+        cpu = counts.analyze_call(host, ({"tokens": torch.zeros(
+            (rows, seq), dtype=torch.int32)},))
+        del host
+    card_k, cpu_k = rec["kernels"], cpu.kernels
+    check(set(card_k) == set(cpu_k),
+          f"perf_record {name}: kernels {sorted(card_k)} on the card, "
+          f"{sorted(cpu_k)} on the plain route")
+    for k in card_k:
+        check(card_k[k]["launches"] == card_k[k]["calls"] == cpu_k[k]["calls"]
+              > 0, f"perf_record {name}: {k} launched "
+                   f"{card_k[k]['launches']} times in {card_k[k]['calls']} "
+                   f"calls, plain route {cpu_k[k]['calls']} calls")
+    rest_card = rec["counted_flops"] - sum(k["flops"] for k in card_k.values())
+    rest_cpu = cpu.flops - sum(k["flops"] for k in cpu_k.values())
+    check(rest_card == rest_cpu,
+          f"perf_record {name}: outside the kernels {rest_card:.6e} FLOPs "
+          f"on the card, {rest_cpu:.6e} on the plain route (bar: equal)")
+    notes = []
+    if "flash_attention" in card_k:
+        want = (seq + 1) / (2 * seq)
+        got = card_k["flash_attention"]["flops"] \
+            / cpu_k["flash_attention"]["flops"]
+        check(abs(got / want - 1) <= 1e-9,
+              f"perf_record {name}: K5 card / plain FLOPs {got:.9f}, want "
+              f"the causal half (S+1)/(2S) = {want:.9f}")
+        notes.append(f"K5 card/plain {got:.6f} (causal half {want:.6f})")
+    if "ssd_scan" in card_k:
+        Q = min(cfg.ssm_chunk, seq)
+        n = -(-seq // Q)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        per = cfg.n_layers * rows * n
+        plain = cpu_k["ssd_scan"]["flops"]
+        want = plain - per * (Q * Q - Q) * H * P
+        got = card_k["ssd_scan"]["flops"]
+        bar = per * 2 * Q * H * max(N, P)
+        check(abs(got - want) <= bar,
+              f"perf_record {name}: K6 reported {got:.6e} FLOPs, want the "
+              f"plain count less the upper triangle {want:.6e} (bar "
+              f"{bar:.6e})")
+        notes.append(f"K6 card {got:.6e} vs plain less the upper triangle "
+                     f"{want:.6e} ({abs(got - want) / plain:.3%} of plain)")
+    if "rmsnorm" in card_k:
+        check(cpu_k["rmsnorm"]["flops"] == 0,
+              f"perf_record {name}: K7's plain version counted "
+              f"{cpu_k['rmsnorm']['flops']} matmul FLOPs")
+        notes.append(f"K7 {card_k['rmsnorm']['launches']} launches == plain "
+                     f"calls")
+    share = model_flops / (PEAK_BF16_TC * timing.seconds)
+    tokens_s = rows * seq / timing.seconds
+    print_record(name, rec,
+                 f"; {rows} x {seq} tokens, {tokens_s:.0f} tokens/s; "
+                 f"measured model-FLOPs share {share:.4f} of "
+                 f"{PEAK_BF16_TC / 1e12:.0f} TFLOP/s; plain-route count "
+                 f"{cpu.flops:.6e} FLOPs, outside the kernels equal; "
+                 + "; ".join(notes))
+    return {"record": rec, "share": share, "tokens_s": tokens_s,
+            "cpu_flops": cpu.flops}
+
+
+def compile_span_phase(torch, dev) -> dict:
+    """A span around K7's first use in a fresh build directory (the other
+    libraries copied in, so only ``rmsnorm.cu`` builds) records the build
+    and the load in ``compile_s`` / ``n_compiles``, ``obs.bench.measure``
+    around it reports them as ``n_recompiles``, and a span around a later
+    call records none.  The build directory, the loaded library and the
+    telemetry switch are restored after it."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.obs import bench, kernelhooks
+
+    x = torch.randn((64, 2048), device=dev).to(torch.bfloat16)
+    w = torch.ones(2048, device=dev)
+    rk.rmsnorm(x, w)
+    fresh = build.BUILD_DIR / f"fresh-{SEED}"
+    shutil.rmtree(fresh, ignore_errors=True)
+    fresh.mkdir(parents=True)
+    for f in build.BUILD_DIR.iterdir():
+        if f.is_file() and not f.name.startswith("rmsnorm-"):
+            shutil.copy2(f, fresh / f.name)
+    saved = build.BUILD_DIR, build._libs.pop("rmsnorm"), rk._bound, \
+        obs.enabled()
+    build.BUILD_DIR, rk._bound = fresh, None
+    obs.enable()
+    kernelhooks.install()
+    try:
+        with obs.span("kernel_first_use") as first:
+            timing = bench.measure(lambda: first.sync(rk.rmsnorm(x, w)),
+                                   n=1, warmup=0)
+        with obs.span("kernel_later_use") as later:
+            later.sync(rk.rmsnorm(x, w))
+        builds = obs.registry().value("kernels.builds")
+    finally:
+        build.BUILD_DIR, rk._bound = saved[0], saved[2]
+        build._libs["rmsnorm"] = saved[1]
+        if not saved[3]:
+            obs.disable()
+        shutil.rmtree(fresh, ignore_errors=True)
+    check(first.compile_s > 0 and first.n_compiles == 2,
+          f"compile_span: first use recorded compile_s {first.compile_s}, "
+          f"{first.n_compiles} builds/loads (want > 0 and 2)")
+    check(timing.n_recompiles == 2 and timing.compile_s > 0,
+          f"compile_span: bench.measure reported {timing.n_recompiles} "
+          f"builds/loads in {timing.compile_s} s")
+    check(later.compile_s == 0.0 and later.n_compiles == 0,
+          f"compile_span: a later call recorded compile_s {later.compile_s}")
+    check(builds >= 2, f"compile_span: kernels.builds counter {builds}")
+    print(f"compile_span: K7's first use in a fresh build directory: span "
+          f"wall {first.wall_s:.3f} s, compile_s {first.compile_s:.3f} s "
+          f"(nvcc + load, n_compiles {first.n_compiles}), execute_s "
+          f"{first.execute_s:.4f} s; bench.measure n_recompiles "
+          f"{timing.n_recompiles}; a later call compile_s "
+          f"{later.compile_s}; registry kernels.builds {builds:.0f}")
+    return {"first": first.compile_s, "later": later.compile_s}
 
 
 def main() -> int:
@@ -3179,11 +3639,14 @@ def main() -> int:
         print(f"{phase} profile (a second, profiled round): {prof}")
         return svc, ev, packed, launched
 
-    _, _, _, dense_launched = serve(
+    _, dense_ev, dense_packed, dense_launched = serve(
         "serve_dense", dense_pack, dense_x, DENSE_ROWS,
         "edge_latency_dense",
         lambda s: ExplicitFleet(com_cost=dense_pack[s].astype(np.float64)),
         same_rows=False)
+    perf_dispatch_phase(torch, np, dev, dense_ev, dense_packed, dense_pack,
+                        0.3, 0.7)
+    del dense_ev, dense_packed
     # -- 3b. the same instance with all five objectives -----------------------
     speeds = rng.lognormal(0.0, 0.3, (S, DENSE_V)).astype(np.float32)
     serve_multi_phase(
@@ -3250,6 +3713,15 @@ def main() -> int:
           f"timed at {shard}")
     torch.cuda.empty_cache()
 
+    # -- 8b. the LM-scoring job on the Zamba2 hybrid: K5, K6 and K7 --------
+    hyb_cfg = get_config(HYBRID_ARCH).replace(attention_impl="pallas")
+    hyb = lm_score_phase(torch, np, dev, hyb_cfg, LM_ROWS, LM_SEQ,
+                         LM_BATCHES, hold=True)
+    check(hyb["shard_rows"] <= shard,
+          f"lm_score_zamba2: a shard of {hyb['shard_rows']} rows, K5/K6/K7 "
+          f"held at {shard}")
+    torch.cuda.empty_cache()
+
     # -- 9.-12. search, robust search and the engine's re-optimization ------
     search_dense_phase(torch, np, dev, graph, SEARCH_PER_REGION,
                        SEARCH_CANDIDATES, SEARCH_BATCH, ANNEAL_STEPS,
@@ -3281,6 +3753,23 @@ def main() -> int:
                    f"card cannot hold its float32 parameters)")
             serve_cfg = serve_cfg.replace(n_layers=layers)
         lm_serve_phase(torch, np, dev, serve_cfg, cut)
+
+    # -- 17./18. the perf records and the build hooks ---------------------
+    # the counting hooks, disarmed, on K7 dispatches at a decode step's shape
+    from repro_torch.kernels import dispatch
+    x_dec = torch.randn((SERVE_BATCH, get_config(HYBRID_ARCH).d_model),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED), device=dev).to(torch.bfloat16)
+    w_dec = torch.ones(x_dec.shape[-1], device=dev)
+    hook_overhead_phase(torch, lambda: dispatch.rmsnorm(x_dec, w_dec))
+    del x_dec, w_dec
+    for arch in PERF_ARCHS:
+        perf_cfg = get_config(arch)
+        if perf_cfg.family != "ssm":
+            perf_cfg = perf_cfg.replace(attention_impl="pallas")
+        perf_lm_phase(torch, np, dev, perf_cfg, shard, LM_SEQ)
+        torch.cuda.empty_cache()
+    compile_span_phase(torch, dev)
 
     launches = {"edge_latency_dense": dense_launched["edge_latency_dense"],
                 "edge_latency_structured":

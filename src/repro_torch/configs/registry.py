@@ -31,7 +31,7 @@ ARCH_IDS = [
     "whisper_large_v3",
 ]
 PORTED = ("olmo_1b", "granite_8b", "deepseek_coder_33b", "qwen3_32b",
-          "mamba2_1_3b")
+          "mamba2_1_3b", "zamba2_1_2b")
 
 
 def canonical_arch(arch: str) -> str:

@@ -5,9 +5,10 @@ rebuilt from plain numpy arrays and Python scalars — what
 ``repro.core.OpGraph`` / ``repro.core.RegionFleetFamily`` hold and what the
 reference's ``pack_fleets`` returns.  With these a test (or a user moving
 a deployment across) feeds one graph and one fleet to both packages.
-:func:`decoder_lm_from_arrays` and :func:`mamba2_lm_from_arrays` do the
-same for a ``DecoderLM``'s and a ``Mamba2LM``'s parameter tree (qwen3's
-q/k-norm weights included), so both packages run one model, and
+:func:`decoder_lm_from_arrays`, :func:`mamba2_lm_from_arrays` and
+:func:`zamba2_lm_from_arrays` do the same for a ``DecoderLM``'s, a
+``Mamba2LM``'s and a ``Zamba2LM``'s parameter tree (qwen3's q/k-norm
+weights included), so both packages run one model, and
 :func:`cache_from_arrays` for a serving cache, so a decode can start from
 the other package's prefill.
 """
@@ -21,13 +22,15 @@ from repro_torch.core.devices import RegionFleetFamily
 from repro_torch.core.graph import Operator, OpGraph
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
+from repro_torch.models.hybrid import HybridCache, Zamba2LM
 from repro_torch.models.layers import KVCache
 from repro_torch.models.mamba2 import Mamba2LM, SSMCache
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["graph_from_arrays", "region_family_from_arrays",
            "dense_pack_from_array", "decoder_lm_from_arrays",
-           "mamba2_lm_from_arrays", "cache_from_arrays"]
+           "mamba2_lm_from_arrays", "zamba2_lm_from_arrays",
+           "cache_from_arrays"]
 
 
 def graph_from_arrays(names, selectivity, out_bytes, work, dq_eligible,
@@ -126,6 +129,19 @@ MAMBA2_LEAVES = ("norm", "wz", "wx", "wB", "wC", "wdt", "conv_w", "conv_b",
                  "A_log", "D", "dt_bias", "gate_norm", "out_proj")
 
 
+def _put_mamba_blocks(model, blocks, n_layers: int) -> None:
+    """Copy the stacked Mamba2 block leaves (leading layer axis) into
+    ``model.blocks``."""
+    stacked = {n: np.asarray(a) for n, a in blocks.items()}
+    for what, arr in stacked.items():
+        if arr.ndim == 0 or arr.shape[0] != n_layers:
+            raise ValueError(f"blocks/{what}: {arr.shape[:1]} layers, want "
+                             f"{n_layers}")
+    for li, blk in enumerate(model.blocks):
+        for name in MAMBA2_LEAVES:
+            _put(getattr(blk, name), stacked[name][li], f"blocks/{name}")
+
+
 def mamba2_lm_from_arrays(cfg: ModelConfig, tree, device=None) -> Mamba2LM:
     """A :class:`Mamba2LM` on ``device`` holding the reference's parameter
     tree, given as nested dicts of numpy arrays: ``embed`` (V_pad, d),
@@ -143,14 +159,39 @@ def mamba2_lm_from_arrays(cfg: ModelConfig, tree, device=None) -> Mamba2LM:
     _put(model.embed, tree["embed"], "embed")
     _put(model.head, tree["head"], "head")
     _put(model.final_norm, tree["final_norm"], "final_norm")
-    stacked = {n: np.asarray(a) for n, a in blocks.items()}
-    for what, arr in stacked.items():
-        if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks/{what}: {arr.shape[:1]} layers, want "
-                             f"{cfg.n_layers}")
-    for li, blk in enumerate(model.blocks):
-        for name in MAMBA2_LEAVES:
-            _put(getattr(blk, name), stacked[name][li], f"blocks/{name}")
+    _put_mamba_blocks(model, blocks, cfg.n_layers)
+    return model
+
+
+def zamba2_lm_from_arrays(cfg: ModelConfig, tree, device=None) -> Zamba2LM:
+    """A :class:`Zamba2LM` on ``device`` holding the reference's parameter
+    tree, given as nested dicts of numpy arrays: ``embed``, ``blocks`` (the
+    Mamba2 leaves of :func:`mamba2_lm_from_arrays`, stacked over the L
+    layers), ``shared_attn`` (``ln1``, ``attn`` wq/wk/wv/wo flat, ``ln2``,
+    ``mlp``: one parameter set, no layer axis), ``final_norm`` and
+    ``head``.  Raises on a missing, extra or mis-shaped leaf."""
+    model = Zamba2LM(cfg, device=device)
+    blocks = tree["blocks"] if "blocks" in tree else {}
+    shared = tree["shared_attn"] if "shared_attn" in tree else {}
+    sp = model.shared_attn
+    if set(tree) != {"embed", "blocks", "shared_attn", "final_norm", "head"} \
+            or set(blocks) != set(MAMBA2_LEAVES) \
+            or set(shared) != {"ln1", "attn", "ln2", "mlp"}:
+        raise ValueError(f"not a Zamba2LM tree: {sorted(tree)} / "
+                         f"{sorted(blocks)} / {sorted(shared)}")
+    for group in ("attn", "mlp"):
+        want = set(getattr(sp, group))
+        if set(shared[group]) != want:
+            raise ValueError(f"shared_attn/{group}: leaves "
+                             f"{sorted(shared[group])}, want {sorted(want)}")
+        for name, p in getattr(sp, group).items():
+            _put(p, shared[group][name], f"shared_attn/{group}/{name}")
+    _put(sp.ln1, shared["ln1"], "shared_attn/ln1")
+    _put(sp.ln2, shared["ln2"], "shared_attn/ln2")
+    _put(model.embed, tree["embed"], "embed")
+    _put(model.head, tree["head"], "head")
+    _put(model.final_norm, tree["final_norm"], "final_norm")
+    _put_mamba_blocks(model, blocks, cfg.n_layers)
     return model
 
 
@@ -164,15 +205,21 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def cache_from_arrays(cache, device=None) -> KVCache | SSMCache:
+def cache_from_arrays(cache, device=None
+                      ) -> KVCache | SSMCache | HybridCache:
     """The port's serving cache from the reference's: a ``KVCache``
-    (``k``, ``v`` (L, B, S_max, K·hd)) or an ``SSMCache`` (``state``
-    (L, B, H, N, P), ``conv`` (L, B, k−1, Dc)), its leaves given as arrays
-    numpy can read, copied to ``device`` (``None`` → the card) in their
-    dtype."""
+    (``k``, ``v`` (L, B, S_max, K·hd)), an ``SSMCache`` (``state``
+    (L, B, H, N, P), ``conv`` (L, B, k−1, Dc)) or a ``HybridCache`` (an
+    ``SSMCache`` ``ssm`` over the layers and a ``KVCache`` ``attn`` over
+    the attention sites), its leaves given as arrays numpy can read,
+    copied to ``device`` (``None`` → the card) in their dtype."""
     dev = dispatch.resolve_device(device)
+    if hasattr(cache, "ssm") and hasattr(cache, "attn"):
+        return HybridCache(cache_from_arrays(cache.ssm, dev),
+                           cache_from_arrays(cache.attn, dev))
     if hasattr(cache, "k") and hasattr(cache, "v"):
         return KVCache(_tensor(cache.k, dev), _tensor(cache.v, dev))
     if hasattr(cache, "state") and hasattr(cache, "conv"):
         return SSMCache(_tensor(cache.state, dev), _tensor(cache.conv, dev))
-    raise TypeError(f"not a KVCache or SSMCache: {type(cache).__name__}")
+    raise TypeError(f"not a KVCache or SSMCache (or a HybridCache of "
+                    f"both): {type(cache).__name__}")

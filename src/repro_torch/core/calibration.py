@@ -8,11 +8,16 @@ the *believed* fleet — per-device slowdown multipliers from the busy series
 the latency ratio — so a controller (:mod:`repro_torch.adapt`) can
 re-optimize placement against a model that tracks the drifted world again.
 
-Everything here is float64 numpy and bitwise equal to the reference.  The
-static half of the reference module — ``CalibratedCosts``,
-``calibrate_from_hlo`` and ``stage_graph_for_lm``, which read TPU HLO
-collectives through ``perf.hlo`` — comes with the telemetry substrate
-(ROADMAP A10) and is left out here.
+Everything here is float64 numpy and bitwise equal to the reference.
+
+The static half turns a counted step into cost-model inputs:
+:func:`calibrate_from_profile` (the counterpart of the reference's
+``calibrate_from_hlo``) reads the collective traffic of a
+``repro_torch.perf.counts.ModuleStats`` — a step counted as it ran, in
+place of TPU HLO text — and prices it on an H100 cluster
+(:func:`repro_torch.core.devices.fleet_from_gpu_mesh`: NVLink within a
+node, the network between nodes); :func:`stage_graph_for_lm` is the
+reference's train-step dataflow graph, copied.
 """
 
 from __future__ import annotations
@@ -22,11 +27,75 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.costmodel import CostConfig, latency
-from repro_torch.core.devices import ExplicitFleet
-from repro_torch.core.graph import OpGraph
+from repro_torch.core.devices import (NVLINK_GBPS, ExplicitFleet,
+                                      RegionFleet, fleet_from_gpu_mesh)
+from repro_torch.core.graph import Operator, OpGraph
+from repro_torch.perf.counts import CollectiveStats, ModuleStats
 
-__all__ = ["ReplayWindow", "ReplayRefit", "fit_work_unit",
+__all__ = ["CalibratedCosts", "calibrate_from_profile", "stage_graph_for_lm",
+           "ReplayWindow", "ReplayRefit", "fit_work_unit",
            "normalized_drift", "refit_from_replay"]
+
+
+@dataclasses.dataclass
+class CalibratedCosts:
+    """comCost units: seconds per byte; work units: flop."""
+
+    fleet: RegionFleet
+    collectives: CollectiveStats
+    bytes_per_step: float  # per-device collective wire bytes
+    flops_per_step: float  # per-device FLOPs
+
+    def step_comm_seconds(self, link_gbps: float = NVLINK_GBPS) -> float:
+        return self.bytes_per_step / (link_gbps * 1e9)
+
+
+def calibrate_from_profile(stats: ModuleStats, flops_per_device: float,
+                           n_nodes: int = 1,
+                           gpus_per_node: int = 8) -> CalibratedCosts:
+    """Cost-model inputs from one counted step (``perf.counts``): its
+    per-device collective wire bytes on an H100 fleet of ``n_nodes`` ×
+    ``gpus_per_node`` priced per byte."""
+    fleet = fleet_from_gpu_mesh(n_nodes=n_nodes, gpus_per_node=gpus_per_node,
+                                unit_bytes=1.0)
+    return CalibratedCosts(
+        fleet=fleet,
+        collectives=stats.collectives,
+        bytes_per_step=stats.collectives.total_wire_bytes,
+        flops_per_step=flops_per_device,
+    )
+
+
+def stage_graph_for_lm(n_layers: int, d_model: int, d_ff: int, vocab: int,
+                       seq: int, batch: int, moe_experts: int = 0,
+                       top_k: int = 2) -> OpGraph:
+    """The train-step dataflow as a paper OpGraph.
+
+    Operators are stages (embed → L×block → head → loss → backward echo);
+    selectivity is the bytes-amplification between stages — this is the graph
+    auto-sharding scores candidate placements against.  Tuple unit = one
+    token's activation row (d_model × 2 bytes bf16).
+    """
+    tok_bytes = 2.0 * d_model
+    ops = [Operator("source", selectivity=1.0, out_bytes=4.0)]  # token ids
+    ops.append(Operator("embed", selectivity=1.0, out_bytes=tok_bytes))
+    edges = [(0, 1)]
+    prev = 1
+    for l in range(n_layers):
+        amp = 1.0
+        if moe_experts:
+            # top-k dispatch duplicates tokens k× on the expert axis
+            amp = float(top_k)
+        ops.append(Operator(f"block{l}", selectivity=amp, out_bytes=tok_bytes,
+                            work=1.0))
+        edges.append((prev, len(ops) - 1))
+        prev = len(ops) - 1
+    ops.append(Operator("head", selectivity=vocab / d_model,
+                        out_bytes=2.0 * vocab, work=1.0))
+    edges.append((prev, len(ops) - 1))
+    ops.append(Operator("loss", selectivity=1.0 / vocab, out_bytes=4.0))
+    edges.append((len(ops) - 2, len(ops) - 1))
+    return OpGraph(ops, edges)
 
 
 # -- closed-loop recalibration from replay observations -----------------------

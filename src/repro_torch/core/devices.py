@@ -10,8 +10,10 @@ Two concrete fleets:
   devices (the paper's "massive parallelism" at fleet level) without ever
   materializing the V×V matrix.
 
-numpy-only copy of ``repro.core.devices`` for the PyTorch port, without the
-reference's TPU mesh constants and ``fleet_from_tpu_mesh``.
+numpy-only copy of ``repro.core.devices`` for the PyTorch port.  In place
+of the reference's TPU mesh constants and ``fleet_from_tpu_mesh`` it has
+:func:`fleet_from_gpu_mesh`, which prices an H100 cluster's two link
+classes: NVLink within a node, the network between nodes.
 """
 
 from __future__ import annotations
@@ -20,7 +22,15 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["ExplicitFleet", "RegionFleet", "RegionFleetFamily"]
+__all__ = ["ExplicitFleet", "RegionFleet", "RegionFleetFamily",
+           "fleet_from_gpu_mesh", "NVLINK_GBPS", "NET_GBPS"]
+
+# NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): NVLink 4, 900 GB/s per
+# GPU in both directions together, 450 GB/s each way
+NVLINK_GBPS = 450.0
+# between nodes: one 400 Gb/s InfiniBand NDR port per H100 (NVIDIA DGX H100
+# data sheet: eight ConnectX-7 ports for eight GPUs), 50 GB/s each way
+NET_GBPS = 50.0
 
 
 @dataclasses.dataclass
@@ -317,3 +327,25 @@ class RegionFleetFamily:
         """Scenario ``s`` materialized densely (tests / small V only)."""
         return self.fleet(s).com_matrix()
 
+
+def fleet_from_gpu_mesh(
+    n_nodes: int = 1,
+    gpus_per_node: int = 8,
+    nvlink_gbps: float = NVLINK_GBPS,
+    net_gbps: float = NET_GBPS,
+    unit_bytes: float = 1e9,
+) -> RegionFleet:
+    """RegionFleet mirroring an H100 cluster: nodes are regions.
+
+    ``comCost`` is seconds per ``unit_bytes`` over the relevant link class:
+    traffic within a node rides NVLink, traffic between nodes the network —
+    the counterpart of the reference's ``fleet_from_tpu_mesh`` (ICI within
+    a pod, DCI between pods), built the same way, so equal link arguments
+    give a bitwise equal ``com_matrix()``.
+    """
+    region = np.repeat(np.arange(n_nodes), gpus_per_node)
+    intra = unit_bytes / (nvlink_gbps * 1e9)
+    inter_cost = unit_bytes / (net_gbps * 1e9)
+    inter = np.full((n_nodes, n_nodes), inter_cost)
+    np.fill_diagonal(inter, intra)
+    return RegionFleet(region=region, inter=inter, self_cost=0.0)

@@ -11,10 +11,12 @@ module is imported: the CPU test suite imports it on machines without
 ``nvcc``.
 
 :data:`events` counts what the process spent making kernels ready — the
-port's counterpart of JAX's compiles, which ``repro_torch.obs.bench``
-reports for a timed region: ``builds`` (``nvcc`` runs), ``loads``
-(libraries opened by :func:`load`) and ``seconds`` (wall time inside
-:func:`load`, builds included).
+port's counterpart of JAX's compiles: ``builds`` (``nvcc`` runs), ``loads``
+(libraries opened by :func:`load`) and ``seconds`` (wall time of the
+:func:`load` and :func:`build_all` calls that built or opened a library,
+builds included, each counted once).  Every such call also calls each
+function in :data:`listeners` with ``(builds, loads, seconds)``:
+``repro_torch.obs.kernelhooks`` listens there.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "events",
-           "find_nvcc", "build_all", "load"]
+           "listeners", "find_nvcc", "build_all", "load"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -42,6 +44,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 events = {"builds": 0, "loads": 0, "seconds": 0.0}
+listeners: list = []
+_local = threading.local()      # .in_load: build_all runs inside load
+
+
+def _record(builds: int, loads: int, seconds: float) -> None:
+    """Count the seconds of one call that built ``builds`` and opened
+    ``loads`` libraries, and tell the listeners."""
+    events["seconds"] += seconds
+    for fn in listeners:
+        fn(builds, loads, seconds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,13 +93,22 @@ def _lib_path(src: Path) -> Path:
 def build_all() -> list[BuildResult]:
     """Compile every source whose library is missing, all in parallel.
     Raises RuntimeError with the compiler's output if one fails."""
+    t0 = time.perf_counter()
+    results, built = _build_all()
+    if built and not getattr(_local, "in_load", False):
+        _record(built, 0, time.perf_counter() - t0)
+    return results
+
+
+def _build_all() -> tuple[list[BuildResult], int]:
+    """:func:`build_all`'s work → (results, libraries built)."""
     srcs = sorted(CSRC.glob("*.cu"))
     todo = [(s, _lib_path(s)) for s in srcs]
     results = [BuildResult(s.stem, p, 0.0, p.with_suffix(".log").read_text())
                for s, p in todo if p.is_file()]
     todo = [(s, p) for s, p in todo if not p.is_file()]
     if not todo:
-        return results
+        return results, 0
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
@@ -112,7 +133,7 @@ def build_all() -> list[BuildResult]:
         results.append(BuildResult(src.stem, path, seconds, log))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return results
+    return results, len(todo)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -122,12 +143,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             t0 = time.perf_counter()
+            before = events["builds"]
+            _local.in_load = True
             try:
                 paths = {r.name: r.path for r in build_all()}
-                if name not in paths:
-                    raise ValueError(f"no kernel source csrc/{name}.cu")
-                lib = _libs[name] = ctypes.CDLL(str(paths[name]))
-                events["loads"] += 1
             finally:
-                events["seconds"] += time.perf_counter() - t0
+                _local.in_load = False
+            if name not in paths:
+                raise ValueError(f"no kernel source csrc/{name}.cu")
+            lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+            events["loads"] += 1
+            _record(events["builds"] - before, 1, time.perf_counter() - t0)
         return lib

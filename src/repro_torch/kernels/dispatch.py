@@ -15,7 +15,9 @@ raises.  Block sizes are fixed constants of the kernel sources.  Every
 decision is counted as ``kernels.dispatch.plans{kind, impl}`` in
 :mod:`repro_torch.obs` when the registry is enabled (kind ``dense``,
 ``structured``, ``dense_single_tile``, ``structured_single_tile``,
-``flash_attention``, ``rmsnorm`` or ``ssd_scan``).
+``flash_attention``, ``rmsnorm`` or ``ssd_scan``), and each route runs
+inside ``repro_torch.perf.counts.kernel_scope`` of its kernel's name, so an
+open counter splits its count by kernel.
 
 The single-tile routes (K4a, K4b) are the whole-V references the blocked
 kernels are held against; as in the reference, no path of the system
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import obs
+from repro_torch.perf.counts import kernel_scope
 from repro_torch.kernels import edge_latency as kernels
 from repro_torch.kernels import flash_attention as attention_kernel
 from repro_torch.kernels import ref
@@ -93,53 +96,59 @@ def plan_attention_kernel(*tensors: torch.Tensor) -> str:
 
 def edge_latency(x_i, x_j, com) -> torch.Tensor:
     """Dense edge-latency max: (B, E, V) rows × (B|1, V, V) com → (B, E)."""
-    if plan_edge_kernel("dense", x_i, x_j, com) == "cuda":
-        return kernels.edge_latency_dense(x_i, x_j, com)
-    return ref.edge_latency_dense_plain(x_i, x_j, com)
+    with kernel_scope("edge_latency_dense"):
+        if plan_edge_kernel("dense", x_i, x_j, com) == "cuda":
+            return kernels.edge_latency_dense(x_i, x_j, com)
+        return ref.edge_latency_dense_plain(x_i, x_j, com)
 
 
 def edge_latency_structured(x_i, x_j, mass, a, corr) -> torch.Tensor:
     """Structured (RegionFleet) edge-latency max:
     ``max_u x_i·(mass @ a + corr·x_j)`` → (B, E)."""
-    if plan_edge_kernel("structured", x_i, x_j, mass, a, corr) == "cuda":
-        return kernels.edge_latency_structured(x_i, x_j, mass, a, corr)
-    return ref.edge_latency_structured_plain(x_i, x_j, mass, a, corr)
+    with kernel_scope("edge_latency_structured"):
+        if plan_edge_kernel("structured", x_i, x_j, mass, a, corr) == "cuda":
+            return kernels.edge_latency_structured(x_i, x_j, mass, a, corr)
+        return ref.edge_latency_structured_plain(x_i, x_j, mass, a, corr)
 
 
 def edge_latency_single_tile(x_i, x_j, com) -> torch.Tensor:
     """K1's function through the whole-V kernel (K4a) on the card, its
     plain version on the CPU."""
-    if plan_edge_kernel("dense_single_tile", x_i, x_j, com) == "cuda":
-        return kernels.edge_latency_dense_single_tile(x_i, x_j, com)
-    return ref.edge_latency_dense_single_tile_plain(x_i, x_j, com)
+    with kernel_scope("edge_latency_dense_single_tile"):
+        if plan_edge_kernel("dense_single_tile", x_i, x_j, com) == "cuda":
+            return kernels.edge_latency_dense_single_tile(x_i, x_j, com)
+        return ref.edge_latency_dense_single_tile_plain(x_i, x_j, com)
 
 
 def edge_latency_structured_single_tile(x_i, x_j, mass, a,
                                         corr) -> torch.Tensor:
     """K2's function through the whole-V kernel (K4b) on the card, its
     plain version on the CPU."""
-    if plan_edge_kernel("structured_single_tile", x_i, x_j, mass, a,
-                        corr) == "cuda":
-        return kernels.edge_latency_structured_single_tile(x_i, x_j, mass, a,
-                                                           corr)
-    return ref.edge_latency_structured_single_tile_plain(x_i, x_j, mass, a,
-                                                         corr)
+    with kernel_scope("edge_latency_structured_single_tile"):
+        if plan_edge_kernel("structured_single_tile", x_i, x_j, mass, a,
+                            corr) == "cuda":
+            return kernels.edge_latency_structured_single_tile(
+                x_i, x_j, mass, a, corr)
+        return ref.edge_latency_structured_single_tile_plain(x_i, x_j, mass,
+                                                             a, corr)
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) attention with kv repeated to H → (B, S, H, D) in q's
     dtype: K5 on the card, its plain version on the CPU."""
-    if plan_attention_kernel(q, k, v) == "cuda":
-        return attention_kernel.flash_attention(q, k, v, causal=causal)
-    return ref.flash_attention_plain(q, k, v, causal=causal)
+    with kernel_scope("flash_attention"):
+        if plan_attention_kernel(q, k, v) == "cuda":
+            return attention_kernel.flash_attention(q, k, v, causal=causal)
+        return ref.flash_attention_plain(q, k, v, causal=causal)
 
 
 def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of the last axis with a weight, in x's dtype: K7 on the
     card, its plain version on the CPU.  The weight is read as float32."""
-    if _plan("rmsnorm", "rmsnorm", (x, w)) == "cuda":
-        return rmsnorm_kernel.rmsnorm(x, w.float(), eps)
-    return ref.rmsnorm_plain(x, w, eps)
+    with kernel_scope("rmsnorm"):
+        if _plan("rmsnorm", "rmsnorm", (x, w)) == "cuda":
+            return rmsnorm_kernel.rmsnorm(x, w.float(), eps)
+        return ref.rmsnorm_plain(x, w, eps)
 
 
 def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
@@ -149,7 +158,9 @@ def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
     ``state_out`` to write it into: K6 on the card, its plain version on
     the CPU."""
     into = {} if state_out is None else {"state_out": state_out}
-    if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
-        return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk, final_state,
-                                   **into)
-    return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state, **into)
+    with kernel_scope("ssd_scan"):
+        if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
+            return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk, final_state,
+                                       **into)
+        return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state,
+                                  **into)

@@ -34,7 +34,10 @@ in :mod:`repro_torch.kernels.ref` — checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
 current stream and raises if the launch was refused.  E = 0 returns a
 (B, 0) tensor without a launch.  ``launches[name]`` counts launches, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels, and each launch
+reports its work to an open ``repro_torch.perf.counts`` counter (K1/K4a:
+``2·B·E·V²`` operations, K2/K4b: ``2·B·E·R·V``, with the bytes of
+``repro_torch.perf.roofline``'s terms).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "launches", "reset_launches", "edge_latency_dense",
            "edge_latency_structured", "edge_latency_dense_single_tile",
@@ -108,9 +112,10 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, tensors: tuple, ints: tuple) -> None:
+def _launch(name: str, tensors: tuple, ints: tuple, terms) -> None:
     """Call ``<name>_launch`` with the tensors' pointers, the integer
-    shape/stride arguments and the current stream; count the launch."""
+    shape/stride arguments and the current stream; count the launch and
+    report ``terms()`` (its roofline terms) to an open counter."""
     lib = _lib()
     dev = tensors[0].device
     with torch.cuda.device(dev):     # launch on the operands' card
@@ -121,6 +126,8 @@ def _launch(name: str, tensors: tuple, ints: tuple) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.edge_latency_error_string(rc).decode()}")
     launches[name] += 1
+    if counts.ACTIVE:
+        counts.report_kernel(name, terms())
 
 
 def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
@@ -148,7 +155,8 @@ def edge_latency_dense(x_i: torch.Tensor, x_j: torch.Tensor,
     _launch("edge_latency_dense",
             (x_i, x_j, com, com_hi, com_lo, partial, out),
             (n_batch, rows, V, E * V, V, 0 if shared else V * V, V, E,
-             com.numel()))
+             com.numel()),
+            lambda: roofline.edge_latency_dense_terms(B, E, V, bc))
     return out
 
 
@@ -178,7 +186,9 @@ def edge_latency_structured(x_i: torch.Tensor, x_j: torch.Tensor,
     n_batch, rows = (1, B * E) if shared else (B, E)
     _launch("edge_latency_structured", (x_i, x_j, mass, a, corr, out),
             (n_batch, rows, V, R, E * V, V, E * R, R,
-             0 if shared else R * V, V, 0 if shared else V, E))
+             0 if shared else R * V, V, 0 if shared else V, E),
+            lambda: roofline.edge_latency_structured_single_tile_terms(
+                B, E, V, R, bc))    # K2's function
     return out
 
 
@@ -230,7 +240,8 @@ def edge_latency_dense_single_tile(x_i: torch.Tensor, x_j: torch.Tensor,
     if E == 0:
         return out
     _launch("edge_latency_dense_single_tile", (x_i, x_j, com, out),
-            (B, E, V, E * V, 0 if bc == 1 else V * V, E))
+            (B, E, V, E * V, 0 if bc == 1 else V * V, E),
+            lambda: roofline.edge_latency_single_tile_terms(B, E, V, bc))
     return out
 
 
@@ -263,5 +274,7 @@ def edge_latency_structured_single_tile(x_i: torch.Tensor,
     _launch("edge_latency_structured_single_tile",
             (x_i, x_j, mass, a, corr, out),
             (B, E, V, R, E * V, E * R, 0 if shared else R * V,
-             0 if shared else V, E))
+             0 if shared else V, E),
+            lambda: roofline.edge_latency_structured_single_tile_terms(
+                B, E, V, R, bc))
     return out

@@ -15,7 +15,10 @@ The wrapper takes CUDA tensors only — the device policy in
 :func:`repro_torch.kernels.ref.flash_attention_plain` — checks device,
 dtype, shape, strides and alignment, launches on the current stream and
 raises if the launch was refused.  ``launches["flash_attention"]`` counts
-launches, so a run can show that its main path went through the kernel.
+launches, so a run can show that its main path went through the kernel,
+and each launch reports :func:`repro_torch.perf.roofline.
+flash_attention_terms` for its shape to an open ``repro_torch.perf.counts``
+counter (the causal half: the kernel skips the masked tiles).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "HEAD_DIMS", "MAX_Q_TILES", "launches",
            "reset_launches", "check_shape", "flash_attention"]
@@ -111,4 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     launches["flash_attention"] += 1
+    if counts.ACTIVE:
+        counts.report_kernel("flash_attention", roofline.flash_attention_terms(
+            B, Sq, H, D, q.dtype, causal))
     return out

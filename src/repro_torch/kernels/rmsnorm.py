@@ -11,7 +11,9 @@ The wrapper takes CUDA tensors only — the device policy in
 :func:`repro_torch.kernels.ref.rmsnorm_plain` — checks device, dtype, shape
 and contiguity, launches on the current stream and raises if the launch
 was refused.  ``launches["rmsnorm"]`` counts launches, so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel, and each launch reports
+:func:`repro_torch.perf.roofline.rmsnorm_terms` for its rows to an open
+``repro_torch.perf.counts`` counter.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "launches", "reset_launches", "rmsnorm"]
 
@@ -85,4 +88,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError("rmsnorm launch failed: "
                            f"{lib.rmsnorm_error_string(rc).decode()}")
     launches["rmsnorm"] += 1
+    if counts.ACTIVE:
+        counts.report_kernel("rmsnorm", roofline.rmsnorm_terms(
+            x.numel() // D, D, x.dtype))
     return out

@@ -33,7 +33,9 @@ The wrapper takes CUDA tensors only — the device policy in
 shape, strides and the kernels' limits (P ≤ 64, N ≤ 128, shared memory),
 launches on the current stream and raises if a launch was refused; nothing
 falls back.  ``launches["ssd_scan"]`` counts calls of K6;
-``route_launches`` counts each route's calls and each pass's launches.
+``route_launches`` counts each route's calls and each pass's launches.  A
+call reports :func:`repro_torch.perf.roofline.ssd_scan_terms` for its shape
+to an open ``repro_torch.perf.counts`` counter, once for all its passes.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "ROUTES", "PASSES", "MAX_P", "MAX_N", "SMEM_LIMIT",
            "launches", "route_launches", "reset_launches", "route",
@@ -203,4 +206,7 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                 route_launches[p] += 1
     route_launches[way] += 1
     launches["ssd_scan"] += 1
+    if counts.ACTIVE:
+        counts.report_kernel("ssd_scan", roofline.ssd_scan_terms(
+            b, L, H, P, N, Q, x.dtype))
     return (y, fs) if final_state else y

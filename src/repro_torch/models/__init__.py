@@ -1,5 +1,6 @@
 """The port's LM substrate: model config and accounting (:mod:`.api`),
-layers (:mod:`.layers`) and the dense decoder (:mod:`.transformer`)."""
+layers (:mod:`.layers`), the dense decoder (:mod:`.transformer`), Mamba2
+(:mod:`.mamba2`) and the Zamba2 hybrid (:mod:`.hybrid`)."""
 
 from repro_torch.models.api import (ModelConfig, analytic_flops, build_model,
                                     count_params)

@@ -8,9 +8,9 @@ torch dtypes.  ``build_model(cfg, device)`` returns a module exposing
   init_params(generator)        -> fills the parameters in place
   forward(batch)                -> (logits, aux_loss)
 
-The dense decoder family without experts and the Mamba2 SSM family are
-ported, with their serving paths (``init_cache``, ``prefill``,
-``decode_step``); the other families come with ROADMAP A13b.
+The dense decoder family without experts, the Mamba2 SSM family and the
+Zamba2 hybrid are ported, with their serving paths (``init_cache``,
+``prefill``, ``decode_step``); the other families come with ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -102,18 +102,22 @@ class ModelConfig:
 def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (``None``: the card, raising
     without CUDA), parameters allocated but not initialised: call
-    ``init_params`` or load them (``repro_torch.convert``)."""
+    ``init_params`` or load them (``repro_torch.convert``).  A hybrid with
+    ``shared_attn_every`` 0 raises ValueError, as the reference asserts."""
     if cfg.family == "dense" and not cfg.moe_experts:
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, device=device)
     if cfg.family == "ssm" and not cfg.moe_experts:
         from repro_torch.models.mamba2 import Mamba2LM
         return Mamba2LM(cfg, device=device)
+    if cfg.family == "hybrid" and not cfg.moe_experts:
+        from repro_torch.models.hybrid import Zamba2LM
+        return Zamba2LM(cfg, device=device)
     raise NotImplementedError(
         f"family {cfg.family!r}"
         + (f" with {cfg.moe_experts} experts" if cfg.moe_experts else "")
         + " is not ported yet (ROADMAP A13b); the port runs the dense "
-          "decoder without experts and the Mamba2 SSM")
+          "decoder without experts, the Mamba2 SSM and the Zamba2 hybrid")
 
 
 # ------------------------------------------------------- analytic counts ---

@@ -53,8 +53,8 @@ from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (apply_norm, dense, embed_lookup,
                                        rms_norm)
 
-__all__ = ["Mamba2LM", "SSMCache", "mamba_block", "causal_conv",
-           "ssd_decode_step"]
+__all__ = ["Mamba2LM", "SSMCache", "mamba_block", "init_mamba_block",
+           "causal_conv", "ssd_decode_step"]
 
 
 @dataclasses.dataclass
@@ -104,6 +104,28 @@ class _Block(nn.Module):
         self.dt_bias = _param((H,), f32, device)
         self.gate_norm = _param((di,), pd, device)
         self.out_proj = _param((di, d), pd, device)
+
+
+@torch.no_grad()
+def init_mamba_block(blk: _Block, cfg: ModelConfig,
+                     generator: torch.Generator) -> None:
+    """One block's random weights at the reference's scales (see
+    :meth:`Mamba2LM.init_params`), drawn from ``generator``."""
+
+    def normal(p: torch.Tensor, scale: float) -> None:
+        p.normal_(generator=generator).mul_(scale)
+
+    for p in (blk.wz, blk.wx, blk.wB, blk.wC, blk.wdt):
+        normal(p, cfg.d_model ** -0.5)
+    normal(blk.conv_w, cfg.ssm_conv ** -0.5)
+    normal(blk.out_proj, cfg.d_inner ** -0.5)
+    blk.conv_b.zero_()
+    blk.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, cfg.ssm_heads)))
+    blk.D.fill_(1.0)
+    blk.dt_bias.fill_(-2.0)
+    blk.gate_norm.fill_(1.0)
+    if blk.norm is not None:
+        blk.norm.fill_(1.0)
 
 
 def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -199,19 +221,8 @@ class Mamba2LM(nn.Module):
             p.normal_(generator=generator).mul_(scale)
 
         normal(self.embed, cfg.d_model ** -0.5)
-        H = cfg.ssm_heads
         for blk in self.blocks:
-            for p in (blk.wz, blk.wx, blk.wB, blk.wC, blk.wdt):
-                normal(p, cfg.d_model ** -0.5)
-            normal(blk.conv_w, cfg.ssm_conv ** -0.5)
-            normal(blk.out_proj, cfg.d_inner ** -0.5)
-            blk.conv_b.zero_()
-            blk.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, H)))
-            blk.D.fill_(1.0)
-            blk.dt_bias.fill_(-2.0)
-            blk.gate_norm.fill_(1.0)
-            if blk.norm is not None:
-                blk.norm.fill_(1.0)
+            init_mamba_block(blk, cfg, generator)
         if self.final_norm is not None:
             self.final_norm.fill_(1.0)
         normal(self.head, cfg.d_model ** -0.5)

@@ -1,6 +1,9 @@
 """repro_torch.obs — the port's copy of ``repro.obs``: spans and metrics
-across sim → serve, and the benchmark timing harness (:mod:`.bench`; the
-jax compile hooks have no counterpart: it counts kernel builds instead).
+across sim → serve, the benchmark timing harness (:mod:`.bench`), kernel
+build and launch accounting (:mod:`.kernelhooks`, the counterpart of the
+jax compile hooks: a kernel library built or opened is the port's
+compile) and the perf bridge (:mod:`.perfbridge`: counted FLOPs, bytes and
+roofline fractions of any torch callable).
 
 Zero-dependency and opt-in-cheap: the default registry is DISABLED until
 :func:`enable` — every instrumentation site guards on one attribute read,

@@ -12,7 +12,8 @@
 
 The port has no jit: its counterpart of a compile is a CUDA kernel library
 built with ``nvcc`` or opened by ``repro_torch.kernels.build.load``, which
-``build.events`` counts.
+:mod:`repro_torch.obs.kernelhooks` counts, as the reference takes its
+compiles from ``jaxhooks``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import time
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.obs import kernelhooks
 
 __all__ = ["Timing", "measure", "time_once"]
 
@@ -90,11 +91,6 @@ def _call_blocked(f, block: bool):
     return out
 
 
-def _build_snapshot() -> tuple[int, float]:
-    return (build.events["builds"] + build.events["loads"],
-            build.events["seconds"])
-
-
 def measure(f, n: int = 5, warmup: int = 1, block: bool = True) -> Timing:
     """``warmup`` un-timed calls (kernel builds land here), then ``n`` timed
     calls, each flushed as the module docstring says (``block=False`` for
@@ -102,20 +98,20 @@ def measure(f, n: int = 5, warmup: int = 1, block: bool = True) -> Timing:
 
     Build accounting covers the TIMED region only: ``n_recompiles`` counts
     the ``nvcc`` runs and library loads in it, ``compile_s`` their wall
-    time."""
+    time (from :mod:`repro_torch.obs.kernelhooks`, armed here)."""
     if n < 1:
         raise ValueError(f"need n >= 1 timed calls, got {n}")
     for _ in range(warmup):
         _call_blocked(f, block)
-    n0, s0 = _build_snapshot()
+    snap = kernelhooks.snapshot()
     times = []
     out = None
     for _ in range(n):
         t0 = time.perf_counter()
         out = _call_blocked(f, block)
         times.append(time.perf_counter() - t0)
-    n1, s1 = _build_snapshot()
-    return Timing(times=times, n_recompiles=n1 - n0, compile_s=s1 - s0,
+    n_rec, comp_s = snap.delta()
+    return Timing(times=times, n_recompiles=n_rec, compile_s=comp_s,
                   result=out)
 
 

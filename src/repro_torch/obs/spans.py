@@ -4,9 +4,11 @@
 timed region into the process-local trace buffer.  Each span carries:
 
   * ``wall_s``    — perf_counter wall time of the region;
-  * ``compile_s`` / ``n_compiles`` — kept for schema parity with
-    ``repro.obs.spans``; PyTorch runs eagerly and the port's kernels are
-    built once at set-up, so both read 0;
+  * ``compile_s`` / ``n_compiles`` — the kernel libraries built with
+    ``nvcc`` or opened inside the region and their wall time, attributed
+    by :mod:`repro_torch.obs.kernelhooks` to the innermost active span
+    (PyTorch runs eagerly: a library built on first use is the port's
+    compile; both read 0 once the kernels are ready);
   * ``execute_s`` — ``wall_s − compile_s``.  Call ``sp.sync(value)``
     (``torch.cuda.synchronize`` for a CUDA tensor) before leaving the span
     so asynchronously launched device work is *inside* the wall
@@ -147,6 +149,16 @@ def current_span():
     when telemetry is disabled)."""
     st = getattr(_local, "stack", None)
     return st[-1] if st else None
+
+
+def _attribute_compile(duration: float, n: int) -> None:
+    """kernelhooks → innermost active span (no-op outside spans): ``n``
+    libraries built or opened in ``duration`` seconds."""
+    st = getattr(_local, "stack", None)
+    if st:
+        sp = st[-1]
+        sp.compile_s += duration
+        sp.n_compiles += n
 
 
 def counter_sample(name: str, value: float, **more) -> None:

@@ -38,25 +38,36 @@ PEAK_BF16_TC = 989e12
 PEAK_TF32_TC = 495e12
 # NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
+# NVIDIA H100 80GB HBM3, 700.00 W (data sheet, SXM): NVLink 4, 900 GB/s per
+# GPU in both directions together, so 450 GB/s each way; the ring model's
+# wire bytes are what one card sends
+NVLINK_BW = 450e9
 
 __all__ = ["RooflineTerms", "compute_terms", "edge_latency_dense_terms",
            "edge_latency_single_tile_terms",
            "edge_latency_structured_single_tile_terms",
            "flash_attention_terms",
            "ssd_scan_terms", "rmsnorm_terms", "PEAK_FLOPS", "PEAK_BF16_TC",
-           "PEAK_TF32_TC", "HBM_BW"]
+           "PEAK_TF32_TC", "HBM_BW", "NVLINK_BW", "step_terms"]
 
 
 @dataclasses.dataclass(frozen=True)
 class RooflineTerms:
     compute_s: float
     memory_s: float
-    flops: float = 0.0
-    bytes: float = 0.0
+    flops: float = 0.0          # summed over chips
+    bytes: float = 0.0          # summed over chips
+    # a whole step's terms (step_terms); a kernel's bound leaves them 0
+    collective_s: float = 0.0
+    model_flops: float = 0.0
+    wire_bytes_per_chip: float = 0.0
+    chips: int = 1
 
     @property
     def dominant(self) -> str:
-        return "compute" if self.compute_s >= self.memory_s else "memory"
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
 
     @property
     def bound_by(self) -> str:
@@ -65,8 +76,55 @@ class RooflineTerms:
 
     @property
     def step_time_s(self) -> float:
-        """Lower-bound time: the larger term (perfect overlap)."""
-        return max(self.compute_s, self.memory_s)
+        """Lower-bound time: the largest term (perfect overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_fraction(self) -> float:
+        """Model FLOPs over counted FLOPs: above 1 where the count skips
+        work the analytic model charges (K5's causal half), below 1 where
+        the step does work the model does not charge."""
+        if self.flops <= 0:
+            return 0.0
+        return self.model_flops / self.flops
+
+    @property
+    def mfu_bound(self) -> float:
+        """The model-FLOPs share of ``chips`` × the dense bf16 tensor-core
+        peak at the bound: model FLOPs over chips × peak × step time."""
+        t = self.step_time_s
+        if t <= 0:
+            return 0.0
+        return self.model_flops / (self.chips * PEAK_BF16_TC * t)
+
+    def row(self) -> dict:
+        """The reference's row, key for key (``hlo_flops`` holds the
+        counted FLOPs summed over chips)."""
+        return {
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "model_flops": self.model_flops,
+            "hlo_flops": self.flops,
+            "useful_fraction": self.useful_flops_fraction,
+            "mfu_bound": self.mfu_bound,
+            "step_time_s": self.step_time_s,
+            "chips": self.chips,
+        }
+
+
+def step_terms(flops: float, bytes_: float, wire_bytes: float, chips: int,
+               model_flops: float) -> RooflineTerms:
+    """A whole step's terms on ``chips`` cards, from one card's ``flops``
+    (priced at the dense bf16 tensor-core peak), ``bytes_`` (at HBM_BW) and
+    ``wire_bytes`` (at NVLINK_BW): the reference's post-SPMD convention."""
+    return RooflineTerms(
+        compute_s=flops * chips / (chips * PEAK_BF16_TC),
+        memory_s=bytes_ * chips / (chips * HBM_BW),
+        flops=flops * chips, bytes=bytes_ * chips,
+        collective_s=wire_bytes / NVLINK_BW, model_flops=model_flops,
+        wire_bytes_per_chip=wire_bytes, chips=chips)
 
 
 def compute_terms(flops: float, bytes_: float,

@@ -735,7 +735,7 @@ def test_ssd_state_out_refuses_a_mismatched_buffer(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["olmo_1b", "granite_8b",
                                   "deepseek_coder_33b", "qwen3_32b",
-                                  "mamba2_1_3b"])
+                                  "mamba2_1_3b", "zamba2_1_2b"])
 def test_serve_wave_on_the_card_matches_the_cpu_route(card, arch):
     """The smoke models serve the same greedy tokens on the card (K6 in
     Mamba2's prefill, K7 in every RMSNorm, float32) as on the CPU route,
@@ -756,3 +756,64 @@ def test_serve_wave_on_the_card_matches_the_cpu_route(card, arch):
     assert (sk.launches["ssd_scan"] - before[0],
             rk.launches["rmsnorm"] - before[1]) == \
         (per.get("ssd_scan", 0), per["rmsnorm"] * 6)
+
+
+# -- the Zamba2 hybrid's shapes ----------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2048, 100])
+def test_attention_at_the_zamba2_shape_on_the_card(card, S):
+    """K5 on bf16 operands at Zamba2-1.2B's lm_score shard (B·H 11 × 32,
+    head dim 64, causal) and at a ragged S, against its plain version in
+    float32 math at ≤1e-2, bitwise on a repeat."""
+    gen = torch.Generator(device=card).manual_seed(51)
+    q, k, v = (torch.randn((11, S, 32, 64), generator=gen, device=card)
+               .bfloat16() for _ in range(3))
+    fa.check_shape(11, S, 32, 64)
+    got = fa.flash_attention(q, k, v, causal=True)
+    again = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(rel) <= 1e-2 and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,case", [
+    ("float32", (2, 300, 6, 64, 64, 256)), ("float32", (1, 700, 4, 64, 64,
+                                                         256)),
+    ("bfloat16", (2, 300, 6, 64, 64, 256)),
+    ("bfloat16", (11, 2048, 64, 64, 64, 256))])
+def test_ssd_kernel_at_state_64_on_the_card(card, dtype, case):
+    """K6 at Zamba2's state N 64 (H 64, P 64, chunk 256; the last case is
+    one lm_score shard) with the bars of the tests above."""
+    b, L, H, P, N, Q = case
+    rng = np.random.default_rng(52)
+    _hold_ssd(_ssd_operands(card, rng, b, L, H, P, N, dtype), Q, dtype)
+
+
+@pytest.mark.cuda
+def test_zamba2_smoke_model_on_the_card_matches_the_cpu_route(card):
+    """The Zamba2 smoke model on K5's route, float32 activations: K5 once
+    per site, K6 once per layer, K7 2·layers + 2·sites + 1 times a forward,
+    logits ≤1e-5 relative to the CPU route's; counted on the card, each
+    kernel reports every launch."""
+    from repro_torch.perf import counts
+    cfg = get_smoke_config("zamba2_1_2b").replace(attention_impl="pallas")
+    host = build_model(cfg, device="cpu")
+    host.init_params(torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=card)
+    model.load_state_dict(host.state_dict())
+    toks = np.random.default_rng(53).integers(0, cfg.vocab, (3, 40))
+    with torch.inference_mode():
+        want, _ = host({"tokens": toks})
+        before = chip_smoke.lm_launches()
+        with counts.OpCounter() as c:
+            got, _ = model({"tokens": toks})
+        after = chip_smoke.lm_launches()
+    per = chip_smoke.expected_launches(cfg)
+    assert {k: after[k] - before[k] for k in per} == per
+    assert {k: v["launches"] for k, v in c.stats().kernels.items()} == per
+    rel = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(rel) <= 1e-5
+

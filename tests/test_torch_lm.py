@@ -115,12 +115,15 @@ def test_full_config_and_accounting_match_jax():
 
 def test_registry_and_builder_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(KeyError, match="A13b"):
-        get_config("zamba2-1.2b")
+        get_config("arctic-480b")
+    assert dataclasses.asdict(get_config("zamba2-1.2b")) == \
+        dataclasses.asdict(jax_config("zamba2_1_2b"))
     with pytest.raises(KeyError, match="unknown arch"):
         get_smoke_config("gpt-5")
     smoke = get_smoke_config("olmo_1b")
-    for cfg in (smoke.replace(family="hybrid"), smoke.replace(family="vlm"),
-                smoke.replace(moe_experts=4)):
+    with pytest.raises(ValueError, match="shared_attn_every"):
+        build_model(smoke.replace(family="hybrid"), device="cpu")
+    for cfg in (smoke.replace(family="vlm"), smoke.replace(moe_experts=4)):
         with pytest.raises(NotImplementedError, match="A13"):
             build_model(cfg, device="cpu")
     with pytest.raises(ValueError, match="attention impl"):
