@@ -133,6 +133,27 @@ bitwise equal.
    against their plain versions on the operands one shard hands them
    (phase 5's bars, bitwise on repeat), with their times beside the plain
    versions', the bounds and (K5) ``scaled_dot_product_attention``'s.
+8c. lm_score_moe: the job with Arctic-480B at its published widths (d
+   7168, 56 heads of 128 on 8 kv heads, 128 experts top-2 of d_ff 4864,
+   the dense residual MLP, vocab 32 000; bf16 weights made on the card)
+   cut to 2 of its 35 layers (26.8 GB of experts a layer), K5's route:
+   K5 2 and K7 5 launches in every shard call, one shard within 1e-2 of
+   the plain route (reference attention, K7's plain version), the row
+   counts, the share of (token, choice) pairs capacity dropped in each
+   layer, a profile split (K5, K7, the f32 head / router / combine, the
+   bf16 GEMMs and ``aten::bmm``'s own share, routing and gathers,
+   elementwise), and K5 (11, 2048, 56, 128) and K7 22 528 × 7168 held on
+   one shard's operands after the model is freed, timed beside the plain
+   versions, the bounds, SDPA and ``F.rms_norm``.
+8d. lm_forward: one forward (no cache, K5's route) at 2 × 512 tokens of
+   Llama-3.2-Vision-11B (40 layers, d 4096, 32 heads of 128 on 8 kv heads,
+   8 gated cross blocks to 1601 seeded image embeddings, gates opened),
+   Whisper-large-v3 (32 + 32 layers, d 1280, 20 heads of 64, 1500 seeded
+   frame embeddings) and Grok-1 (d 6144, 48 heads of 128, 8 experts of
+   d_ff 32 768) cut to 4 of 64 layers: K5 40 / 32 / 4 and K7 89 / 162 /
+   9 launches, each row's score (its mean next-token cross-entropy)
+   within 1e-2 of the plain route's, K5 and K7 held on the forward's
+   operands (timed).
 
 9. search_dense: ``BatchedProblem`` on a ``random_fleet`` of 8 regions ×
    512 devices (V 4096, an ``ExplicitFleet``), the DAG of phase 3, β 1 and
@@ -228,10 +249,17 @@ bitwise equal.
    float32 activations at that depth where larger; it
    prints prefill s, decode ms/step and tokens/s, peak memory and the
    profile of one decode step.  Zamba2-1.2B is served too (K7 91 a
-   prefill and a decode step, K6 38 a prefill, no K5).
+   prefill and a decode step, K6 38 a prefill, no K5); so are Arctic-480B
+   (2 layers) and Grok-1 (4 layers), K7 5 / 9 a step, Llama-3.2-Vision
+   with 1601 seeded image embeddings and opened gates (K7 89 a step), and
+   Whisper-large-v3 with 1500 seeded frame embeddings (K7 162 a prefill,
+   97 a decode step), each with the cached cross keys and values held
+   bitwise unchanged across decode steps.
 17. perf_record: ``repro_torch.obs.perfbridge.perf_record`` of one
-   lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B and
-   Zamba2-1.2B, and (after phase 3) of one serve_dense dispatch: counted
+   lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B,
+   Zamba2-1.2B and Arctic-480B at 2 layers (its expert slots against the
+   (token, choice) pairs it routes), and (after phase 3) of one
+   serve_dense dispatch: counted
    FLOPs and bytes (aten ops through ``repro_torch.perf.counts``, the
    kernels' launches reporting their terms), analytic FLOPs, the useful
    fraction, ``mfu_bound``, the measured model-FLOPs share of the bf16
@@ -386,7 +414,9 @@ PG_PAPER_F = 1e-5
 # layers (131 GB of float32 parameters at full depth, 21.8 GB at 8)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_FORCED = 8, 512, 64, 8
 SERVE_ARCHS = (("olmo_1b", None), ("granite_8b", None), ("qwen3_32b", 8),
-               ("mamba2_1_3b", None), ("zamba2_1_2b", None))
+               ("mamba2_1_3b", None), ("zamba2_1_2b", None),
+               ("arctic_480b", 2), ("grok_1_314b", 4),
+               ("llama_3_2_vision_11b", None), ("whisper_large_v3", None))
 # lm_serve's logits are held against the plain K6/K7 route on the model
 # cut to its first layers, where bf16 drift is smaller than at full depth,
 # to LM_REF_REL or, where larger, the plain route's own bf16 error at that
@@ -405,7 +435,18 @@ MAX_DISABLED_OVERHEAD = 0.05
 # decode profile reads the card idle 78-89 % of a step)
 HOOK_CALLS, HOOK_SAMPLES = 500, 20
 HYBRID_ARCH = "zamba2_1_2b"
-PERF_ARCHS = ("olmo_1b", "mamba2_1_3b", "zamba2_1_2b")
+# the twelfth slice: the MoE decoder scored at its published widths with
+# Arctic-480B cut to 2 of its 35 layers (26.8 GB of bf16 experts a layer;
+# 55 GB in all), and one forward each of the VLM (full depth: 40 GB of
+# float32 parameters), Whisper (whole) and Grok-1 (4 of 64 layers: 9.7 GB
+# a layer) on K5's route at 2 x 512 tokens; lm_serve serves the same cuts
+MOE_ARCH, MOE_LAYERS = "arctic_480b", 2
+FORWARD_ARCHS = (("llama_3_2_vision_11b", None), ("whisper_large_v3", None),
+                 ("grok_1_314b", 4))
+FORWARD_BATCH, FORWARD_SEQ = 2, 512
+# (arch, layers kept or None) of phase 17's perf records
+PERF_ARCHS = (("olmo_1b", None), ("mamba2_1_3b", None), ("zamba2_1_2b", None),
+              (MOE_ARCH, MOE_LAYERS))
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -502,9 +543,12 @@ def time_ms(fn, reps: int) -> float:
 PROFILE_PAD, PROFILE_ATTEMPTS = 256, 3
 
 
-def device_events(torch, fn) -> tuple[float, dict[str, list]]:
+def device_events(torch, fn, op_ms: dict | None = None
+                  ) -> tuple[float, dict[str, list]]:
     """One call of ``fn`` under ``torch.profiler``: its wall ms and, per
-    device kernel or copy name, [summed ms, count].
+    device kernel or copy name, [summed ms, count].  With ``op_ms``, also
+    fills it with each host op's own device ms (the kernels it launched
+    itself), by op name.
 
     The profiler on the card's machine (torch 2.11 + CUDA 12.8) drops the
     first device events of a session, more the longer the process has run.
@@ -528,6 +572,10 @@ def device_events(torch, fn) -> tuple[float, dict[str, list]]:
             acc = per_name.setdefault(e.name, [0.0, 0])
             acc[0] += e.time_range.elapsed_us() / 1e3
             acc[1] += 1
+        elif op_ms is not None:
+            own = getattr(e, "self_device_time_total", 0.0)
+            if own:
+                op_ms[e.name] = op_ms.get(e.name, 0.0) + own / 1e3
     return wall_ms, per_name
 
 
@@ -548,13 +596,15 @@ def kernel_device_ms(torch, fn, reps: int, key: str) -> float:
                  f"in {PROFILE_ATTEMPTS} runs")
 
 
-def device_profile(torch, fn, groups: dict | None = None) -> str:
+def device_profile(torch, fn, groups: dict | None = None,
+                   op_ms: dict | None = None) -> str:
     """Wall time of one profiled call of ``fn``, the summed device time of
     its kernels and copies (one stream, so the sum is the busy time), the
     idle share, the device time of each group of ``groups`` (name →
     substrings of kernel names; the first group that matches takes a
-    kernel, the rest is "other") and the largest device consumers."""
-    return profile_text(*device_events(torch, fn), groups)
+    kernel, the rest is "other") and the largest device consumers; with
+    ``op_ms``, each host op's own device ms (:func:`device_events`)."""
+    return profile_text(*device_events(torch, fn, op_ms), groups)
 
 
 def profile_text(wall_ms: float, per_name: dict,
@@ -1355,23 +1405,37 @@ def example_fleet(np, ExplicitFleet):
     return ExplicitFleet(com_cost=com, speed=speed, region=region), speed
 
 
-def expected_launches(cfg) -> dict[str, int]:
-    """Launches of each LM kernel in one forward of ``cfg`` (one lm_score
-    shard call): K5 once per attention layer (the hybrid: per shared-block
-    site) on the "pallas" attention route; K6 once per Mamba2 layer; K7 for
-    every RMSNorm with a weight (block and final norms, qk-norms, Mamba2's
-    gate norms, the shared block's two norms per site)."""
+def expected_launches(cfg, mode: str = "forward") -> dict[str, int]:
+    """Launches of each LM kernel in one call of ``cfg``'s model: ``mode``
+    "forward" (one lm_score shard call), "prefill" or "decode" (one
+    serving step).  K5 once per causal self-attention (the hybrid: per
+    shared-block site) in a forward on the "pallas" attention route,
+    never in a serving step (a cache routes attention to
+    ``_sdpa_chunked``) and never for an encoder or a cross-attention
+    (the reference hard-codes the chunked route there); K6 once per
+    Mamba2 layer in a forward or a prefill (a decode step runs the
+    recurrence); K7 for every RMSNorm with a weight: block and final
+    norms, qk-norms, Mamba2's gate norms, the shared block's two norms per
+    site, a VLM's cross-block norms, the audio model's three norms a
+    decoder layer and — outside a decode step — its encoder's two a layer
+    and ``enc_norm``."""
     L, rms = cfg.n_layers, cfg.norm_type == "rmsnorm"
+    flash = cfg.attention_impl == "pallas" and mode == "forward"
+    scan = L if mode != "decode" else 0
     if cfg.family == "ssm":
-        return {"ssd_scan": L, "rmsnorm": (2 * L + 1) if rms else L}
+        return {"ssd_scan": scan, "rmsnorm": (2 * L + 1) if rms else L}
     if cfg.family == "hybrid":
         sites = -(-L // cfg.shared_attn_every)
-        return {"flash_attention":
-                sites if cfg.attention_impl == "pallas" else 0,
-                "ssd_scan": L,
+        return {"flash_attention": sites if flash else 0,
+                "ssd_scan": scan,
                 "rmsnorm": (2 * L + 2 * sites + 1) if rms else L}
-    return {"flash_attention": L if cfg.attention_impl == "pallas" else 0,
-            "rmsnorm": ((2 * L + 1) if rms else 0)
+    if cfg.family == "audio":
+        enc = 0 if mode == "decode" else 2 * cfg.encoder_layers + 1
+        return {"flash_attention": L if flash else 0,
+                "rmsnorm": (3 * L + 1 + enc) if rms else 0}
+    cross = -(-L // cfg.cross_attn_every) if cfg.family == "vlm" else 0
+    return {"flash_attention": L if flash else 0,
+            "rmsnorm": ((2 * L + cross + 1) if rms else 0)
             + (2 * L if cfg.qk_norm else 0)}
 
 
@@ -1441,16 +1505,93 @@ def wrong_ssm_kernels(torch, cfg) -> dict:
 
 
 @contextlib.contextmanager
+def plain_route(model, kernels: bool = True):
+    """``model``'s attention on the chunked reference route inside the
+    block and, with ``kernels``, K6 / K7 swapped for their plain versions
+    (uncounted); restored after it."""
+    saved = model.cfg
+    model.cfg = saved.replace(attention_impl="reference")
+    try:
+        with plain_ssm_kernels() if kernels else contextlib.nullcontext():
+            yield
+    finally:
+        model.cfg = saved
+
+
+@contextlib.contextmanager
 def depth_cut(model, layers: int):
     """``model`` cut to its first ``layers`` blocks inside the block (its
-    cache too), restored after it."""
-    blocks, cfg = model.blocks, model.cfg
-    model.blocks = blocks[:layers]
-    model.cfg = cfg.replace(n_layers=layers)
+    cache too; an encoder-decoder's encoder to as many layers), restored
+    after it.  A VLM keeps the cross blocks its first groups use."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        saved = {"encoder": model.encoder, "decoder": model.decoder}
+        cut = cfg.replace(n_layers=layers, encoder_layers=layers)
+    else:
+        saved = {"blocks": model.blocks}
+        cut = cfg.replace(n_layers=layers)
+    for name, mods in saved.items():
+        setattr(model, name, mods[:layers])
+    model.cfg = cut
     try:
         yield
     finally:
-        model.blocks, model.cfg = blocks, cfg
+        for name, mods in saved.items():
+            setattr(model, name, mods)
+        model.cfg = cfg
+
+
+def seeded_model(torch, cfg, dev):
+    """``cfg``'s model on ``dev`` with random weights from ``SEED``, drawn
+    in place on the card; a VLM's gates opened to seeded values in
+    ±[0.3, 0.9] (``init_params`` leaves them at 0, where the cross path
+    adds nothing)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for s, cb in enumerate(getattr(model, "cross", ())):
+            u = float(torch.rand((), generator=gen))
+            cb.gate.fill_((0.3 + 0.6 * u) * (-1) ** s)
+    return model
+
+
+def model_extras(torch, cfg, batch: int, dev) -> dict:
+    """The stub frontends' inputs for ``batch`` rows, as ``serve.main``
+    makes them: seeded float32 image (VLM) or frame (audio) embeddings on
+    ``dev``; none for a text model."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn(
+            (batch, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=dev)}
+    if cfg.family == "audio":
+        return {"audio_frames": torch.randn(
+            (batch, cfg.n_audio_frames, cfg.d_model), generator=gen,
+            device=dev)}
+    return {}
+
+
+@contextlib.contextmanager
+def recorded_drops(drops: list, tokens: int):
+    """Inside the block every MoE layer appends to ``drops`` the share of
+    its real (token, choice) pairs — the first ``tokens`` tokens, not the
+    padding of the last group — that capacity dropped."""
+    from repro_torch.models import moe
+    saved = moe._route
+
+    def route(p, xg, cfg, C):
+        out = saved(p, xg, cfg, C)
+        keep = out[4].reshape(-1, cfg.moe_top_k)[:tokens]
+        drops.append(float((~keep).float().mean()))
+        return out
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = saved
 
 
 def coupling_for(np, DQCoupling, n_ops: int, V: int):
@@ -2299,16 +2440,27 @@ def recorded_lm_inputs(seen: dict, stage: dict | None = None):
 def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
                       timed: bool = True) -> dict:
     """K5, K6 and K7 on the operands one ``run()`` of a path hands them
-    (:func:`recorded_lm_inputs`), one per shape and dtype, against their
-    plain versions: float32 against the float64 plain version at ``REL``
-    (K6: or the plain version's own float32 error), bfloat16 against the
-    plain version in float32 math at ``BF16_REL``.  K6 is held on y and
-    its final state, and its repeat writes the state into a NaN-filled
-    buffer as a cache hands it; every kernel is bitwise on repeat.  With
-    ``timed``, each kernel's, its plain version's and its bound's ms at
-    that shape, and for K5 ``scaled_dot_product_attention``'s (timed as a
-    yardstick only).  Returns, per key, the part of the run it came from
-    and the numbers."""
+    (:func:`recorded_lm_inputs`), held by :func:`hold_recorded`."""
+    seen = {}
+    with recorded_lm_inputs(seen, stage):
+        run()
+    return hold_recorded(torch, dev, phase, seen, timed)
+
+
+def hold_recorded(torch, dev, phase: str, seen: dict,
+                  timed: bool = True) -> dict:
+    """K5, K6 and K7 on recorded operands (:func:`recorded_lm_inputs`),
+    one per shape and dtype, against their plain versions: float32
+    against the float64 plain version at ``REL`` (K6: or the plain
+    version's own float32 error), bfloat16 against the plain version in
+    float32 math at ``BF16_REL``.  K6 is held on y and its final state,
+    and its repeat writes the state into a NaN-filled buffer as a cache
+    hands it; every kernel is bitwise on repeat.  With ``timed``, each
+    kernel's, its plain version's and its bound's ms at that shape, and
+    the library call's (timed as a yardstick only): for K5
+    ``scaled_dot_product_attention``, for K7 ``F.rms_norm`` (float32 w,
+    or bf16 w where it refuses float32).  Returns, per key, the part of
+    the run it came from and the numbers."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2316,9 +2468,6 @@ def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
     from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.perf import roofline
-    seen = {}
-    with recorded_lm_inputs(seen, stage):
-        run()
     out = {}
     for key, (st, args, kw) in seen.items():
         name, shape, dtype = key
@@ -2352,6 +2501,14 @@ def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
             D = shape[-1]
             terms = roofline.rmsnorm_terms(args[0].numel() // D, D, dtype)
             bar = REL if f32 else BF16_REL
+            x, w, eps = args
+            try:
+                F.rms_norm(x, (D,), weight=w, eps=eps)
+                wl = w
+            except RuntimeError:
+                wl = w.to(x.dtype)
+            library = lambda: F.rms_norm(x, (D,), weight=wl,  # noqa: E731
+                                         eps=eps)
         else:
             kernel = lambda: sk.ssd_scan(*args)  # noqa: E731
             plain = lambda: ref.ssd_scan_plain(*args)  # noqa: E731
@@ -2389,8 +2546,9 @@ def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
             if library is not None:
                 r["library_ms"] = time_ms(library, 5)
         out[key] = r
-        lib = ("" if r["library_ms"] is None
-               else f", sdpa {r['library_ms']:.4f} ms")
+        lib = ("" if r["library_ms"] is None else
+               f", {'sdpa' if name == 'flash_attention' else 'F.rms_norm'} "
+               f"{r['library_ms']:.4f} ms")
         print(f"{what}: rel err {rel:.3e} (bar {bar:.0e}), bitwise on repeat"
               + (f"; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
@@ -2401,30 +2559,30 @@ def hold_path_kernels(torch, dev, phase: str, run, stage: dict | None = None,
 def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                    profile: bool = True, hold: bool = False) -> dict:
     """The example's streaming job with ``cfg`` as the LM-scoring operator
-    (see the module docstring, phases 6, 8 and 8b).  With ``hold``, the LM
-    kernels are also held against their plain versions on the operands
-    one shard hands them (:func:`hold_path_kernels`).  Returns the
-    launches of the family's main kernel (K5, or K6 for Mamba2 and the
-    hybrid) and of every LM kernel on the main path, and the phase's
-    numbers."""
+    (see the module docstring, phases 6, 8, 8b and 8c).  With ``hold``,
+    the LM kernels are also held against their plain versions on the
+    operands one shard hands them (:func:`hold_recorded`, after the model
+    is freed: K5's plain version of an Arctic shard takes 30 GB).
+    Returns the launches of the family's main kernel (K5, or K6 for
+    Mamba2 and the hybrid) and of every LM kernel on the main path, the
+    share of (token, choice) pairs capacity dropped in each MoE layer of
+    one shard, and the phase's numbers."""
     from repro_torch.core.devices import ExplicitFleet
     from repro_torch.core.placement import uniform_placement
-    from repro_torch.models import build_model
     from repro_torch.streaming import (StreamGraph, StreamingEngine, map_op,
                                        model_op, quality_op, quality_scores,
                                        source, window_agg)
 
     ssm = cfg.family in ("ssm", "hybrid")
-    phase = {"ssm": "lm_score_mamba2", "hybrid": "lm_score_zamba2"}.get(
-        cfg.family, "lm_score")
+    phase = {"ssm": "lm_score_mamba2", "hybrid": "lm_score_zamba2",
+             "moe": "lm_score_moe"}.get(cfg.family, "lm_score")
     main_kernel = "ssd_scan" if ssm else "flash_attention"
     want_per_call = expected_launches(cfg)
     fleet, speed = example_fleet(np, ExplicitFleet)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    model = seeded_model(torch, cfg, dev)
     sync(torch, dev)
     init_s = time.perf_counter() - t0
     lm = model_op("lm_score", model, work=50.0)
@@ -2497,30 +2655,32 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
               f"want {n_scored} scored -> {want_out}")
 
     # one shard against the same forward through the plain route: the
-    # chunked reference attention (dense, hybrid) and K6/K7's plain
-    # versions (ssm, hybrid)
+    # chunked reference attention (on K5's route) and, but for the dense
+    # decoder, K6/K7's plain versions — the same model with its config
+    # swapped, since an Arctic cut holds 55 GB of weights
     shard_rows, got, _ = shards[0]
     flash = cfg.attention_impl == "pallas"
+    plain_norms = cfg.family != "dense"
     what = " and ".join(
         (["flash vs reference attention"] if flash else [])
-        + (["K6/K7 vs their plain versions"] if ssm else []))
-    ref_model = model
-    if flash:
-        ref_model = build_model(cfg.replace(attention_impl="reference"),
-                                device=dev)
-        ref_model.load_state_dict(model.state_dict())
-    with plain_ssm_kernels() if ssm else contextlib.nullcontext():
-        want = model_op("reference", ref_model).fn(shard_rows)
-    del ref_model
+        + (["K6/K7 vs their plain versions"] if ssm else [])
+        + (["K7 vs its plain version"] if plain_norms and not ssm else []))
+    with plain_route(model, kernels=plain_norms):
+        want = model_op("reference", model).fn(shard_rows)
     ref_rel = float(np.abs(got.astype(np.float64) - want).max()
                     / np.abs(want.astype(np.float64)).max())
     check(ref_rel <= LM_REF_REL,
           f"{phase}: {what} rel err {ref_rel:.3e} > {LM_REF_REL}")
-    held = hold_path_kernels(torch, dev, phase,
-                             lambda: score_fn(shard_rows),
-                             timed=dev.type == "cuda") if hold else {}
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    seen, drops = {}, []
+    if hold:
+        with recorded_lm_inputs(seen):
+            score_fn(shard_rows)
+    if cfg.moe_experts:
+        with recorded_drops(drops, len(shard_rows) * seq):
+            score_fn(shard_rows)
+        check(len(drops) == cfg.n_layers,
+              f"{phase}: {len(drops)} MoE layers routed, want "
+              f"{cfg.n_layers}")
 
     tokens = [int(r.op_rows_in[lm_ix]) * seq for r in reports]
     for i, (rep, wall, peak, tok) in enumerate(zip(reports, walls, peaks,
@@ -2532,6 +2692,10 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
               f"latency {rep.modeled_latency:.4f}")
     width = ", ".join(
         ([f"{cfg.n_heads} heads of {cfg.hd}"] if cfg.family != "ssm" else [])
+        + ([f"{cfg.moe_experts} experts top-{cfg.moe_top_k} of d_ff "
+            f"{cfg.d_ff}" + (" and a dense residual MLP"
+                             if cfg.moe_dense_residual else "")]
+           if cfg.moe_experts else [])
         + ([f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of "
             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
             f"{cfg.ssm_chunk}"] if ssm else [])
@@ -2545,6 +2709,13 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
           f"per call); {what} on a shard of {len(shard_rows)} rows: rel "
           f"err {ref_rel:.3e} (bar {LM_REF_REL})"
           + (f"; K6 routes and passes {k6_routes}" if ssm else ""))
+    if cfg.moe_experts:
+        from repro_torch.models.moe import capacity
+        grp, n_grp, cap = capacity(cfg, len(shard_rows) * seq)
+        print(f"{phase}: one shard of {len(shard_rows)} x {seq} tokens in "
+              f"{n_grp} groups of {grp} (the last padded), capacity C {cap} a "
+              f"group and expert; (token, choice) pairs dropped by capacity"
+              f" per layer " + ", ".join(f"{d:.4%}" for d in drops))
     if profile:
         groups = {"K6": ("ssd_scan",), "K7": ("rmsnorm",),
                   "K5": ("flash_attention",),
@@ -2553,12 +2724,38 @@ def lm_score_phase(torch, np, dev, cfg, rows: int, seq: int, batches: int,
                   "conv/elementwise": ("elementwise", "vectorized",
                                        "unrolled", "cat", "reduce"),
                   "copies": ("memcpy", "memset")}
-        prof = device_profile(torch, lambda: eng.run_batch(data[-1]), groups)
+        if cfg.moe_experts:
+            groups = {"K5": ("flash_attention",), "K7": ("rmsnorm",),
+                      "f32 GEMM (the head, the router, the combine)":
+                          F32_GEMM,
+                      "bf16 GEMM (experts, projections)": GEMM,
+                      "routing and gathers": ("sort", "scan", "scatter",
+                                              "gather", "index"),
+                      "elementwise": ("elementwise", "vectorized",
+                                      "unrolled", "cat", "reduce"),
+                      "copies": ("memcpy", "memset")}
+        op_ms = {}
+        prof = device_profile(torch, lambda: eng.run_batch(data[-1]), groups,
+                              op_ms)
+        if cfg.moe_experts:
+            prof += (f"; by op: aten::bmm (the experts' three GEMMs and "
+                     f"the combine) {op_ms.get('aten::bmm', 0.0):.1f} ms, "
+                     f"aten::mm (projections, head, router) "
+                     f"{op_ms.get('aten::mm', 0.0):.1f} ms")
         print(f"{phase} profile (a third, profiled batch): {prof}")
+    shard_max = max(len(r) for r, _, _ in shards)
+    # free the model before the holds: K5's plain version of one shard
+    # materialises its float32 scores
+    del model, lm, score_fn, counted, ops, g, eng, shards
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    held = hold_recorded(torch, dev, phase, seen,
+                         timed=dev.type == "cuda") if hold else {}
     return {"launches": launched[main_kernel], "kernel_launches": launched,
             "calls": calls, "walls": walls, "tokens": tokens,
-            "ref_rel": ref_rel, "held": held,
-            "shard_rows": max(len(r) for r, _, _ in shards)}
+            "ref_rel": ref_rel, "held": held, "drops": drops,
+            "shard_rows": shard_max}
 
 
 
@@ -2846,14 +3043,96 @@ def projected_gradient_phase(torch, np, dev, graph, small_per_region: int,
             "big_loss": big["loss"], "big_grad": big["grad"]}
 
 
+def lm_forward_phase(torch, np, dev, cfg, batch: int = FORWARD_BATCH,
+                     seq: int = FORWARD_SEQ, timed: bool = True) -> dict:
+    """One forward (no cache) of ``cfg``'s model on ``batch`` × ``seq``
+    tokens with its extras (seeded image or frame embeddings, a VLM's
+    gates opened), on K5's route where ``cfg`` asks for it: K5 and K7
+    launched as the config implies (K5 once per causal self-attention:
+    never for the Whisper encoder or a cross-attention), finite logits of
+    the right shape, and each row's score (its mean next-token
+    cross-entropy, what ``model_op`` reports) within ``LM_REF_REL`` of the
+    plain route's (the chunked reference attention, K7's plain version);
+    then K5 / K7 held on the operands this forward hands them
+    (:func:`hold_path_kernels`; timed with ``timed`` on the card).  The
+    logits are not held here: at 40 layers, or through an MoE router
+    whose top-k flips on a rounding, their gap to the plain route is the
+    size of the plain route's own bf16 error against float32 activations
+    (an H100 read 2.17e-2 against 2.29e-2 for Llama-Vision, 0.798
+    against 0.805 for Grok at 4 layers), so a bar between them would test
+    the noise; lm_serve holds the logits over the first layers."""
+    from repro_torch.models.layers import token_cross_entropy
+    phase = f"lm_forward {cfg.name}"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = seeded_model(torch, cfg, dev)
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 31)
+    inputs = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (batch, seq), dtype=np.int32), device=dev),
+        **model_extras(torch, cfg, batch, dev)}
+    per = expected_launches(cfg)
+    with torch.inference_mode():
+        sync(torch, dev)
+        reset_lm_launches()
+        t0 = time.perf_counter()
+        logits, _ = model(inputs)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launched = {k: lm_launches()[k] for k in per}
+        check(launched == per, f"{phase}: launches {launched}, want {per}")
+        check(logits.shape == (batch, seq, cfg.vocab_padded)
+              and bool(torch.isfinite(logits).all()),
+              f"{phase}: logits {tuple(logits.shape)} not finite of shape "
+              f"{(batch, seq, cfg.vocab_padded)}")
+        toks = inputs["tokens"]
+        with plain_route(model):
+            want, _ = model(inputs)
+        score, want_score = (token_cross_entropy(t[:, :-1], toks[:, 1:])
+                             .mean(-1) for t in (logits, want))
+        ref_rel = rel_err(score, want_score)[0]
+        del logits, want
+    check(ref_rel <= LM_REF_REL, f"{phase}: scores vs the plain route "
+                                 f"(reference attention, plain K7) rel err "
+                                 f"{ref_rel:.3e} > {LM_REF_REL}")
+
+    def run():
+        with torch.inference_mode():
+            model(inputs)
+
+    held = hold_path_kernels(torch, dev, phase, run,
+                             timed=timed and dev.type == "cuda")
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB"
+            if dev.type == "cuda" else "not measured")
+    extras = ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items()
+                       if k != "tokens") or "none"
+    print(f"{phase}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd} ({cfg.n_kv_heads} kv), "
+          f"{batch} x {seq} tokens, extras {extras}; set-up {setup_s:.1f} s;"
+          f" forward {wall * 1e3:.1f} ms, peak {peak}; launches {launched} "
+          f"(want {per}); scores vs the plain route rel err {ref_rel:.3e} "
+          f"(bar {LM_REF_REL})")
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launched, "ref_rel": ref_rel, "held": held,
+            "wall": wall}
+
+
 def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
                    profile: bool = True) -> dict:
     """``serve_wave`` (ROADMAP A13a) with ``cfg`` at its published widths
-    and seeded random weights: ``SERVE_BATCH`` prompts of ``SERVE_PROMPT``
-    tokens, ``SERVE_GEN`` generated.  It checks the K6 / K7 launches
-    against the count the model implies (prefill: one forward; every
-    decode step: the norms again, K6 only in prefill) and finite tokens in
-    the vocabulary.  Then a prefill and ``SERVE_FORCED`` teacher-forced
+    and seeded random weights (a VLM's gates opened), with the extras a
+    VLM or an audio model serves with (:func:`model_extras`):
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN``
+    generated.  It checks the K6 / K7 launches against the count the model
+    implies (:func:`expected_launches` of a prefill and of each decode
+    step) and finite tokens in the vocabulary; with cross-attention, that
+    every decode step leaves the cached cross keys and values bitwise as
+    the prefill wrote them.  Then a prefill and ``SERVE_FORCED`` teacher-forced
     decode steps: (1) every operand the model handed K7 or K6 there, one
     per shape and dtype (block, qk- and gate norms; the prefill scan with
     its final state), goes through the kernel again against its plain
@@ -2869,25 +3148,24 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     both (2) and (3).  It prints prefill s, decode tokens/s, peak memory
     and a profile of one decode step."""
     from repro_torch.launch.serve import ServeStats, serve_wave
-    from repro_torch.models import build_model
     phase = f"lm_serve {cfg.name}"
     B, S_, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    model = seeded_model(torch, cfg, dev)
+    extras = model_extras(torch, cfg, B, dev)
     sync(torch, dev)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 24)
     prompts = rng.integers(0, cfg.vocab, (B, S_), dtype=np.int32)
-    per = expected_launches(cfg)
-    want = {"rmsnorm": per["rmsnorm"] * G,
-            "ssd_scan": per.get("ssd_scan", 0)}
+    pre, dec = (expected_launches(cfg, m) for m in ("prefill", "decode"))
+    want = {k: pre.get(k, 0) + (G - 1) * dec.get(k, 0)
+            for k in ("rmsnorm", "ssd_scan")}
     sync(torch, dev)
     reset_lm_launches()
     stats = ServeStats()
-    out, stats = serve_wave(model, cfg, prompts, G, stats=stats)
+    out, stats = serve_wave(model, cfg, prompts, G, extras, stats=stats)
     launched = lm_launches()
     check(launched["rmsnorm"] == want["rmsnorm"]
           and launched["ssd_scan"] == want["ssd_scan"]
@@ -2899,6 +3177,7 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     # prefill and teacher-forced decode
     forced = rng.integers(0, cfg.vocab, (B, SERVE_FORCED), dtype=np.int32)
     stage = {"now": ""}
+    cross_same = []
 
     def run():
         logits = []
@@ -2906,14 +3185,24 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
             cache = model.init_cache(B, S_ + SERVE_FORCED)
             stage["now"] = "prefill"
             lg, cache = model.prefill(
-                {"tokens": torch.as_tensor(prompts, device=dev)}, cache)
+                {"tokens": torch.as_tensor(prompts, device=dev), **extras},
+                cache)
             logits.append(lg)
+            cross = getattr(cache, "cross", None)
+            if cross is not None:
+                written = cross.k.clone(), cross.v.clone()
             stage["now"] = "decode"
             for i in range(SERVE_FORCED):
                 lg, cache = model.decode_step(
                     cache, S_ + i,
                     torch.as_tensor(forced[:, i:i + 1], device=dev))
                 logits.append(lg)
+            if cross is not None:
+                cross_same.append(torch.equal(cross.k, written[0])
+                                  and torch.equal(cross.v, written[1]))
+                check(cross_same[-1], f"{phase}: a decode step changed the "
+                                      f"cached cross keys or values")
+                del written
         return torch.cat(logits, dim=1)
 
     def against_plain(faults: dict):
@@ -2974,8 +3263,8 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     if profile:
         with torch.inference_mode():
             cache = model.init_cache(B, S_ + 2)
-            model.prefill({"tokens": torch.as_tensor(prompts, device=dev)},
-                          cache)
+            model.prefill({"tokens": torch.as_tensor(prompts, device=dev),
+                           **extras}, cache)
             tok = torch.as_tensor(prompts[:, -1:], device=dev)
             prof = device_profile(
                 torch, lambda: model.decode_step(cache, S_, tok), {
@@ -2984,6 +3273,11 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
                     "casts/copies": ("copy", "memcpy", "cast")})
             del cache
     s = stats.summary()
+    if extras:
+        print(f"{phase}: extras " + ", ".join(
+            f"{k} {tuple(v.shape)}" for k, v in extras.items())
+            + (f"; cross keys and values bitwise unchanged by every decode "
+               f"step in {len(cross_same)} runs" if cross_same else ""))
     print(f"{phase}{cut}: {B} prompts x {S_} tokens + {G} generated; set-up "
           f"{setup_s:.1f} s; prefill {stats.prefill_s:.4f} s "
           f"({B * S_ / stats.prefill_s:.0f} tokens/s), decode "
@@ -3005,11 +3299,12 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
               f"{k} {planted_cut[k]:.3e} / {planted[k]:.3e}" for k in faults)
               or "none (no kernel on this path)"))
     print(f"{phase} profile (one decode step, batch {B}): {prof}")
-    del model
+    del model, extras
     torch.cuda.empty_cache()
     return {"summary": s, "launches": launched, "rel": rel, "own": own,
             "rel_cut": rel_cut, "own_cut": own_cut, "planted": planted,
-            "planted_cut": planted_cut, "held": held, "peak": peak}
+            "planted_cut": planted_cut, "held": held, "peak": peak,
+            "cross_unchanged": bool(cross_same) and all(cross_same)}
 
 
 # -- the eleventh slice: the perf record, the build hooks --------------------
@@ -3188,9 +3483,9 @@ def perf_lm_phase(torch, np, dev, cfg, rows: int, seq: int) -> dict:
     from repro_torch.perf import counts
     from repro_torch.perf.roofline import PEAK_BF16_TC
 
-    name = f"lm_score {cfg.name}"
-    model = build_model(cfg, device=dev)
-    model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    name = f"lm_score {cfg.name}" + (f" ({cfg.n_layers} layers)"
+                                      if cfg.moe_experts else "")
+    model = seeded_model(torch, cfg, dev)
     rng = np.random.default_rng(SEED + 7)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (rows, seq),
                                         dtype=np.int32), device=dev)
@@ -3249,6 +3544,17 @@ def perf_lm_phase(torch, np, dev, cfg, rows: int, seq: int) -> dict:
               f"{bar:.6e})")
         notes.append(f"K6 card {got:.6e} vs plain less the upper triangle "
                      f"{want:.6e} ({abs(got - want) / plain:.3%} of plain)")
+    if cfg.moe_experts:
+        from repro_torch.models.moe import capacity
+        _, n_grp, cap = capacity(cfg, rows * seq)
+        slots = cfg.moe_experts * cap * n_grp
+        pairs = rows * seq * cfg.moe_top_k
+        notes.append(f"MoE: {slots} expert slots a layer for {pairs} "
+                     f"(token, choice) pairs ({slots / pairs:.4f}x: capacity"
+                     f" factor {cfg.moe_capacity_factor} and the padded "
+                     f"last group), each slot multiplied filled or not, "
+                     f"where the analytic count charges top-"
+                     f"{cfg.moe_top_k} experts a token")
     if "rmsnorm" in card_k:
         check(cpu_k["rmsnorm"]["flops"] == 0,
               f"perf_record {name}: K7's plain version counted "
@@ -3722,6 +4028,24 @@ def main() -> int:
           f"held at {shard}")
     torch.cuda.empty_cache()
 
+    # -- 8c. the LM-scoring job on the MoE decoder: K5 and K7 -------------
+    moe_cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS,
+                                           attention_impl="pallas")
+    moe_run = lm_score_phase(torch, np, dev, moe_cfg, LM_ROWS, LM_SEQ,
+                             LM_BATCHES, hold=True)
+    check(moe_run["shard_rows"] <= shard,
+          f"lm_score_moe: a shard of {moe_run['shard_rows']} rows, K5/K7 "
+          f"held at {shard}")
+    torch.cuda.empty_cache()
+
+    # -- 8d. one forward of the VLM, Whisper and Grok on K5's route -------
+    for arch, layers in FORWARD_ARCHS:
+        fwd_cfg = get_config(arch).replace(attention_impl="pallas")
+        if layers is not None:
+            fwd_cfg = fwd_cfg.replace(n_layers=layers)
+        lm_forward_phase(torch, np, dev, fwd_cfg)
+        torch.cuda.empty_cache()
+
     # -- 9.-12. search, robust search and the engine's re-optimization ------
     search_dense_phase(torch, np, dev, graph, SEARCH_PER_REGION,
                        SEARCH_CANDIDATES, SEARCH_BATCH, ANNEAL_STEPS,
@@ -3745,12 +4069,15 @@ def main() -> int:
     projected_gradient_phase(torch, np, dev, graph, PG_SMALL_PER_REGION,
                              SEARCH_PER_REGION, PG_STEPS)
     torch.cuda.empty_cache()
+    from repro_torch.models import count_params
     for arch, layers in SERVE_ARCHS:
         serve_cfg = get_config(arch)
         cut = ""
         if layers is not None:
+            gb = count_params(serve_cfg)[0] * serve_cfg.pdtype.itemsize / 1e9
             cut = (f" (cut to {layers} of {serve_cfg.n_layers} layers: one "
-                   f"card cannot hold its float32 parameters)")
+                   f"card cannot hold its {gb:.0f} GB of "
+                   f"{serve_cfg.param_dtype} parameters)")
             serve_cfg = serve_cfg.replace(n_layers=layers)
         lm_serve_phase(torch, np, dev, serve_cfg, cut)
 
@@ -3763,10 +4090,12 @@ def main() -> int:
     w_dec = torch.ones(x_dec.shape[-1], device=dev)
     hook_overhead_phase(torch, lambda: dispatch.rmsnorm(x_dec, w_dec))
     del x_dec, w_dec
-    for arch in PERF_ARCHS:
+    for arch, layers in PERF_ARCHS:
         perf_cfg = get_config(arch)
         if perf_cfg.family != "ssm":
             perf_cfg = perf_cfg.replace(attention_impl="pallas")
+        if layers is not None:
+            perf_cfg = perf_cfg.replace(n_layers=layers)
         perf_lm_phase(torch, np, dev, perf_cfg, shard, LM_SEQ)
         torch.cuda.empty_cache()
     compile_span_phase(torch, dev)

@@ -14,7 +14,8 @@ donation: the cache is written in place under ``torch.inference_mode()``.
 Times are the host clock around work flushed with
 ``torch.cuda.synchronize`` when the model is on the card.
 
-Example (the card, reduced granite):
+Example (the card, reduced granite; ``--arch whisper-large-v3`` or
+``llama-3.2-vision-11b`` serve with seeded frame / image embeddings):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --smoke --requests 16 --batch 8 --prompt-len 32 --gen 16 --device cuda
 """
@@ -60,11 +61,10 @@ def _flush(device: torch.device) -> None:
 def serve_wave(model, cfg, prompts: np.ndarray, gen_tokens: int,
                extras: dict | None = None, stats: ServeStats | None = None):
     """prompts (B, S) ints → (generated (B, gen_tokens) int32, stats).
-    VLM / audio ``extras`` raise: those families come with ROADMAP A13b."""
-    if extras:
-        raise NotImplementedError(
-            f"serving extras {sorted(extras)} (VLM / audio) are not ported "
-            f"yet (ROADMAP A13b)")
+    ``extras`` joins the prefill's batch, as in the reference: the VLM's
+    ``image_embeds`` (B, n_img, d), the audio model's ``audio_frames``
+    (B, n_frames, d), as arrays or tensors (moved to the model's
+    device)."""
     stats = stats or ServeStats()
     B, S = prompts.shape
     dev = model.device
@@ -73,6 +73,8 @@ def serve_wave(model, cfg, prompts: np.ndarray, gen_tokens: int,
     with torch.inference_mode():
         cache = model.init_cache(B, S + gen_tokens)
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev)}
+        batch.update({k: torch.as_tensor(v, device=dev)
+                      for k, v in (extras or {}).items()})
         _flush(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(batch, cache)
@@ -106,11 +108,21 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"family {cfg.family!r} serves with "
-                                  f"extras (ROADMAP A13b)")
     model = build_model(cfg, device=args.device)
     model.init_params(torch.Generator(device=model.device).manual_seed(0))
+    # the stub frontends' embeddings, float32 from seeded generators on the
+    # model's device, as the reference draws them (keys 1 and 2)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = torch.randn(
+            (args.batch, cfg.n_image_tokens, cfg.d_model),
+            generator=torch.Generator(device=model.device).manual_seed(1),
+            device=model.device)
+    if cfg.family == "audio":
+        extras["audio_frames"] = torch.randn(
+            (args.batch, cfg.n_audio_frames, cfg.d_model),
+            generator=torch.Generator(device=model.device).manual_seed(2),
+            device=model.device)
     rng = np.random.default_rng(0)
     stats = ServeStats()
     done = 0
@@ -118,7 +130,7 @@ def main(argv=None):
         b = min(args.batch, args.requests - done)
         prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                                dtype=np.int32)  # fixed shape; pad last wave
-        _, stats = serve_wave(model, cfg, prompts, args.gen, stats=stats)
+        _, stats = serve_wave(model, cfg, prompts, args.gen, extras, stats)
         done += b
     s = stats.summary()
     # paper eq. (8): quality-adjusted objective for the serving deployment

@@ -8,9 +8,15 @@ torch dtypes.  ``build_model(cfg, device)`` returns a module exposing
   init_params(generator)        -> fills the parameters in place
   forward(batch)                -> (logits, aux_loss)
 
-The dense decoder family without experts, the Mamba2 SSM family and the
-Zamba2 hybrid are ported, with their serving paths (``init_cache``,
-``prefill``, ``decode_step``); the other families come with ROADMAP A13b.
+  init_cache(batch, max_seq)    -> a zeroed cache on the model's device
+  prefill(batch, cache)         -> (logits_last, cache)
+  decode_step(cache, pos, tokens) -> (logits, cache)
+
+for every family of the reference: the dense and MoE decoders, the Mamba2
+SSM, the Zamba2 hybrid, the VLM and the audio encoder–decoder.  ``batch``
+is a dict: always ``tokens`` (B, S) ints; the VLM adds ``image_embeds``
+(B, n_img, d), the audio model ``audio_frames`` (B, n_frames, d) — the
+modality frontends are stubs, as in the reference.
 """
 
 from __future__ import annotations
@@ -102,22 +108,28 @@ class ModelConfig:
 def build_model(cfg: ModelConfig, device=None):
     """The model for ``cfg`` on ``device`` (``None``: the card, raising
     without CUDA), parameters allocated but not initialised: call
-    ``init_params`` or load them (``repro_torch.convert``).  A hybrid with
-    ``shared_attn_every`` 0 raises ValueError, as the reference asserts."""
-    if cfg.family == "dense" and not cfg.moe_experts:
+    ``init_params`` or load them (``repro_torch.convert``).  As the
+    reference: ``dense`` and ``moe`` build a ``DecoderLM`` (with MoE blocks
+    when ``moe_experts`` > 0), ``ssm`` a ``Mamba2LM`` and ``hybrid`` a
+    ``Zamba2LM`` (both ignore ``moe_experts``), ``vlm`` a ``VisionLM``,
+    ``audio`` an ``EncDecLM``; a family's missing sizes raise ValueError,
+    as the reference asserts them."""
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, device=device)
-    if cfg.family == "ssm" and not cfg.moe_experts:
+    if cfg.family == "ssm":
         from repro_torch.models.mamba2 import Mamba2LM
         return Mamba2LM(cfg, device=device)
-    if cfg.family == "hybrid" and not cfg.moe_experts:
+    if cfg.family == "hybrid":
         from repro_torch.models.hybrid import Zamba2LM
         return Zamba2LM(cfg, device=device)
-    raise NotImplementedError(
-        f"family {cfg.family!r}"
-        + (f" with {cfg.moe_experts} experts" if cfg.moe_experts else "")
-        + " is not ported yet (ROADMAP A13b); the port runs the dense "
-          "decoder without experts, the Mamba2 SSM and the Zamba2 hybrid")
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VisionLM
+        return VisionLM(cfg, device=device)
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import EncDecLM
+        return EncDecLM(cfg, device=device)
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 # ------------------------------------------------------- analytic counts ---

@@ -76,10 +76,9 @@ class Zamba2LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "hybrid" or cfg.moe_experts:
-            raise NotImplementedError(
-                f"Zamba2LM runs the hybrid family; got family "
-                f"{cfg.family!r}, {cfg.moe_experts} experts (ROADMAP A13b)")
+        if cfg.family != "hybrid":
+            raise ValueError(f"Zamba2LM runs the hybrid family, got "
+                             f"{cfg.family!r}")
         if cfg.shared_attn_every <= 0:
             raise ValueError(f"a hybrid needs shared_attn_every > 0, got "
                              f"{cfg.shared_attn_every}")

@@ -8,22 +8,24 @@ the reference op for op: norms, rotary and softmax in float32; matmuls read
 the weights cast to the activation dtype and return the activation dtype.
 
 RMSNorm with a weight runs K7 (:func:`rms_norm`), qwen3's q/k-norm
-included.  Attention is causal self-attention, with or without a
-:class:`KVCache`.  Without a cache (the training / scoring path) two
-routes, chosen by ``impl``:
+included.  Attention is self-attention, with or without a
+:class:`KVCache`, or cross-attention.  Causal self-attention without a
+cache (the training / scoring path) takes one of two routes, chosen by
+``impl``:
 
   * ``"pallas"`` — K5 through :mod:`repro_torch.kernels.dispatch`: the CUDA
     flash-attention kernel on the card, its plain version on the CPU;
   * ``"reference"`` — :func:`_sdpa_chunked`, query chunks with float32
     softmax rows.
 
-With a cache (prefill and decode) attention takes :func:`_sdpa_chunked`
-whatever ``impl`` says, as the reference does, except a one-token decode
-with grouped kv heads, which takes the reference's grouped einsum and
-never repeats the cache.  Cross-attention (``kv_source``, the VLM and the
-audio decoder) comes with ROADMAP A13b.  The reference's mesh constraints
-(``shard``, ``shard_div``, ``constrain_tree``) are identities on one
-device and have no counterpart.
+Everything else takes :func:`_sdpa_chunked` whatever ``impl`` says, as
+the reference does: a cache (prefill and decode), non-causal attention
+(the Whisper encoder) and cross-attention (``kv_source``, or a cache read
+without ``cache_pos``: the VLM and the audio decoder) — except a
+one-token query with grouped kv heads, which takes the reference's
+grouped einsum and never repeats the keys.  The reference's mesh
+constraints (``shard``, ``shard_div``, ``constrain_tree``) are identities
+on one device and have no counterpart.
 """
 
 from __future__ import annotations
@@ -188,57 +190,69 @@ def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               kv_source: torch.Tensor | None = None,
               impl: str = "reference", chunk: int = 256,
               qk_norm: bool = False) -> torch.Tensor:
-    """Causal self-attention, x (B, Sq, d) → out (B, Sq, d); a cache is
+    """Self- or cross-attention, x (B, Sq, d) → out (B, Sq, d); a cache is
     written in place.
 
     ``params`` maps wq, wk, wv, wo (flat layout) and, with ``qk_norm``,
     q_norm / k_norm (K7 on rows of ``head_dim``).  Modes, as the
     reference's:
 
-      * train / score: ``cache=None`` — causal attention over x; with
-        ``impl="pallas"`` K5, else :func:`_sdpa_chunked`;
+      * train / score: ``cache=None`` — attention over x; causal with
+        ``impl="pallas"`` takes K5, else :func:`_sdpa_chunked`;
       * prefill: a zeroed cache and ``cache_pos=0`` — rotary at positions
         ``cache_pos + i``, the new keys and values written into the cache
         at ``cache_pos`` (the reference's ``dynamic_update_slice``), then
         attention over the whole cache with unwritten slots masked;
-      * decode: x (B, 1, d) and ``cache_pos`` the current length.
-
-    Cross-attention (``kv_source``, or a cache without ``cache_pos``)
-    raises: it comes with ROADMAP A13b."""
+      * decode: x (B, 1, d) and ``cache_pos`` the current length;
+      * cross-attention: ``kv_source`` (B, S_src, d) gives the keys and
+        values, without rotary (q has none either); or a cache with
+        ``cache_pos=None`` holds them, precomputed at prefill, and is
+        read as it is (no rotary, no k-norm, nothing written)."""
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention impl {impl!r} not one of "
                          f"{ATTENTION_IMPLS}")
-    if kv_source is not None or (cache is not None and cache_pos is None):
-        raise NotImplementedError(
-            "cross-attention (kv_source, or a cache read without "
-            "cache_pos) is not ported yet (ROADMAP A13b)")
     B, Sq, _ = x.shape
     G = n_heads // n_kv_heads
     q = dense(params["wq"], x).reshape(B, Sq, n_heads, head_dim)
-    k = dense(params["wk"], x).reshape(B, Sq, n_kv_heads, head_dim)
-    v = dense(params["wv"], x).reshape(B, Sq, n_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
-    base = int(cache_pos) if cache is not None else 0
-    if rope_theta is not None:
-        cos, sin = rotary_embedding(
-            base + torch.arange(Sq, device=x.device), head_dim, rope_theta)
-        q = apply_rotary(q, cos, sin)
-        k = apply_rotary(k, cos, sin)
-    if cache is not None:
-        cache.k[:, base:base + Sq] = k.reshape(B, Sq, -1).to(cache.k.dtype)
-        cache.v[:, base:base + Sq] = v.reshape(B, Sq, -1).to(cache.v.dtype)
+    base = 0
+    if cache is not None and cache_pos is None:
+        # cross-attention read: keys and values precomputed at prefill
         S_c = cache.k.shape[1]
         k = cache.k.reshape(B, S_c, n_kv_heads, head_dim)
         v = cache.v.reshape(B, S_c, n_kv_heads, head_dim)
+    else:
+        src = x if kv_source is None else kv_source
+        Skv = src.shape[1]
+        k = dense(params["wk"], src).reshape(B, Skv, n_kv_heads, head_dim)
+        v = dense(params["wv"], src).reshape(B, Skv, n_kv_heads, head_dim)
+        if qk_norm:
+            k = rms_norm(k, params["k_norm"])
+        if cache is not None:
+            base = int(cache_pos)
+        if rope_theta is not None and kv_source is None:
+            cos, sin = rotary_embedding(
+                base + torch.arange(Sq, device=x.device), head_dim,
+                rope_theta)
+            q = apply_rotary(q, cos, sin)
+            k = apply_rotary(k, cos, sin)
+        if cache is not None:
+            cache.k[:, base:base + Skv] = k.reshape(B, Skv, -1).to(
+                cache.k.dtype)
+            cache.v[:, base:base + Skv] = v.reshape(B, Skv, -1).to(
+                cache.v.dtype)
+            S_c = cache.k.shape[1]
+            k = cache.k.reshape(B, S_c, n_kv_heads, head_dim)
+            v = cache.v.reshape(B, S_c, n_kv_heads, head_dim)
     if G > 1 and Sq == 1:
         out = _grouped_decode(q, k, v, n_kv_heads, base, causal)
     else:
         if G > 1:   # GQA: repeat kv heads to H, as the reference does
             k = k.repeat_interleave(G, dim=2)
             v = v.repeat_interleave(G, dim=2)
-        if impl == "pallas" and causal and cache is None:
+        if impl == "pallas" and causal and cache is None \
+                and kv_source is None:
             out = dispatch.flash_attention(q, k, v, causal=True)
         else:
             out = _sdpa_chunked(q, k, v, causal=causal, q_offset=base,

@@ -194,10 +194,9 @@ class Mamba2LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "ssm" or cfg.moe_experts:
-            raise NotImplementedError(
-                f"Mamba2LM runs the ssm family; got family {cfg.family!r}, "
-                f"{cfg.moe_experts} experts (ROADMAP A13b)")
+        if cfg.family != "ssm":
+            raise ValueError(f"Mamba2LM runs the ssm family, got "
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         dev, d, vp = self.device, cfg.d_model, cfg.vocab_padded

@@ -1,14 +1,17 @@
-"""Dense decoder-only LM (olmo, granite, deepseek, qwen3) — the counterpart
-of ``repro.models.transformer.DecoderLM`` for ``family="dense"`` without
-experts: the forward over a full sequence, and the serving path
-(``init_cache``, ``prefill``, ``decode_step``) with a KV cache.
+"""Dense / MoE decoder-only LM (olmo, granite, deepseek, qwen3, arctic,
+grok) — the counterpart of ``repro.models.transformer.DecoderLM``: the
+forward over a full sequence, and the serving path (``init_cache``,
+``prefill``, ``decode_step``) with a KV cache.
 
 The parameters mirror the reference's tree: ``embed`` (V_pad, d), one
 block per layer (``ln1`` / ``ln2`` norm weights, ``attn`` wq/wk/wv/wo flat,
-``mlp``), ``final_norm`` and ``head`` (d, V_pad).  A non-parametric norm
-has no parameter (the reference keeps a (0,) placeholder leaf).  The layer
-stack runs as a Python loop; the reference's ``scan``, remat and cotangent
-cast serve training and have no counterpart here.
+and ``mlp`` or, with ``moe_experts``, ``moe``: the
+:class:`~repro_torch.models.moe.MoE` FFN), ``final_norm`` and ``head``
+(d, V_pad).  A non-parametric norm has no parameter (the reference keeps a
+(0,) placeholder leaf).  The layer stack runs as a Python loop; the
+reference's ``scan``, remat and cotangent cast serve training and have no
+counterpart here.  ``forward`` returns the MoE layers' summed aux loss
+(0.0 without experts), as the reference does.
 
 Two numerics of the reference are kept on purpose:
 
@@ -32,6 +35,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
                                        embed_lookup, mlp)
+from repro_torch.models.moe import MoE, init_moe, moe_ffn
 
 __all__ = ["DecoderLM"]
 
@@ -54,6 +58,9 @@ class _Block(nn.Module):
             attn.update(q_norm=(hd,), k_norm=(hd,))
         self.attn = nn.ParameterDict(
             {n: _param(s, cfg, device) for n, s in attn.items()})
+        if cfg.moe_experts:
+            self.moe = MoE(cfg, device)
+            return
         mlp_shapes = ({"wi_gate": (d, cfg.d_ff), "wi_up": (d, cfg.d_ff),
                        "wo": (cfg.d_ff, d)} if cfg.mlp_kind == "swiglu"
                       else {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)})
@@ -64,15 +71,16 @@ class _Block(nn.Module):
 class DecoderLM(nn.Module):
     """``DecoderLM(cfg, device)``; ``device=None`` means the card (raises
     without CUDA).  Parameters are allocated uninitialised: fill them with
-    :meth:`init_params` or load them (``repro_torch.convert``)."""
+    :meth:`init_params` or load them (``repro_torch.convert``).  Raises
+    ValueError for a family other than ``FAMILIES``, as the reference."""
+
+    FAMILIES = ("dense", "moe")
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe_experts:
-            raise NotImplementedError(
-                f"DecoderLM runs the dense family without experts; got "
-                f"family {cfg.family!r}, {cfg.moe_experts} experts "
-                f"(ROADMAP A13b)")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(f"{type(self).__name__} runs the families "
+                             f"{self.FAMILIES}, got {cfg.family!r}")
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         dev, d, vp = self.device, cfg.d_model, cfg.vocab_padded
@@ -86,7 +94,8 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "DecoderLM":
         """Random weights at the reference's scales (normal × fan_in^-½,
-        norm weights 1) drawn from ``generator``, which lives on the
+        norm weights 1; the MoE FFN as :func:`~repro_torch.models.moe.
+        init_moe`), drawn in place from ``generator``, which lives on the
         model's device.  Same seed, same weights; not the reference's
         numbers (``jax.random`` differs)."""
         cfg = self.cfg
@@ -101,8 +110,11 @@ class DecoderLM(nn.Module):
                     p.fill_(1.0)
                 else:
                     normal(p, p.shape[0])
-            for p in blk.mlp.values():
-                normal(p, p.shape[0])
+            if cfg.moe_experts:
+                init_moe(blk.moe, cfg, generator)
+            else:
+                for p in blk.mlp.values():
+                    normal(p, p.shape[0])
             for p in (blk.ln1, blk.ln2):
                 if p is not None:
                     p.fill_(1.0)
@@ -113,8 +125,9 @@ class DecoderLM(nn.Module):
 
     # ----------------------------------------------------------- forward --
     def _block(self, blk: _Block, x: torch.Tensor,
-               cache: KVCache | None = None,
-               cache_pos: int | None = None) -> torch.Tensor:
+               cache: KVCache | None = None, cache_pos: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """One layer → (x, the MoE aux loss or None without experts)."""
         cfg = self.cfg
         h = apply_norm(cfg.norm_type, x, blk.ln1)
         x = x + attention(blk.attn, h, n_heads=cfg.n_heads,
@@ -124,7 +137,10 @@ class DecoderLM(nn.Module):
                           impl=cfg.attention_impl, chunk=cfg.attn_chunk,
                           qk_norm=cfg.qk_norm)
         h = apply_norm(cfg.norm_type, x, blk.ln2)
-        return x + mlp(blk.mlp, h, cfg.mlp_kind)
+        if cfg.moe_experts:
+            m, aux = moe_ffn(blk.moe, h, cfg)
+            return x + m, aux
+        return x + mlp(blk.mlp, h, cfg.mlp_kind), None
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) → (B, S, V_pad) float32.  Both operands go to float32
@@ -134,11 +150,15 @@ class DecoderLM(nn.Module):
 
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
-        aux loss 0.0) over the full sequence."""
+        the MoE layers' summed aux loss, 0.0 without experts) over the
+        full sequence."""
         x = self._embed(batch["tokens"])
+        aux = torch.zeros((), device=self.device)
         for blk in self.blocks:
-            x = self._block(blk, x)
-        return self.logits(x), torch.zeros((), device=self.device)
+            x, a = self._block(blk, x)
+            if a is not None:
+                aux = aux + a
+        return self.logits(x), aux
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -156,7 +176,8 @@ class DecoderLM(nn.Module):
     def _run_cached(self, x: torch.Tensor, cache: KVCache,
                     pos: int) -> torch.Tensor:
         for li, blk in enumerate(self.blocks):
-            x = self._block(blk, x, KVCache(cache.k[li], cache.v[li]), pos)
+            x, _ = self._block(blk, x, KVCache(cache.k[li], cache.v[li]),
+                               pos)
         return x
 
     def prefill(self, batch, cache: KVCache):

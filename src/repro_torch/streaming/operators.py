@@ -5,9 +5,10 @@ A :class:`StreamOperator` couples the cost-model metadata (selectivity,
 work, DQ eligibility) with an actual batch function, so the same DAG object
 is both *optimized* (``repro_torch.core``) and *executed*
 (:mod:`repro_torch.streaming.engine`).  Model inference is just another
-operator: :func:`model_op` scores token windows with a ``DecoderLM``, a
-``Mamba2LM`` or a ``Zamba2LM`` on its device, through the flash-attention
-kernel when the model's config asks for ``attention_impl="pallas"``.
+operator: :func:`model_op` scores token windows with a ``DecoderLM`` (dense
+or MoE), a ``Mamba2LM`` or a ``Zamba2LM`` on its device, through the
+flash-attention kernel when the model's config asks for
+``attention_impl="pallas"``.
 """
 
 from __future__ import annotations
@@ -104,10 +105,10 @@ def model_op(name: str, model, work: float = 50.0,
 
     As the reference: tokens are cast to int32 and clipped to
     [0, vocab − 1], and a row's score is its mean next-token cross-entropy
-    over the full padded logits.  The model (any of ``build_model``'s,
-    which holds its parameters; the reference passes ``params`` and
-    ``cfg`` beside it) runs under ``torch.inference_mode()`` on its own
-    device."""
+    over the full padded logits; an MoE model's aux loss is dropped.  The
+    model (a text model of ``build_model``'s, which holds its parameters;
+    the reference passes ``params`` and ``cfg`` beside it) runs under
+    ``torch.inference_mode()`` on its own device."""
     vocab = model.cfg.vocab
 
     def fn(rows):

@@ -1,7 +1,9 @@
 """Serve steps — the serving half of ``repro.train.steps``.
 
 ``make_prefill_step`` / ``make_decode_step`` are the reference's serving
-roots: prefill writes the cache and returns the last position's logits;
+roots: prefill writes the cache and returns the last position's logits
+(its batch carries the VLM's ``image_embeds`` or the audio model's
+``audio_frames`` through to the model);
 decode takes one token per row and picks the next greedily over the TRUE
 vocabulary (the tables are padded to a multiple of 256).  There is no jit
 and no donation: the model writes its cache in place.  The training steps

@@ -817,3 +817,107 @@ def test_zamba2_smoke_model_on_the_card_matches_the_cpu_route(card):
     rel = (got.cpu() - want).abs().max() / want.abs().max()
     assert float(rel) <= 1e-5
 
+
+
+# -- the twelfth slice: the MoE decoder, the VLM, Whisper --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,D", [(22528, 7168), (4096, 6144),
+                                    (12000, 1280), (8, 7168), (8, 6144)])
+def test_rmsnorm_kernel_at_the_new_widths_on_the_card(card, dtype, rows, D):
+    """K7 at the widths this slice's models hand it: Arctic's 7168 (an
+    lm_score shard's 22 528 rows, a decode step's 8), Grok's 6144 (a
+    prefill's 4096 rows), Whisper's 1280 (8 × 1500 encoder frames) — the
+    bars of the tests above, bitwise on a repeat."""
+    gen = torch.Generator(device=card).manual_seed(D + rows)
+    x = torch.randn((rows, D), generator=gen, device=card).to(
+        getattr(torch, dtype))
+    w = torch.randn(D, generator=gen, device=card)
+    got = rk.rmsnorm(x, w)
+    if dtype == "float32":
+        want, bar = ref.rmsnorm_plain(x.double(), w.double()), 1e-5
+    else:
+        want, bar = ref.rmsnorm_plain(x, w), 1e-2
+    rel = (got.double() - want.double()).abs().max() / want.abs().max()
+    assert float(rel) <= bar
+    assert torch.equal(got, rk.rmsnorm(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [(2, 2048, 56, 128), (2, 512, 48, 128),
+                                     (2, 512, 32, 128), (2, 512, 20, 64)])
+def test_attention_at_the_new_head_counts_on_the_card(card, B, S, H, D):
+    """K5 on bf16 operands at Arctic's H 56, Grok's 48, Llama-Vision's 32
+    (D 128) and Whisper's decoder H 20 (D 64), causal, against its plain
+    version in float32 math at ≤1e-2, bitwise on a repeat."""
+    gen = torch.Generator(device=card).manual_seed(H)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=card)
+               .bfloat16() for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_plain(q, k, v, causal=True)
+    rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(rel) <= 1e-2
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=True))
+
+
+def _card_and_host(card, cfg):
+    host = build_model(cfg, device="cpu")
+    host.init_params(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for s, cb in enumerate(getattr(host, "cross", ())):
+            cb.gate.fill_(0.5 * (-1) ** s)
+    model = build_model(cfg, device=card)
+    model.load_state_dict(host.state_dict())
+    return host, model
+
+
+def _extras(cfg, B, seed=61):
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"image_embeds": rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"audio_frames": rng.standard_normal(
+            (B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["arctic_480b", "grok_1_314b",
+                                  "llama_3_2_vision_11b", "whisper_large_v3"])
+def test_new_smoke_models_on_the_card_match_the_cpu_route(card, arch):
+    """The smoke MoE, VLM and audio models on K5's route, float32
+    activations: K5 and K7 launched as the model implies in a forward,
+    logits ≤1e-5 relative to the CPU route's (the MoE routing on the card
+    the CPU route's); ``serve_wave`` with the extras serves the same
+    tokens, with K7 per prefill and decode step and no K5."""
+    from repro_torch.launch.serve import serve_wave
+    cfg = get_smoke_config(arch).replace(attention_impl="pallas")
+    host, model = _card_and_host(card, cfg)
+    toks = np.random.default_rng(62).integers(0, cfg.vocab, (3, 40))
+    batch = {"tokens": toks, **_extras(cfg, 3)}
+    with torch.inference_mode():
+        want, want_aux = host(batch)
+        before = chip_smoke.lm_launches()
+        got, aux = model(batch)
+        after = chip_smoke.lm_launches()
+    per = chip_smoke.expected_launches(cfg)
+    assert {k: after[k] - before[k] for k in per} == per
+    rel = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(rel) <= 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * max(
+        1.0, abs(float(want_aux)))
+    prompts = np.random.default_rng(63).integers(0, cfg.vocab, (4, 20),
+                                                 dtype=np.int32)
+    extras = _extras(cfg, 4)
+    want_toks, _ = serve_wave(host, cfg, prompts, 6, extras)
+    before = chip_smoke.lm_launches()
+    got_toks, _ = serve_wave(model, cfg, prompts, 6, extras)
+    after = chip_smoke.lm_launches()
+    np.testing.assert_array_equal(got_toks, want_toks)
+    pre, dec = (chip_smoke.expected_launches(cfg, m)
+                for m in ("prefill", "decode"))
+    assert after["rmsnorm"] - before["rmsnorm"] == \
+        pre["rmsnorm"] + 5 * dec["rmsnorm"]
+    assert after["flash_attention"] == before["flash_attention"]

@@ -114,8 +114,12 @@ def test_full_config_and_accounting_match_jax():
 
 
 def test_registry_and_builder_refuse_what_is_not_ported(monkeypatch):
-    with pytest.raises(KeyError, match="A13b"):
-        get_config("arctic-480b")
+    """Every architecture of the reference's registry is ported now: the
+    registry and the builder refuse only what the reference refuses (an
+    unknown arch, a family without its sizes, an unknown attention
+    route, the card where there is none)."""
+    assert dataclasses.asdict(get_config("arctic-480b")) == \
+        dataclasses.asdict(jax_config("arctic_480b"))
     assert dataclasses.asdict(get_config("zamba2-1.2b")) == \
         dataclasses.asdict(jax_config("zamba2_1_2b"))
     with pytest.raises(KeyError, match="unknown arch"):
@@ -123,9 +127,13 @@ def test_registry_and_builder_refuse_what_is_not_ported(monkeypatch):
     smoke = get_smoke_config("olmo_1b")
     with pytest.raises(ValueError, match="shared_attn_every"):
         build_model(smoke.replace(family="hybrid"), device="cpu")
-    for cfg in (smoke.replace(family="vlm"), smoke.replace(moe_experts=4)):
-        with pytest.raises(NotImplementedError, match="A13"):
-            build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="cross_attn_every"):
+        build_model(smoke.replace(family="vlm"), device="cpu")
+    with pytest.raises(ValueError, match="encoder_layers"):
+        build_model(smoke.replace(family="audio"), device="cpu")
+    moe = build_model(smoke.replace(moe_experts=4), device="cpu")
+    assert hasattr(moe.blocks[0], "moe") and not hasattr(moe.blocks[0],
+                                                         "mlp")
     with pytest.raises(ValueError, match="attention impl"):
         model = build_model(smoke.replace(attention_impl="pallas_interpret"),
                             device="cpu")

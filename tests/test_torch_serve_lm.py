@@ -213,19 +213,33 @@ def test_registered_configs_equal_jax():
 
 
 def test_cross_attention_and_extras_wait_for_a13b():
+    """With A13b, cross-attention runs: ``kv_source`` and a cache read
+    without ``cache_pos`` (holding the source's projected keys and
+    values) give the same output and leave the cache as it was; and
+    ``serve_wave`` passes ``extras`` into the prefill's batch, which a
+    text model ignores, as the reference's does."""
     *_, cfg, model = _models("granite_8b")
-    x = torch.zeros((1, 2, cfg.d_model))
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.standard_normal((2, 3, cfg.d_model)),
+                        dtype=torch.float32)
+    src = torch.as_tensor(rng.standard_normal((2, 5, cfg.d_model)),
+                          dtype=torch.float32)
     blk = model.blocks[0]
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-              head_dim=cfg.hd)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        layers.attention(blk.attn, x, kv_source=x, **kw)
-    cache = layers.KVCache(torch.zeros((1, 4, 16)), torch.zeros((1, 4, 16)))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        layers.attention(blk.attn, x, cache=cache, **kw)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        serve.serve_wave(model, cfg, np.zeros((1, 4), np.int32), 2,
-                         extras={"image_embeds": np.zeros(1)})
+              head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=False)
+    with torch.inference_mode():
+        got = layers.attention(blk.attn, x, kv_source=src, **kw)
+        cache = layers.KVCache(layers.dense(blk.attn["wk"], src),
+                               layers.dense(blk.attn["wv"], src))
+        held = cache.k.clone(), cache.v.clone()
+        read = layers.attention(blk.attn, x, cache=cache, **kw)
+    assert got.shape == x.shape and torch.allclose(got, read, atol=1e-6)
+    assert torch.equal(cache.k, held[0]) and torch.equal(cache.v, held[1])
+    prompts = _tokens(cfg, (2, 6), 22)
+    plain, _ = serve.serve_wave(model, cfg, prompts, 3)
+    extra, _ = serve.serve_wave(model, cfg, prompts, 3,
+                                extras={"image_embeds": np.zeros(1)})
+    np.testing.assert_array_equal(plain, extra)
 
 
 def test_grouped_decode_never_repeats_the_cache(monkeypatch):

@@ -433,8 +433,11 @@ def test_mamba2_converter_refuses_a_mismatched_tree():
 def test_build_model_returns_mamba2_and_defaults_to_the_card(monkeypatch):
     smoke = get_smoke_config("mamba2_1_3b")
     assert isinstance(build_model(smoke, device="cpu"), Mamba2LM)
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_model(smoke.replace(moe_experts=2), device="cpu")
+    # as the reference, the ssm family ignores moe_experts
+    with_experts = build_model(smoke.replace(moe_experts=2), device="cpu")
+    assert isinstance(with_experts, Mamba2LM)
+    assert [n for n, _ in with_experts.named_parameters()] == \
+        [n for n, _ in build_model(smoke, device="cpu").named_parameters()]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(smoke)
