@@ -255,6 +255,25 @@ bitwise equal.
    Whisper-large-v3 with 1500 seeded frame embeddings (K7 162 a prefill,
    97 a decode step), each with the cached cross keys and values held
    bitwise unchanged across decode steps.
+16b. lm_train: the single-card trainer (ROADMAP A13c) on Granite-8B at its
+   published widths (d 4096, 32 heads on 8 kv heads, d_ff 14 336, vocab
+   49 152; f32 parameters, bf16 activations, full remat) cut to 18 of its
+   36 layers, 4 × 2048 tokens a step from the synthetic stream with a
+   quarter of the rows quality-checked, 8 AdamW steps (f32 moments, lr
+   3e-4): step 1's gradient finite and non-zero for every parameter; K7's
+   backward held on the operands the step hands it (f32 dx ≤1e-5 to the
+   float64 plain version, bf16 dx one bf16 ulp of the plain version, dw
+   ≤1e-4, bitwise on repeat) and timed beside ``F.rms_norm``'s backward
+   and its bound; step 1's loss, global and per-parameter gradient norms
+   against the plain K7 route over 2 layers and the cut depth (≤1e-2 or
+   the plain route's own bf16 error), a planted backward fault (dw × 2)
+   failing both; every step's launches (K7 2L+1 + 2L recomputed, its
+   backward 2L+1, no K5 or K6); tokens/s, the model-FLOPs share of the
+   bf16 peak, peak memory (under 90 % of the card's), the AdamW update's
+   share, the profile of one step; K5 and K6 under grad and
+   ``run_training`` on the flash route raise; granite's smoke config
+   dies at step 6 and resumes from 5 to the uninterrupted run's
+   parameters.
 17. perf_record: ``repro_torch.obs.perfbridge.perf_record`` of one
    lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B,
    Zamba2-1.2B and Arctic-480B at 2 layers (its expert slots against the
@@ -328,7 +347,8 @@ SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
+           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
 REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
             "edge_latency_structured": "src/repro/kernels/edge_latency.py:246",
             "edge_latency_dense_single_tile":
@@ -337,7 +357,10 @@ REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
                 "src/repro/kernels/edge_latency.py:357",
             "flash_attention": "src/repro/kernels/flash_attention.py:76",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
-            "rmsnorm": "src/repro/kernels/rmsnorm.py:30"}
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:30",
+            # K7's gradient: the Pallas kernel has none (JAX cannot
+            # differentiate it; the reference trains through rms_norm)
+            "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:30"}
 # K5 cases: the tests/test_kernels.py shapes and ragged S, (B, S, H, D)
 ATTN_SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
                (2, 96, 3, 32), (1, 384, 2, 64), (1, 100, 2, 64),
@@ -447,6 +470,26 @@ FORWARD_BATCH, FORWARD_SEQ = 2, 512
 # (arch, layers kept or None) of phase 17's perf records
 PERF_ARCHS = (("olmo_1b", None), ("mamba2_1_3b", None), ("zamba2_1_2b", None),
               (MOE_ARCH, MOE_LAYERS))
+# the thirteenth slice: the single-card trainer.  Granite-8B at its published
+# widths cut in depth (16 B a float32 parameter for the parameter, its
+# gradient and two AdamW moments: 123 GiB whole), 4 x 2048 tokens a step,
+# bf16 activations, full remat, float32 moments (as run_training picks for
+# float32 parameters).  The cut is the deepest whose measured peak stays
+# under TRAIN_MEM_SHARE of the card: an H100 80GB HBM3 (79.18 GiB) read
+# 63.34 GiB at 16 layers and 69.84 GiB (88.2 %) at 18; each layer adds
+# 3.25 GiB, so 19 would pass 90 %.  Step 1 is held against the plain K7
+# route over the first 2 layers and at the cut depth; granite's smoke
+# config dies at step 6 and resumes from 5
+TRAIN_ARCH, TRAIN_LAYERS = "granite_8b", 18
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_LR, TRAIN_DQ = 3e-4, 0.25
+TRAIN_STRICT_LAYERS = 2
+TRAIN_MASK_SCAN = 1000    # batches scanned for the first with a masked row
+TRAIN_MEM_SHARE = 0.9     # the cut's measured peak stays under this share
+RESUME_STEPS, RESUME_EVERY, RESUME_DIE = 10, 5, 6
+RESUME_BATCH, RESUME_SEQ = 2, 64
+# K7's backward against its plain version: dw (float32, a sum over rows)
+DW_REL = 1e-4
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -594,6 +637,15 @@ def kernel_device_ms(torch, fn, reps: int, key: str) -> float:
             return sum(t for t, _ in hits) / reps
     check(False, f"the profiler recorded fewer than {reps} {key} kernels "
                  f"in {PROFILE_ATTEMPTS} runs")
+
+
+def device_ms_per_call(torch, fn, reps: int) -> float:
+    """The device time of one call of ``fn`` — every kernel and copy it
+    launches, without the host's time — from one profiled run of ``reps``
+    calls after a warm-up."""
+    fn()
+    _, per_name = device_events(torch, lambda: [fn() for _ in range(reps)])
+    return sum(t for t, _ in per_name.values()) / reps
 
 
 def device_profile(torch, fn, groups: dict | None = None,
@@ -1418,7 +1470,26 @@ def expected_launches(cfg, mode: str = "forward") -> dict[str, int]:
     norms, qk-norms, Mamba2's gate norms, the shared block's two norms per
     site, a VLM's cross-block norms, the audio model's three norms a
     decoder layer and — outside a decode step — its encoder's two a layer
-    and ``enc_norm``."""
+    and ``enc_norm``.  ``mode`` "train" is one training step (the dense,
+    MoE, VLM and audio families; K6 has no backward on the card): every
+    forward K7 launch, again for each norm inside a recomputed block
+    (``cfg.remat`` "full" or "dots": all but the final norm, the VLM's
+    cross norms and the encoder's ``enc_norm``), one K7 backward per
+    forward norm, and no K5 or K6 (training takes the reference
+    attention)."""
+    if mode == "train":
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(f"{cfg.name}: K6 has no backward on the card "
+                             f"(ROADMAP B2)")
+        fwd = expected_launches(cfg.replace(attention_impl="reference"))
+        outside = (cfg.norm_type == "rmsnorm") * (
+            2 if cfg.family == "audio" else 1 + (
+                -(-cfg.n_layers // cfg.cross_attn_every)
+                if cfg.family == "vlm" else 0))
+        again = 0 if cfg.remat == "none" else fwd["rmsnorm"] - outside
+        return {"flash_attention": 0, "ssd_scan": 0,
+                "rmsnorm": fwd["rmsnorm"] + again,
+                "rmsnorm_bwd": fwd["rmsnorm"]}
     L, rms = cfg.n_layers, cfg.norm_type == "rmsnorm"
     flash = cfg.attention_impl == "pallas" and mode == "forward"
     scan = L if mode != "decode" else 0
@@ -1439,6 +1510,11 @@ def expected_launches(cfg, mode: str = "forward") -> dict[str, int]:
             + (2 * L if cfg.qk_norm else 0)}
 
 
+# the LM kernels a forward, a prefill or a decode step can launch (K7's
+# backward runs only in training)
+LM_FORWARD_KERNELS = ("flash_attention", "ssd_scan", "rmsnorm")
+
+
 def lm_launches() -> dict[str, int]:
     """The LM kernels' launch counts, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
@@ -1456,24 +1532,26 @@ def reset_lm_launches() -> None:
 
 
 @contextlib.contextmanager
-def swapped_ssm_kernels(ssd=None, rms=None):
-    """K6 and K7 swapped for ``ssd`` and ``rms`` (by default their plain
-    versions, uncounted) inside the block, restored after it."""
+def swapped_ssm_kernels(ssd=None, rms=None, rms_bwd=None):
+    """K6, K7 and K7's backward swapped for ``ssd``, ``rms`` and
+    ``rms_bwd`` (by default their plain versions, uncounted) inside the
+    block, restored after it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as sk
-    saved = sk.ssd_scan, rk.rmsnorm
+    saved = sk.ssd_scan, rk.rmsnorm, rk.rmsnorm_bwd
     sk.ssd_scan = ssd or ref.ssd_scan_plain
     rk.rmsnorm = rms or ref.rmsnorm_plain
+    rk.rmsnorm_bwd = rms_bwd or ref.rmsnorm_bwd_plain
     try:
         yield
     finally:
-        sk.ssd_scan, rk.rmsnorm = saved
+        sk.ssd_scan, rk.rmsnorm, rk.rmsnorm_bwd = saved
 
 
 def plain_ssm_kernels():
-    """K6 and K7 swapped for their plain versions (uncounted) inside the
-    block, restored after it."""
+    """K6, K7 and K7's backward swapped for their plain versions
+    (uncounted) inside the block, restored after it."""
     return swapped_ssm_kernels()
 
 
@@ -3166,7 +3244,7 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
     reset_lm_launches()
     stats = ServeStats()
     out, stats = serve_wave(model, cfg, prompts, G, extras, stats=stats)
-    launched = lm_launches()
+    launched = {k: lm_launches()[k] for k in LM_FORWARD_KERNELS}
     check(launched["rmsnorm"] == want["rmsnorm"]
           and launched["ssd_scan"] == want["ssd_scan"]
           and launched["flash_attention"] == 0,
@@ -3306,6 +3384,421 @@ def lm_serve_phase(torch, np, dev, cfg, cut: str = "",
             "planted_cut": planted_cut, "held": held, "peak": peak,
             "cross_unchanged": bool(cross_same) and all(cross_same)}
 
+
+# -- the thirteenth slice: the single-card trainer ---------------------------
+
+@contextlib.contextmanager
+def recorded_rmsnorm_bwd(seen: dict):
+    """Inside the block K7's backward still launches, and ``seen`` keeps
+    copies of the first (x, w, g, eps) it is handed for every shape and
+    dtype, keyed ``("rmsnorm_bwd", shape, dtype)``."""
+    from repro_torch.kernels import rmsnorm as rk
+    saved = rk.rmsnorm_bwd
+
+    def bwd(x, w, g, eps=1e-6):
+        key = ("rmsnorm_bwd", tuple(x.shape), x.dtype)
+        if key not in seen:
+            seen[key] = (x.clone(), w.clone(), g.clone(), eps)
+        return saved(x, w, g, eps)
+
+    rk.rmsnorm_bwd = bwd
+    try:
+        yield
+    finally:
+        rk.rmsnorm_bwd = saved
+
+
+def hold_rmsnorm_bwd(torch, dev, phase: str, seen: dict) -> dict:
+    """K7's backward on recorded operands (:func:`recorded_rmsnorm_bwd`)
+    against its plain version (autograd through ``ref.rmsnorm_plain``):
+    float32 dx against the float64 plain version at ``REL``; bfloat16 dx
+    against the plain version on the same operands (float32 math, one
+    rounding to bf16) at ``BF16_REL``, one bf16 ulp of the largest, with
+    the plain version's own bf16 error against float64 printed beside it;
+    dw (float32) against the float64 plain version at ``DW_REL``; bitwise
+    on repeat.  Timed: the kernel's, the plain version's and the bound's
+    ms, and ``F.rms_norm``'s autograd backward on the same operands
+    (timed as a yardstick only; bf16 x with a bf16 weight, the dtype its
+    fused kernel takes)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.perf import roofline
+    out = {}
+    for key, (x, w, g, eps) in seen.items():
+        _, shape, dtype = key
+        what = f"{phase} rmsnorm_bwd {shape} {str(dtype)[6:]}"
+        f32 = dtype == torch.float32
+        dx, dw = rk.rmsnorm_bwd(x, w, g, eps)
+        dx2, dw2 = rk.rmsnorm_bwd(x, w, g, eps)
+        wide = ref.rmsnorm_bwd_plain(x.double(), w.double(), g.double(), eps)
+        plain = ref.rmsnorm_bwd_plain(x, w, g, eps)
+        sync(torch, dev)
+        rel_dx, err_dx = rel_err(dx, wide[0] if f32 else plain[0])
+        own = rel_err(plain[0], wide[0])[0]
+        rel_dw, err_dw = rel_err(dw, wide[1])
+        bar = REL if f32 else BF16_REL
+        check(bool(torch.isfinite(dx).all() and torch.isfinite(dw).all()),
+              f"{what}: non-finite")
+        check(rel_dx <= bar, f"{what}: dx rel err {rel_dx:.3e} > {bar:.0e}")
+        check(rel_dw <= DW_REL,
+              f"{what}: dw rel err {rel_dw:.3e} > {DW_REL:.0e}")
+        check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+              f"{what}: repeat differs (not deterministic)")
+        D = shape[-1]
+        rows = x.numel() // D
+        terms = roofline.rmsnorm_bwd_terms(rows, D, dtype)
+        r = {"rel_err": max(rel_dx, rel_dw), "dx_rel": rel_dx,
+             "dw_rel": rel_dw, "own_bf16": own, "bar": bar,
+             "max_abs_err": max(err_dx, err_dw),
+             "bound_ms": terms.step_time_s * 1e3, "bound_by": terms.bound_by,
+             "rows": rows, "D": D}
+        del dx, dw, dx2, dw2, wide, plain
+        r["ms"] = time_ms(lambda: rk.rmsnorm_bwd(x, w, g, eps), 10)
+        r["plain_ms"] = time_ms(lambda: ref.rmsnorm_bwd_plain(x, w, g, eps), 3)
+        xl = x.detach().requires_grad_()
+        wl = w.to(x.dtype).detach().requires_grad_()
+        y = F.rms_norm(xl, (D,), weight=wl, eps=eps)
+        r["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            y, (xl, wl), g, retain_graph=True), 10)
+        if dev.type == "cuda":   # the device's time alone, no host
+            r["device_ms"] = kernel_device_ms(
+                torch, lambda: rk.rmsnorm_bwd(x, w, g, eps), 20,
+                "rmsnorm_")       # both kernels: rows and the dw sum
+            r["library_device_ms"] = device_ms_per_call(
+                torch, lambda: torch.autograd.grad(
+                    y, (xl, wl), g, retain_graph=True), 20)
+        del xl, wl, y
+        out[key] = r
+        print(f"{what}: dx rel err {rel_dx:.3e} (bar {bar:.0e}; the plain "
+              f"version's own bf16 error {own:.3e}), dw {rel_dw:.3e} (bar "
+              f"{DW_REL:.0e}), bitwise on repeat; {r['ms']:.4f} ms (the "
+              f"device alone {r.get('device_ms', float('nan')):.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, F.rms_norm backward "
+              f"{r['library_ms']:.4f} ms (the device alone "
+              f"{r.get('library_device_ms', float('nan')):.4f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+def grad_summary(torch, grad_fn, batch) -> dict:
+    """One gradient of ``grad_fn`` on ``batch``: the loss, the global norm
+    and each parameter's gradient norm (the gradients themselves are
+    freed)."""
+    loss, _, grads = grad_fn(batch)
+    norms = {n: float(torch.linalg.vector_norm(g.float()))
+             for n, g in grads.items()}
+    return {"loss": float(loss), "norms": norms,
+            "gnorm": sum(v * v for v in norms.values()) ** 0.5}
+
+
+def grad_distance(a: dict, b: dict) -> float:
+    """The largest relative difference of ``a``'s loss, global gradient
+    norm and per-parameter gradient norms from ``b``'s."""
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+           abs(a["gnorm"] - b["gnorm"]) / b["gnorm"]]
+    rel += [abs(a["norms"][n] - v) / max(v, 1e-30)
+            for n, v in b["norms"].items()]
+    return max(rel) if all(r == r for r in rel) else float("nan")
+
+
+def refusal(phase: str, name: str, kind, call) -> str:
+    """``call()`` must raise ``kind`` with the refusal of a route without
+    a backward: a message that says "no backward" and names the ROADMAP
+    item.  Any other outcome fails the phase; returns the message's head."""
+    try:
+        call()
+    except kind as e:
+        msg = str(e)
+        if "no backward" in msg and "ROADMAP" in msg:
+            return f"{name}: {msg[:60]}…"
+        raise AssertionError(f"{phase}: {name} under grad raised "
+                             f"{type(e).__name__}: {msg[:200]}, not the "
+                             f"refusal (no backward, ROADMAP)") from e
+    raise AssertionError(f"{phase}: {name} under grad did not raise")
+
+
+def dw_doubled(x, w, g, eps=1e-6):
+    """The planted fault of K7's backward: the plain backward with dw
+    scaled by 2."""
+    from repro_torch.kernels import ref
+    dx, dw = ref.rmsnorm_bwd_plain(x, w, g, eps)
+    return dx, 2 * dw
+
+
+def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ, n_steps: int = TRAIN_STEPS,
+                   resume_cfg=None,
+                   ckpt_root=None, profile: bool = True, card: str = "",
+                   cut: str = "") -> dict:
+    """The single-card trainer (ROADMAP A13c) on ``cfg`` with seeded random
+    weights and batches of ``batch`` x ``seq`` tokens from the synthetic
+    stream of ``data/pipeline.py`` (a quarter of the rows quality-checked),
+    from its first batch whose check masks a row, so that step 1's loss is
+    normalised by a ``loss_mask`` that is not all ones (the share masked
+    over the run is checked above 0), through ``make_grad_fn`` /
+    ``make_train_step``: (1) step 1's gradient: every parameter's finite
+    and non-zero (a detached kernel would leave norm weights without one);
+    (2) K7's backward held on the operands that step hands it
+    (:func:`hold_rmsnorm_bwd`, timed); (3) step 1 over the first
+    ``TRAIN_STRICT_LAYERS`` layers and at the cut depth against the plain route
+    (K7 and its backward swapped for their plain versions): loss, global
+    gradient norm and every parameter's gradient norm within
+    ``LM_REF_REL`` or, where larger, the plain route's own bf16 error
+    against float32 activations; the planted backward fault
+    (:func:`dw_doubled`) must fail both; (4) ``n_steps`` steps of AdamW
+    (float32 moments, lr ``TRAIN_LR``), each step's launches equal to
+    ``expected_launches(cfg, "train")``, the losses finite, tokens/s, the
+    model-FLOPs share of the bf16 peak (``analytic_flops(cfg, seq,
+    batch, "train")``), peak memory under ``TRAIN_MEM_SHARE`` of the
+    card's, the AdamW update's share of a step and the profile of one more
+    step; (5) K5 and K6 under grad and ``run_training`` on the flash route
+    raise; (6) ``resume_cfg`` (granite's smoke config) dies at step
+    ``RESUME_DIE`` and resumes from ``RESUME_EVERY``: its final parameters
+    against an uninterrupted run's, bitwise where the path is
+    deterministic, else within 1e-5 (the reference test's bar)."""
+    import tempfile
+    from pathlib import Path as _Path
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenStream
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import analytic_flops
+    from repro_torch.perf.roofline import PEAK_BF16_TC
+    from repro_torch.train import steps
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    phase = f"lm_train {cfg.name}"
+    cuda = dev.type == "cuda"
+    resident = 0
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = seeded_model(torch, cfg, dev)
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    stream = TokenStream(PipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch, seed=SEED,
+                                        dq_fraction=TRAIN_DQ))
+    b = stream.next_batch()     # at 1 % corruption few batches mask a row
+    for _ in range(TRAIN_MASK_SCAN):
+        if not b["loss_mask"].all():
+            break
+        b = stream.next_batch()
+    first_batch = (b["_cursor"] // (batch * (seq + 1))) - 1
+    data = []
+    for _ in range(n_steps + profile):
+        b.pop("_cursor")
+        data.append({k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        b = stream.next_batch()
+    masked = float(sum((1 - d["loss_mask"]).sum() for d in data)
+                   / sum(d["loss_mask"].numel() for d in data))
+    check(masked > 0, f"{phase}: no batch of the first {TRAIN_MASK_SCAN} "
+                      f"masks a row")
+    want = expected_launches(cfg, "train")
+    grad_fn = steps.make_grad_fn(model, cfg)
+
+    # (1) + (2): step 1's gradient, K7's backward operands recorded
+    seen = {}
+    sync(torch, dev)
+    reset_lm_launches()
+    with recorded_rmsnorm_bwd(seen):
+        loss, _, grads = grad_fn(data[0])
+    sync(torch, dev)
+    launched_grad = {k: lm_launches()[k] for k in want}
+    check(launched_grad == want, f"{phase}: step 1's gradient launched "
+                                 f"{launched_grad}, want {want}")
+    dead = [n for n, g in grads.items()
+            if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    check(not dead, f"{phase}: step 1's gradient is not finite and "
+                    f"non-zero for {dead[:8]} ({len(dead)} parameters)")
+    n_params = len(grads)
+    del grads
+    held = hold_rmsnorm_bwd(torch, dev, phase, seen)
+    del seen
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (3) step 1 against the plain route, over the first layers and at the
+    # cut depth; the planted fault must fail both
+    def against_plain():
+        gf = steps.make_grad_fn(model, model.cfg)   # the current depth's
+        got = grad_summary(torch, gf, data[0])
+        with plain_route(model):
+            plain = grad_summary(torch, gf, data[0])
+            saved = model.cfg
+            model.cfg = saved.replace(act_dtype="float32")
+            try:
+                exact = grad_summary(torch, gf, data[0])
+            finally:
+                model.cfg = saved
+        with plain_route(model, kernels=False), \
+                swapped_ssm_kernels(rms_bwd=dw_doubled):
+            planted = grad_summary(torch, gf, data[0])
+        own = grad_distance(plain, exact)
+        bar = max(LM_REF_REL, own)
+        return {"rel": grad_distance(got, plain), "own": own, "bar": bar,
+                "planted": grad_distance(planted, plain)}
+
+    strict = min(TRAIN_STRICT_LAYERS, cfg.n_layers)
+    with depth_cut(model, strict):
+        first = against_plain()
+    full = against_plain()
+    for name, r in ((f"first {strict} layers", first),
+                    (f"{cfg.n_layers} layers", full)):
+        check(r["rel"] <= r["bar"], f"{phase}: {name}: step 1 vs the plain "
+              f"route rel {r['rel']:.3e} > bar {r['bar']:.3e}")
+        check(not r["planted"] <= r["bar"], f"{phase}: {name}: the planted "
+              f"backward fault passes ({r['planted']:.3e} <= "
+              f"{r['bar']:.3e})")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (4) training steps
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, bits8=cfg.param_dtype == "bfloat16")
+    opt_state = adamw_init(dict(model.named_parameters()), opt_cfg)
+    train_step = steps.make_train_step(model, cfg, opt_cfg)
+    update = {"s": 0.0}
+    adamw = steps.adamw_update
+
+    def timed_update(*args):
+        sync(torch, dev)
+        t = time.perf_counter()
+        out = adamw(*args)
+        sync(torch, dev)
+        update["s"] += time.perf_counter() - t
+        return out
+
+    steps.adamw_update = timed_update
+    walls, losses, per_step, updates = [], [], [], []
+    try:
+        sync(torch, dev)
+        reset_lm_launches()     # the main path: n_steps training steps
+        for b in data[:n_steps]:
+            before = lm_launches()
+            update["s"] = 0.0
+            t = time.perf_counter()
+            opt_state, met = train_step(opt_state, b)
+            losses.append(float(met["loss"]))
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t)
+            updates.append(update["s"])
+            after = lm_launches()
+            per_step.append({k: after[k] - before[k] for k in want})
+        launched = dict(lm_launches())
+        prof = "not measured (no card)"
+        if profile:
+            prof = device_profile(
+                torch, lambda: train_step(opt_state, data[n_steps]),
+                {"K7": ("rmsnorm_kernel", "rmsnorm_rows"),
+                 "K7 backward": ("rmsnorm_bwd", "rmsnorm_dw"),
+                 "f32 GEMM": F32_GEMM, "bf16 GEMM": GEMM,
+                 "casts/copies": ("copy", "memcpy", "cast")})
+    finally:
+        steps.adamw_update = adamw
+    check(all(p == want for p in per_step),
+          f"{phase}: launches per step {per_step}, want {want}")
+    check(all(np.isfinite(losses)), f"{phase}: non-finite losses {losses}")
+    peak = total = None
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        check(peak <= TRAIN_MEM_SHARE * total,
+              f"{phase}: peak {peak / 2 ** 30:.2f} GiB over "
+              f"{TRAIN_MEM_SHARE:.0%} of {total / 2 ** 30:.2f} GiB")
+    steady = walls[1:] or walls
+    step_s = statistics.median(steady)
+    upd_s = statistics.median(updates[1:] or updates)
+    mflops = analytic_flops(cfg, seq, batch, "train")
+    mfu = mflops / (step_s * PEAK_BF16_TC)
+    del opt_state, train_step, grad_fn, data, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (5) the routes without a backward refuse under grad
+    refused = []
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    for name, call in (
+            ("K5", lambda: dispatch.flash_attention(q, q, q)),
+            ("K6", lambda: dispatch.ssd_scan(
+                q, q[..., 0, :16], q[..., 0, :16], q[..., 0].float(),
+                -torch.ones(2, device=dev), torch.ones(2, device=dev), 64))):
+        refused.append(refusal(phase, name, RuntimeError, call))
+    refused.append(refusal(
+        phase, "run_training on the flash route", ValueError,
+        lambda: run_training(cfg.replace(attention_impl="pallas",
+                                         n_layers=1), steps=1,
+                             global_batch=1, seq_len=8, device=dev)))
+
+    # (6) die and resume
+    resume = None
+    if resume_cfg is not None:
+        with contextlib.ExitStack() as stack:
+            root = _Path(ckpt_root) if ckpt_root is not None else _Path(
+                stack.enter_context(tempfile.TemporaryDirectory()))
+            kw = dict(steps=RESUME_STEPS, global_batch=RESUME_BATCH,
+                      seq_len=RESUME_SEQ, ckpt_every=RESUME_EVERY, lr=1e-3,
+                      dq_fraction=TRAIN_DQ, log_every=RESUME_STEPS,
+                      device=dev, seed=SEED)
+            try:
+                run_training(resume_cfg, ckpt_dir=root / "a",
+                             die_at_step=RESUME_DIE, **kw)
+            except SystemExit as e:
+                check(e.code == 13, f"{phase}: died with {e.code}, want 13")
+            else:
+                check(False, f"{phase}: the run did not die at step "
+                             f"{RESUME_DIE}")
+            a = run_training(resume_cfg, ckpt_dir=root / "a", resume=True,
+                             **kw)["model"].state_dict()
+            b = run_training(resume_cfg, ckpt_dir=root / "b",
+                             **kw)["model"].state_dict()
+            bitwise = all(torch.equal(a[k], b[k]) for k in b)
+            worst = max(rel_err(a[k], b[k])[0] for k in b)
+            check(bitwise or worst <= 1e-5, f"{phase}: resumed parameters "
+                  f"{worst:.3e} from the uninterrupted run's (bar 1e-5)")
+            resume = {"bitwise": bitwise, "rel": worst}
+            del a, b
+    print(f"{phase}{cut} [{card}]: set-up {setup_s:.1f} s; step 1's "
+          f"gradient finite and non-zero for all {n_params} parameters; "
+          f"launches per step {per_step[0]} (want {want}); batches from "
+          f"the stream's batch {first_batch}, the first that masks a row; "
+          f"loss-masked share {masked:.4f}")
+    for name, r in ((f"first {strict} layers", first),
+                    (f"{cfg.n_layers} layers", full)):
+        print(f"{phase}: step 1 vs the plain K7 route, {name}: rel "
+              f"{r['rel']:.3e} (loss, global and per-parameter gradient "
+              f"norms; bar {r['bar']:.3e}, the plain route's own bf16 error "
+              f"{r['own']:.3e}); planted fault (dw x 2) {r['planted']:.3e}")
+    print(f"{phase} [{card}]: {n_steps} steps of {batch} x {seq} tokens: "
+          f"step {step_s * 1e3:.2f} ms (median of steps 2-{n_steps}), "
+          f"{batch * seq / step_s:.1f} tokens/s, model-FLOPs share of the "
+          f"bf16 peak {mfu:.2%} ({mflops:.4e} FLOPs a step); AdamW update "
+          f"{upd_s * 1e3:.2f} ms ({upd_s / step_s:.2%} of a step); peak "
+          + (f"{peak / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB "
+             f"({peak / total:.2%}; {resident / 2 ** 30:.2f} GiB resident "
+             f"before the phase)" if cuda else "not measured")
+          + f"; losses {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"walls {', '.join(f'{w:.3f}' for w in walls)} s")
+    print(f"{phase} profile (one step) [{card}]: {prof}")
+    print(f"{phase}: refusals: " + "; ".join(refused))
+    if resume is not None:
+        print(f"{phase}: {resume_cfg.name} died at step {RESUME_DIE}, "
+              f"resumed from {RESUME_EVERY}: final parameters "
+              + ("bitwise those of the uninterrupted run" if resume["bitwise"]
+                 else f"{resume['rel']:.3e} from the uninterrupted run's "
+                      f"(not bitwise; bar 1e-5)"))
+    return {"held": held, "first": first, "full": full,
+            "launches_per_step": per_step[0], "launches": launched,
+            "step_s": step_s, "tokens_per_s": batch * seq / step_s,
+            "mfu": mfu, "peak": peak, "update_s": upd_s, "losses": losses,
+            "masked": masked, "refused": refused,
+            "resume_bitwise": bool(resume and resume["bitwise"]),
+            "planted_fails": all(not r["planted"] <= r["bar"]
+                                 for r in (first, full))}
 
 # -- the eleventh slice: the perf record, the build hooks --------------------
 
@@ -4080,6 +4573,22 @@ def main() -> int:
                    f"{serve_cfg.param_dtype} parameters)")
             serve_cfg = serve_cfg.replace(n_layers=layers)
         lm_serve_phase(torch, np, dev, serve_cfg, cut)
+    torch.cuda.empty_cache()
+
+    # -- 16b. the single-card trainer: K7 and its backward ------------------
+    from repro_torch.configs import get_smoke_config
+    train_cfg = get_config(TRAIN_ARCH)
+    whole = count_params(train_cfg)[0] * 16 / 2 ** 30
+    train = lm_train_phase(
+        torch, np, dev, train_cfg.replace(n_layers=TRAIN_LAYERS),
+        resume_cfg=get_smoke_config(TRAIN_ARCH), card=smi,
+        cut=(f" (cut to {TRAIN_LAYERS} of {train_cfg.n_layers} layers: "
+             f"parameters, gradients and two float32 moments of all "
+             f"{train_cfg.n_layers} take {whole:.1f} GiB)"))
+    # the kernels line reports K7's backward at the largest operand held
+    report["rmsnorm_bwd"] = max(train["held"].values(),
+                                key=lambda r: r["rows"] * r["D"])
+    torch.cuda.empty_cache()
 
     # -- 17./18. the perf records and the build hooks ---------------------
     # the counting hooks, disarmed, on K7 dispatches at a decode step's shape
@@ -4106,6 +4615,7 @@ def main() -> int:
                 "flash_attention": lm["launches"],
                 "ssd_scan": ssm["kernel_launches"]["ssd_scan"],
                 "rmsnorm": ssm["kernel_launches"]["rmsnorm"],
+                "rmsnorm_bwd": train["launches"]["rmsnorm_bwd"],
                 **tile["launches"]}
     print(smi)
     print(json.dumps({"kernels": [

@@ -11,9 +11,16 @@ The rule is the tensors' device, nothing else:
 * any other device, or operands on different devices, raise.
 
 There is no coercion and no fallback: a CUDA tensor reaches the kernel or
-raises.  Block sizes are fixed constants of the kernel sources.  Every
-decision is counted as ``kernels.dispatch.plans{kind, impl}`` in
-:mod:`repro_torch.obs` when the registry is enabled (kind ``dense``,
+raises.  Gradients follow the same rule.  On the card K7 is the one kernel
+with a backward (:class:`~repro_torch.kernels.rmsnorm.RMSNormFunction`,
+taken when grad mode is on and an operand requires grad); every other
+card route raises in that case instead of returning a tensor without a
+``grad_fn``, naming the ROADMAP item that would give it a backward.  The
+plain routes on the CPU are ordinary autograd, as the reference trains
+through its plain functions.  Block sizes are fixed constants of the
+kernel sources.  Every decision is counted as
+``kernels.dispatch.plans{kind, impl}`` in :mod:`repro_torch.obs` when the
+registry is enabled (kind ``dense``,
 ``structured``, ``dense_single_tile``, ``structured_single_tile``,
 ``flash_attention``, ``rmsnorm`` or ``ssd_scan``), and each route runs
 inside ``repro_torch.perf.counts.kernel_scope`` of its kernel's name, so an
@@ -83,15 +90,44 @@ def _plan(kind: str, what: str, tensors) -> str:
     return impl
 
 
+# the ROADMAP item that would give each card route a backward
+NO_BACKWARD = {
+    "flash_attention": "B2, K6's and K5's backward; train with "
+                       "attention_impl='reference', as the reference must",
+    "ssd_scan": "B2, K6's and K5's backward; the CPU route trains Mamba2 "
+                "through the plain scan, as the reference does",
+    "edge_latency": "none: the reference never differentiates it, A9 "
+                    "differentiates the smoothed model instead",
+}
+
+
+def _refuse_grad(kind: str, item: str, tensors) -> None:
+    """Raise when the card route ``kind`` would cut a gradient: grad mode
+    on and an operand requiring grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kind}: the CUDA kernel has no backward and would return a "
+            f"tensor without a grad_fn (ROADMAP {NO_BACKWARD[item]}); run "
+            f"under torch.no_grad() or on the CPU route")
+
+
 def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
     """"cuda" or "plain" for edge-latency operands of ``kind`` ("dense",
-    "structured", "dense_single_tile" or "structured_single_tile")."""
-    return _plan(kind, "edge-latency", tensors)
+    "structured", "dense_single_tile" or "structured_single_tile"); the
+    card route raises under grad (no backward)."""
+    impl = _plan(kind, "edge-latency", tensors)
+    if impl == "cuda":
+        _refuse_grad(kind, "edge_latency", tensors)
+    return impl
 
 
 def plan_attention_kernel(*tensors: torch.Tensor) -> str:
-    """"cuda" or "plain" for attention operands."""
-    return _plan("flash_attention", "flash-attention", tensors)
+    """"cuda" or "plain" for attention operands; the card route raises
+    under grad (K5 has no backward)."""
+    impl = _plan("flash_attention", "flash-attention", tensors)
+    if impl == "cuda":
+        _refuse_grad("flash_attention", "flash_attention", tensors)
+    return impl
 
 
 def edge_latency(x_i, x_j, com) -> torch.Tensor:
@@ -144,9 +180,15 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
 
 def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of the last axis with a weight, in x's dtype: K7 on the
-    card, its plain version on the CPU.  The weight is read as float32."""
+    card, its plain version on the CPU.  The weight is read as float32.
+    Under grad (grad mode on, x or w requiring grad) the card route is
+    K7's autograd function: the forward kernel, and K7's backward kernel
+    for the gradient."""
     with kernel_scope("rmsnorm"):
         if _plan("rmsnorm", "rmsnorm", (x, w)) == "cuda":
+            if torch.is_grad_enabled() and (x.requires_grad
+                                            or w.requires_grad):
+                return rmsnorm_kernel.rmsnorm_autograd(x, w.float(), eps)
             return rmsnorm_kernel.rmsnorm(x, w.float(), eps)
         return ref.rmsnorm_plain(x, w, eps)
 
@@ -160,6 +202,7 @@ def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
     into = {} if state_out is None else {"state_out": state_out}
     with kernel_scope("ssd_scan"):
         if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
+            _refuse_grad("ssd_scan", "ssd_scan", (x, B, C, dt, A, D))
             return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk, final_state,
                                        **into)
         return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state,

@@ -12,7 +12,9 @@
   softmax.  It computes in float32 for float32 / bfloat16 inputs and in
   float64 for float64 inputs.
 * RMSNorm (:func:`rmsnorm_plain`): ``repro.models.layers.rms_norm``, the
-  function ``repro.kernels.rmsnorm._rmsnorm_kernel`` computes.
+  function ``repro.kernels.rmsnorm._rmsnorm_kernel`` computes; its
+  gradient (:func:`rmsnorm_bwd_plain`) is autograd through it, what the
+  reference's ``jax.vjp`` of ``rms_norm`` computes.
 * The SSD scan (:func:`ssd_scan_plain`): the chunked form of
   ``repro.models.mamba2.ssd_chunked`` (what ``_ssd_kernel`` computes),
   returning y, and on request the final state too.  Like the attention version it computes in float32, or in
@@ -31,7 +33,8 @@ __all__ = ["edge_latency_dense_plain", "edge_latency_structured_plain",
            "edge_latency_dense_single_tile_plain",
            "edge_latency_structured_single_tile_plain",
            "check_attention_operands", "flash_attention_plain",
-           "rmsnorm_plain", "check_ssd_operands", "ssd_scan_plain"]
+           "rmsnorm_plain", "rmsnorm_bwd_plain", "check_ssd_operands",
+           "ssd_scan_plain"]
 
 # the reference kernel's mask value (repro.kernels.flash_attention.NEG_INF)
 # and the floor of its softmax denominator
@@ -133,6 +136,18 @@ def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor | None,
     if weight is not None:
         x = x * weight.to(x.dtype)
     return x.to(dt)
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw): the gradient of :func:`rmsnorm_plain` (x, w) against the
+    upstream gradient g, by autograd through it — dx in x's dtype, dw in
+    w's."""
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_()
+        wd = w.detach().requires_grad_()
+        dx, dw = torch.autograd.grad(rmsnorm_plain(xd, wd, eps), (xd, wd), g)
+    return dx, dw
 
 
 def check_ssd_operands(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Launchers of the port: the LM token server (``serve``)."""
+"""Launchers of the port: the LM token server (``serve``) and the trainer
+(``train``)."""

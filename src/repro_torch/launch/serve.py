@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, stub_extras
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
 __all__ = ["ServeStats", "serve_wave", "main"]
@@ -112,17 +112,7 @@ def main(argv=None):
     model.init_params(torch.Generator(device=model.device).manual_seed(0))
     # the stub frontends' embeddings, float32 from seeded generators on the
     # model's device, as the reference draws them (keys 1 and 2)
-    extras = {}
-    if cfg.family == "vlm":
-        extras["image_embeds"] = torch.randn(
-            (args.batch, cfg.n_image_tokens, cfg.d_model),
-            generator=torch.Generator(device=model.device).manual_seed(1),
-            device=model.device)
-    if cfg.family == "audio":
-        extras["audio_frames"] = torch.randn(
-            (args.batch, cfg.n_audio_frames, cfg.d_model),
-            generator=torch.Generator(device=model.device).manual_seed(2),
-            device=model.device)
+    extras = stub_extras(cfg, args.batch, model.device)
     rng = np.random.default_rng(0)
     stats = ServeStats()
     done = 0

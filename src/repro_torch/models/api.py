@@ -25,7 +25,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig", "build_model", "count_params", "analytic_flops"]
+__all__ = ["ModelConfig", "build_model", "stub_extras", "count_params",
+           "analytic_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +69,9 @@ class ModelConfig:
     act_dtype: str = "bfloat16"
     attention_impl: str = "reference"  # reference | pallas (K5)
     attn_chunk: int = 256
-    # kept for parity with the reference's configs; the port's forward is a
-    # Python layer loop without remat (both serve training)
-    remat: str = "full"
+    remat: str = "full"  # full | dots | none (models.transformer.remat_wrap)
+    # kept for parity with the reference's configs; the port's layer stack
+    # is a Python loop
     scan_layers: bool = True
     sub_quadratic: bool = False
 
@@ -130,6 +131,21 @@ def build_model(cfg: ModelConfig, device=None):
         from repro_torch.models.whisper import EncDecLM
         return EncDecLM(cfg, device=device)
     raise ValueError(f"unknown family {cfg.family}")
+
+
+def stub_extras(cfg: ModelConfig, batch: int, device) -> dict:
+    """The modality frontends' stubs: fixed seeded float32 image (VLM,
+    seed 1) or frame (audio, seed 2) embeddings for ``batch`` rows."""
+    def draw(seed, n):
+        return torch.randn((batch, n, cfg.d_model), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed))
+
+    if cfg.family == "vlm":
+        return {"image_embeds": draw(1, cfg.n_image_tokens)}
+    if cfg.family == "audio":
+        return {"audio_frames": draw(2, cfg.n_audio_frames)}
+    return {}
 
 
 # ------------------------------------------------------- analytic counts ---

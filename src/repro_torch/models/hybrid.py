@@ -10,8 +10,12 @@ last group is ragged when ``every`` does not divide L (Zamba2-1.2B: 38 =
 ``embed`` (V_pad, d), ``blocks`` (the Mamba2 blocks of
 ``repro_torch.models.mamba2``, one per layer), ``shared_attn`` (``ln1``,
 ``attn`` wq/wk/wv/wo flat, ``ln2``, ``mlp``), ``final_norm`` and ``head``
-(d, V_pad).  The reference's remat and ``lax.scan`` over each group serve
-training and compilation; here the groups run as Python loops.
+(d, V_pad).  The groups run as Python loops in place of the reference's
+``lax.scan``.  Without a cache, with ``cfg.remat`` other than "none", each
+attention site is recomputed whole in the backward (the reference's
+``jax.checkpoint`` there takes no policy) and each Mamba2 block runs under
+``remat_wrap``; a prefill's blocks too, a decode step's not; ``forward``
+casts the gradient back to the activation dtype before the head.
 
 Kernels, through ``repro_torch.kernels.dispatch``: every Mamba2 block's
 scan runs K6 and every RMSNorm K7; the shared block's attention runs K5
@@ -34,9 +38,10 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       embed_lookup, mlp)
+                                       cotangent_cast, embed_lookup, mlp)
 from repro_torch.models.mamba2 import (SSMCache, _Block, _param,
                                        init_mamba_block, mamba_block)
+from repro_torch.models.transformer import remat_wrap
 
 __all__ = ["Zamba2LM", "HybridCache"]
 
@@ -147,15 +152,21 @@ class Zamba2LM(nn.Module):
         """The body shared by forward / prefill / decode: per site the
         shared block, then its group of Mamba2 blocks."""
         cfg = self.cfg
+        shared = self._shared_block
+        if cache is None and cfg.remat != "none":
+            # the reference remats each attention site whole: otherwise the
+            # backward keeps every site's attention internals live
+            shared = remat_wrap(shared, "full")
+        block = mamba_block if decode else remat_wrap(mamba_block, cfg.remat)
         for s in range(self.n_sites):
             site = None if cache is None else \
                 KVCache(cache.attn.k[s], cache.attn.v[s])
-            x = self._shared_block(x, site, cache_pos)
+            x = shared(x, site, cache_pos)
             lo, hi = self._group(s)
             for li in range(lo, hi):
                 layer = None if cache is None else \
                     SSMCache(cache.ssm.state[li], cache.ssm.conv[li])
-                x = mamba_block(self.blocks[li], x, cfg, layer, decode=decode)
+                x = block(self.blocks[li], x, cfg, layer, decode)
         return x
 
     # -------------------------------------------------------------- API ---
@@ -174,6 +185,7 @@ class Zamba2LM(nn.Module):
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
         aux loss 0.0) over the full sequence."""
         x = self._run(self._embed(batch["tokens"]))
+        x = cotangent_cast(x)   # keep the backward at activation dtype
         return self.logits(x), torch.zeros((), device=self.device)
 
     def init_cache(self, batch_size: int, max_seq: int) -> HybridCache:

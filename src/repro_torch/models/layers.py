@@ -26,6 +26,12 @@ one-token query with grouped kv heads, which takes the reference's
 grouped einsum and never repeats the keys.  The reference's mesh
 constraints (``shard``, ``shard_div``, ``constrain_tree``) are identities
 on one device and have no counterpart.
+
+Training: every layer here is differentiable on both routes (K7 through
+its backward kernel on the card).  :func:`embed_lookup`'s table gradient
+mirrors the reference's one-hot matmul, rounded to the activation dtype
+as that product is; :func:`cotangent_cast` is the reference's guard
+between the float32 head and the layer stack.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from repro_torch.kernels import dispatch, ref
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "dense", "embed_lookup",
     "rotary_embedding", "apply_rotary", "KVCache", "attention", "mlp",
-    "token_cross_entropy", "cross_entropy_loss",
+    "cotangent_cast", "token_cross_entropy", "cross_entropy_loss",
 ]
 
 ATTENTION_IMPLS = ("reference", "pallas")
@@ -89,11 +95,53 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+# the reference's one-hot embedding runs in chunks of this many positions
+# (``repro.models.layers.embed_lookup``'s ``chunk``)
+EMBED_CHUNK = 512
+
+
+class _EmbedLookup(torch.autograd.Function):
+    """Rows of the table in the activation dtype, with the reference's
+    table gradient: its one-hot matmul ``one_hot(tokens) @ table`` in the
+    activation dtype (``repro.models.layers.embed_lookup``) has the
+    gradient ``one_hotᵀ @ dy`` per chunk of ``EMBED_CHUNK`` positions, each
+    product rounded once to that dtype, the chunks summed in it from the
+    last (the order of its scan's transpose), then cast to the table's
+    dtype.  Here each chunk's product is summed in float32 by
+    ``embedding_dense_backward`` (deterministic on the card, unlike an
+    ``index_add_``) and rounded once, as XLA's product is."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, out_dtype):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.table_dtype, ctx.out_dtype = (table.shape[0],
+                                                     table.dtype, out_dtype)
+        return F.embedding(tokens, table).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        acc = None
+        for start in reversed(range(0, max(tokens.shape[-1], 1),
+                                    EMBED_CHUNK)):
+            end = start + EMBED_CHUNK
+            part = torch.ops.aten.embedding_dense_backward(
+                g[..., start:end, :].float(), tokens[..., start:end],
+                ctx.vocab, -1, False).to(ctx.out_dtype)
+            acc = part if acc is None else acc + part
+        return acc.to(ctx.table_dtype), None, None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  out_dtype: torch.dtype) -> torch.Tensor:
     """Rows of ``table`` in ``out_dtype``.  The reference computes a one-hot
     matmul (TPU-friendly); selecting one row per token is the same value
-    exactly, and casting after the lookup equals casting the table."""
+    exactly, and casting after the lookup equals casting the table.  Under
+    grad the table's gradient is the reference's (:class:`_EmbedLookup`):
+    at bf16 activations rounded to bf16, where ``F.embedding``'s own
+    backward would keep float32."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens, out_dtype)
     return F.embedding(tokens, table).to(out_dtype)
 
 
@@ -268,6 +316,30 @@ def mlp(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(dense(params["wi"], x), approximate="tanh")
     return dense(params["wo"], h)
+
+
+class _CotangentCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def cotangent_cast(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward casts the gradient to x's dtype — the
+    counterpart of ``repro.models.layers.cotangent_cast``, the guard
+    between the float32 head and the layer stack (a float32 gradient would
+    otherwise run through every residual add).  Torch's own ``.float()``
+    cast already hands back a gradient in x's dtype (``ToCopyBackward``),
+    so on today's heads this is a no-op, as the reference measured its
+    own; it pins the invariant at the reference's five call sites."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CotangentCast.apply(x)
+    return x
 
 
 # ---------------------------------------------------------------- loss -----

@@ -8,9 +8,14 @@ block per layer (``norm``, the projections ``wz``/``wx`` (d, d_inner),
 (k, d_inner + 2N) and ``conv_b``, ``A_log``, ``D``, ``dt_bias`` (H,) in
 float32, ``gate_norm`` (d_inner,) and ``out_proj`` (d_inner, d)),
 ``final_norm`` and ``head`` (d, V_pad).  The layer stack runs as a Python
-loop; the reference's ``scan``, remat and cotangent cast serve training
-and have no counterpart here.  The SSD scan runs K6 and every RMSNorm K7,
-through :mod:`repro_torch.kernels.dispatch`.
+loop in place of the reference's ``scan``, each block under
+``remat_wrap`` per ``cfg.remat`` (``forward`` and ``prefill``, as the
+reference), and ``forward`` casts the gradient back to the activation
+dtype before the head (``cotangent_cast``).  The SSD scan runs K6 and every
+RMSNorm K7, through :mod:`repro_torch.kernels.dispatch`; K6 has no
+backward on the card (its route raises under grad), so Mamba2 trains on
+the CPU route, through the plain scan, as the reference trains through
+its ``ssd_chunked``.
 
 The reference's numerics are kept op for op, including its type
 promotions:
@@ -50,8 +55,9 @@ from torch import nn
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.layers import (apply_norm, dense, embed_lookup,
-                                       rms_norm)
+from repro_torch.models.layers import (apply_norm, cotangent_cast, dense,
+                                       embed_lookup, rms_norm)
+from repro_torch.models.transformer import remat_wrap
 
 __all__ = ["Mamba2LM", "SSMCache", "mamba_block", "init_mamba_block",
            "causal_conv", "ssd_decode_step"]
@@ -238,8 +244,10 @@ class Mamba2LM(nn.Module):
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
         aux loss 0.0) over the full sequence."""
         x = self._embed(batch["tokens"])
+        block = remat_wrap(mamba_block, self.cfg.remat)
         for blk in self.blocks:
-            x = mamba_block(blk, x, self.cfg)
+            x = block(blk, x, self.cfg)
+        x = cotangent_cast(x)   # keep the backward at activation dtype
         return self.logits(x), torch.zeros((), device=self.device)
 
     def _embed(self, tokens) -> torch.Tensor:
@@ -262,10 +270,12 @@ class Mamba2LM(nn.Module):
 
     def _run_cached(self, x: torch.Tensor, cache: SSMCache,
                     decode: bool) -> torch.Tensor:
+        # the reference remats the prefill's body, not decode's
+        block = mamba_block if decode else remat_wrap(mamba_block,
+                                                      self.cfg.remat)
         for li, blk in enumerate(self.blocks):
-            x = mamba_block(blk, x, self.cfg,
-                            SSMCache(cache.state[li], cache.conv[li]),
-                            decode=decode)
+            x = block(blk, x, self.cfg,
+                      SSMCache(cache.state[li], cache.conv[li]), decode)
         return x
 
     def prefill(self, batch, cache: SSMCache):

@@ -8,10 +8,13 @@ block per layer (``ln1`` / ``ln2`` norm weights, ``attn`` wq/wk/wv/wo flat,
 and ``mlp`` or, with ``moe_experts``, ``moe``: the
 :class:`~repro_torch.models.moe.MoE` FFN), ``final_norm`` and ``head``
 (d, V_pad).  A non-parametric norm has no parameter (the reference keeps a
-(0,) placeholder leaf).  The layer stack runs as a Python loop; the
-reference's ``scan``, remat and cotangent cast serve training and have no
-counterpart here.  ``forward`` returns the MoE layers' summed aux loss
-(0.0 without experts), as the reference does.
+(0,) placeholder leaf).  The layer stack runs as a Python loop in place
+of the reference's ``scan``; each block runs under :func:`remat_wrap` per
+``cfg.remat`` (the reference's sites: ``forward`` and ``prefill``), and
+``forward`` passes the stack's output through
+:func:`~repro_torch.models.layers.cotangent_cast` before the head, as the
+reference does.  ``forward`` returns the MoE layers' summed aux loss (0.0
+without experts), as the reference does.
 
 Two numerics of the reference are kept on purpose:
 
@@ -28,16 +31,55 @@ return it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       embed_lookup, mlp)
+                                       cotangent_cast, embed_lookup, mlp)
 from repro_torch.models.moe import MoE, init_moe, moe_ffn
 
-__all__ = ["DecoderLM"]
+__all__ = ["DecoderLM", "remat_wrap", "REMAT_MODES"]
+
+REMAT_MODES = ("none", "dots", "full")
+# the matmuls without batch dimensions (x @ w: torch.matmul folds the
+# leading axes into one mm); batched einsums (attention, the experts' bmm)
+# are recomputed, as JAX's dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, remat: str):
+    """``fn`` under activation recomputation per ``remat``, the counterpart
+    of the reference's ``remat_wrap``: ``"none"`` keeps every activation;
+    ``"full"`` (``jax.checkpoint``) keeps only ``fn``'s inputs and reruns
+    it in the backward (``torch.utils.checkpoint``, non-reentrant);
+    ``"dots"`` (``dots_with_no_batch_dims_saveable``) also keeps the
+    outputs of the matmuls without batch dimensions (a selective
+    checkpoint policy).  Without grad (serving under ``inference_mode``)
+    ``fn`` runs as it is."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} not one of {REMAT_MODES}")
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
@@ -154,10 +196,12 @@ class DecoderLM(nn.Module):
         full sequence."""
         x = self._embed(batch["tokens"])
         aux = torch.zeros((), device=self.device)
+        block = remat_wrap(self._block, self.cfg.remat)
         for blk in self.blocks:
-            x, a = self._block(blk, x)
+            x, a = block(blk, x)
             if a is not None:
                 aux = aux + a
+        x = cotangent_cast(x)   # keep the backward at activation dtype
         return self.logits(x), aux
 
     def _embed(self, tokens) -> torch.Tensor:
@@ -175,9 +219,11 @@ class DecoderLM(nn.Module):
 
     def _run_cached(self, x: torch.Tensor, cache: KVCache,
                     pos: int) -> torch.Tensor:
+        # the reference remats the prefill's body, not decode's
+        block = self._block if x.shape[1] == 1 else \
+            remat_wrap(self._block, self.cfg.remat)
         for li, blk in enumerate(self.blocks):
-            x, _ = self._block(blk, x, KVCache(cache.k[li], cache.v[li]),
-                               pos)
+            x, _ = block(blk, x, KVCache(cache.k[li], cache.v[li]), pos)
         return x
 
     def prefill(self, batch, cache: KVCache):

@@ -20,6 +20,11 @@ and caches ``image_embeds @ wk`` / ``@ wv`` computed as the reference
 does: the bf16 embeddings times the float32 weights, promoted to float32,
 then cast to the activation dtype.  Decode reads those, rounded
 differently from the keys the prefill attended to, as in the reference.
+
+Training: the self-attention layers run under ``remat_wrap`` per
+``cfg.remat`` (in ``forward``, and in a prefill of more than one token, as
+the reference; the cross blocks are not recomputed), and ``forward`` casts
+the gradient back to the activation dtype before the head.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ import torch
 from torch import nn
 
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.layers import KVCache, apply_norm, attention
-from repro_torch.models.transformer import DecoderLM, _param
+from repro_torch.models.layers import (KVCache, apply_norm, attention,
+                                       cotangent_cast)
+from repro_torch.models.transformer import DecoderLM, _param, remat_wrap
 
 __all__ = ["VisionLM", "VLMCache"]
 
@@ -123,6 +129,8 @@ class VisionLM(DecoderLM):
         cached image keys and values when there are none), then its
         self-attention layers.  A prefill (a cache and ``image_embeds``)
         also writes the image keys and values into ``cache.cross``."""
+        block = self._block if cache is not None and x.shape[1] == 1 else \
+            remat_wrap(self._block, self.cfg.remat)
         for s in range(self.n_cross):
             cb = self.cross[s]
             cross = None
@@ -137,7 +145,7 @@ class VisionLM(DecoderLM):
             for li in range(lo, hi):
                 layer = None if cache is None else \
                     KVCache(cache.self_attn.k[li], cache.self_attn.v[li])
-                x, _ = self._block(self.blocks[li], x, layer, cache_pos)
+                x, _ = block(self.blocks[li], x, layer, cache_pos)
         return x
 
     def _image(self, batch) -> torch.Tensor:
@@ -149,6 +157,7 @@ class VisionLM(DecoderLM):
         """``batch`` with ``tokens`` (B, S) and ``image_embeds`` (B, n_img,
         d) → (logits (B, S, V_pad) float32, aux loss 0.0)."""
         x = self._run(self._embed(batch["tokens"]), self._image(batch))
+        x = cotangent_cast(x)   # keep the backward at activation dtype
         return self.logits(x), torch.zeros((), device=self.device)
 
     def init_cache(self, batch_size: int, max_seq: int) -> VLMCache:

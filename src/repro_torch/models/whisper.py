@@ -19,6 +19,11 @@ float32, then cast to the activation dtype — and its own decoder pass
 reads them from the cache, as every decode step does.  ``forward``
 instead projects the encoder output through ``dense`` (bf16 products), as
 the reference.
+
+Training: each encoder layer and each decoder layer runs under
+``remat_wrap`` per ``cfg.remat`` (``forward``; the prefill's decoder
+layers too, a decode step's not, as the reference), and ``forward`` casts
+the gradient back to the activation dtype before the head.
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       embed_lookup, mlp)
-from repro_torch.models.transformer import _param
+                                       cotangent_cast, embed_lookup, mlp)
+from repro_torch.models.transformer import _param, remat_wrap
 from repro_torch.models.vlm import promoted_kv
 
 __all__ = ["EncDecLM", "EncDecCache"]
@@ -130,15 +135,20 @@ class EncDecLM(nn.Module):
         the activation dtype."""
         cfg = self.cfg
         x = torch.as_tensor(audio_frames, device=self.device).to(cfg.adtype)
+        layer = remat_wrap(self._enc_block, cfg.remat)
         for blk in self.encoder:
-            h = apply_norm(cfg.norm_type, x, blk.ln1)
-            x = x + attention(blk.attn, h, n_heads=cfg.n_heads,
-                              n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                              rope_theta=cfg.rope_theta, causal=False,
-                              impl="reference", chunk=cfg.attn_chunk)
-            h = apply_norm(cfg.norm_type, x, blk.ln2)
-            x = x + mlp(blk.mlp, h, "gelu")
+            x = layer(blk, x)
         return apply_norm(cfg.norm_type, x, self.enc_norm)
+
+    def _enc_block(self, blk: _EncBlock, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(cfg.norm_type, x, blk.ln1)
+        x = x + attention(blk.attn, h, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                          rope_theta=cfg.rope_theta, causal=False,
+                          impl="reference", chunk=cfg.attn_chunk)
+        h = apply_norm(cfg.norm_type, x, blk.ln2)
+        return x + mlp(blk.mlp, h, "gelu")
 
     def _dec_block(self, blk: _DecBlock, x: torch.Tensor,
                    enc_out: torch.Tensor | None = None,
@@ -171,8 +181,11 @@ class EncDecLM(nn.Module):
 
     def _decode(self, x: torch.Tensor, cache: EncDecCache,
                 pos: int) -> torch.Tensor:
+        # the reference remats the prefill's body, not decode's
+        block = self._dec_block if x.shape[1] == 1 else \
+            remat_wrap(self._dec_block, self.cfg.remat)
         for li, blk in enumerate(self.decoder):
-            x = self._dec_block(
+            x = block(
                 blk, x, None, KVCache(cache.self_attn.k[li],
                                       cache.self_attn.v[li]), pos,
                 KVCache(cache.cross.k[li], cache.cross.v[li]))
@@ -184,8 +197,10 @@ class EncDecLM(nn.Module):
         n_frames, d) → (logits (B, S, V_pad) float32, aux loss 0.0)."""
         enc_out = self.encode(batch["audio_frames"])
         x = self._embed(batch["tokens"])
+        block = remat_wrap(self._dec_block, self.cfg.remat)
         for blk in self.decoder:
-            x = self._dec_block(blk, x, enc_out)
+            x = block(blk, x, enc_out)
+        x = cotangent_cast(x)   # keep the backward at activation dtype
         return self.logits(x), torch.zeros((), device=self.device)
 
     def init_cache(self, batch_size: int, max_seq: int) -> EncDecCache:

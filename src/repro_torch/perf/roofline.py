@@ -4,7 +4,7 @@ through (``repro_torch.serve.admission``), the single-tile edge-latency
 kernels' bounds (:func:`edge_latency_single_tile_terms`,
 :func:`edge_latency_structured_single_tile_terms`) and the LM kernels'
 (:func:`flash_attention_terms`, :func:`ssd_scan_terms`,
-:func:`rmsnorm_terms`).
+:func:`rmsnorm_terms`, :func:`rmsnorm_bwd_terms`).
 
   compute_s = FLOPs / peak (FP32 by default)
   memory_s  = bytes / HBM_BW
@@ -47,7 +47,8 @@ __all__ = ["RooflineTerms", "compute_terms", "edge_latency_dense_terms",
            "edge_latency_single_tile_terms",
            "edge_latency_structured_single_tile_terms",
            "flash_attention_terms",
-           "ssd_scan_terms", "rmsnorm_terms", "PEAK_FLOPS", "PEAK_BF16_TC",
+           "ssd_scan_terms", "rmsnorm_terms", "rmsnorm_bwd_terms",
+           "PEAK_FLOPS", "PEAK_BF16_TC",
            "PEAK_TF32_TC", "HBM_BW", "NVLINK_BW", "step_terms"]
 
 
@@ -232,4 +233,17 @@ def rmsnorm_terms(rows: int, D: int, dtype) -> RooflineTerms:
     width, _ = _operands(dtype, "RMSNorm")
     flops = 4.0 * rows * D
     bytes_ = 2.0 * rows * D * width + 4.0 * D
+    return compute_terms(flops, bytes_, peak=PEAK_FLOPS)
+
+
+def rmsnorm_bwd_terms(rows: int, D: int, dtype) -> RooflineTerms:
+    """The least time for RMSNorm's gradient on x (rows, D) of ``dtype``
+    with a float32 weight: x and the upstream gradient read once, dx
+    written once (``dtype``), w read and dw written once (float32); 10
+    operations per element (x², x·g·w, g·w, dx's three, dw's two and the
+    scaling) at the FP32 rate.  The kernel's dw partials (grid × D float32,
+    written and read back) are its own overhead and not counted."""
+    width, _ = _operands(dtype, "RMSNorm")
+    flops = 10.0 * rows * D
+    bytes_ = 3.0 * rows * D * width + 8.0 * D
     return compute_terms(flops, bytes_, peak=PEAK_FLOPS)

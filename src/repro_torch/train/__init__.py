@@ -1,2 +1,2 @@
-"""Serving steps of the port (``steps``); the training steps come
-with ROADMAP A13c."""
+"""Training and serving steps of the port (``steps``), AdamW (``optim``)
+and gradient compression (``compress``)."""

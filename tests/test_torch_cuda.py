@@ -921,3 +921,120 @@ def test_new_smoke_models_on_the_card_match_the_cpu_route(card, arch):
     assert after["rmsnorm"] - before["rmsnorm"] == \
         pre["rmsnorm"] + 5 * dec["rmsnorm"]
     assert after["flash_attention"] == before["flash_attention"]
+
+
+# -- the thirteenth slice: K7's backward, the trainer ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,D,offset", [(8192, 64, 0), (300, 4096, 0),
+                                           (9, 7168, 0), (33, 100, 0),
+                                           (5, 2048, 1)])
+def test_rmsnorm_backward_matches_plain_on_the_card(card, dtype, rows, D,
+                                                    offset):
+    """K7's backward against autograd through the plain version: float32
+    dx ≤1e-5 relative to the float64 plain version; bfloat16 dx within one
+    bf16 ulp of the largest (≤1e-2) of the plain version on the same
+    operands; dw (float32) ≤1e-4 to the float64 plain version.  D 64 to
+    7168, a D that takes single elements (100) and operands one element
+    into their buffers (not 16-byte aligned)."""
+    td = getattr(torch, dtype)
+    gen = torch.Generator(device=card).manual_seed(rows + D)
+    x = torch.randn(rows * D + offset, generator=gen, device=card)
+    g = torch.randn(rows * D + offset, generator=gen, device=card)
+    x, g = (t.to(td)[offset:].view(rows, D) for t in (x, g))
+    w = 1 + 0.1 * torch.randn(D, generator=gen, device=card)
+    dx, dw = rk.rmsnorm_bwd(x, w, g)
+    wide = ref.rmsnorm_bwd_plain(x.double(), w.double(), g.double())
+    plain = ref.rmsnorm_bwd_plain(x, w, g)
+    want_dx = wide[0] if dtype == "float32" else plain[0]
+    bar = 1e-5 if dtype == "float32" else 1e-2
+    rel = (dx.double() - want_dx.double()).abs().max() / \
+        want_dx.double().abs().max()
+    assert dx.dtype == td and float(rel) <= bar
+    rel_dw = (dw.double() - wide[1]).abs().max() / wide[1].abs().max()
+    assert dw.dtype == torch.float32 and float(rel_dw) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_rmsnorm_backward_is_deterministic_on_the_card(card):
+    """Two launches on the same operands give dx and dw bitwise equal (dw's
+    partials are summed in a fixed order, no atomics), at a shape whose
+    grid is capped by the partials' scratch (8192 × 4096 bf16: 512 CTAs of
+    16 rows) and at a qk-norm's (65 536 rows × 128)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for rows, D in ((8192, 4096), (65536, 128)):
+        x = torch.randn(rows, D, generator=gen, device=card).bfloat16()
+        g = torch.randn(rows, D, generator=gen, device=card).bfloat16()
+        w = torch.rand(D, generator=gen, device=card) + 0.5
+        first = rk.rmsnorm_bwd(x, w, g)
+        for _ in range(3):
+            again = rk.rmsnorm_bwd(x, w, g)
+            assert torch.equal(first[0], again[0])
+            assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_routes_without_a_backward_raise_under_grad_on_the_card(card):
+    """K1, K2, K4a, K4b, K5 and K6 raise under grad on the card instead of
+    returning a tensor without a ``grad_fn``; K7 differentiates."""
+    from repro_torch.kernels import dispatch
+    x = torch.rand(2, 3, 8, device=card, requires_grad=True)
+    com = torch.rand(1, 8, 8, device=card)
+    mass, a, corr = (torch.rand(2, 3, 2, device=card),
+                     torch.rand(1, 2, 8, device=card),
+                     torch.rand(1, 1, 8, device=card))
+    q = torch.rand(1, 64, 2, 64, device=card, requires_grad=True)
+    B = torch.rand(1, 64, 16, device=card)
+    for call in (lambda: dispatch.edge_latency(x, x, com),
+                 lambda: dispatch.edge_latency_structured(x, x, mass, a,
+                                                          corr),
+                 lambda: dispatch.edge_latency_single_tile(x, x, com),
+                 lambda: dispatch.edge_latency_structured_single_tile(
+                     x, x, mass, a, corr),
+                 lambda: dispatch.flash_attention(q, q, q),
+                 lambda: dispatch.ssd_scan(q, B, B,
+                                           torch.rand(1, 64, 2, device=card),
+                                           -torch.rand(2, device=card),
+                                           torch.rand(2, device=card), 64)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    w = torch.ones(64, device=card, requires_grad=True)
+    y = dispatch.rmsnorm(q, w)
+    assert y.grad_fn is not None
+    before = rk.launches["rmsnorm_bwd"]
+    y.sum().backward()
+    assert rk.launches["rmsnorm_bwd"] == before + 1
+    assert q.grad is not None and w.grad is not None
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu_route(card):
+    """One training step of the granite smoke model (float32 activations,
+    full remat) on the card against the CPU route from the same weights and
+    batch: loss and gradient norm ≤1e-5, every parameter after the step
+    ≤1e-4 (Adam's first step moves a gradient at the roundoff floor by ±lr
+    either way); K7 launched as ``expected_launches(mode="train")``."""
+    from repro_torch.train import optim, steps
+    cfg = get_smoke_config("granite_8b")
+    host, model = _card_and_host(card, cfg)
+    rng = np.random.default_rng(64)
+    t = rng.integers(0, cfg.vocab, (4, 33), dtype=np.int32)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
+             "loss_mask": (rng.random((4, 32)) > 0.3).astype(np.float32)}
+    out = {}
+    for name, m in (("cpu", host), ("card", model)):
+        ocfg = optim.AdamWConfig()
+        state = optim.adamw_init(dict(m.named_parameters()), ocfg)
+        before = chip_smoke.lm_launches()
+        _, met = steps.make_train_step(m, cfg, ocfg)(state, batch)
+        after = chip_smoke.lm_launches()
+        out[name] = met, {k: after[k] - before[k] for k in after}
+    want = chip_smoke.expected_launches(cfg, "train")
+    assert {k: out["card"][1][k] for k in want} == want
+    for k in ("loss", "grad_norm"):
+        assert abs(float(out["card"][0][k]) - float(out["cpu"][0][k])) <= \
+            1e-5 * abs(float(out["cpu"][0][k]))
+    for (n, p), q in zip(model.named_parameters(), host.parameters()):
+        rel = (p.detach().cpu() - q.detach()).abs().max() / q.abs().max()
+        assert float(rel) <= 1e-4, n

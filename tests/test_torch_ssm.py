@@ -246,7 +246,7 @@ def test_routes_send_cpu_tensors_to_the_plain_versions(monkeypatch):
     assert torch.equal(y, ref.ssd_scan_plain(*args, chunk=4))
     assert torch.equal(n, ref.rmsnorm_plain(x, w))
     assert sk.launches == {"ssd_scan": 0}
-    assert rk.launches == {"rmsnorm": 0}
+    assert rk.launches == {"rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -272,7 +272,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert sk.smem_bytes(128, 64, 1024)["cuda_cores_f32"] > sk.SMEM_LIMIT
     assert sk.smem_bytes(128, 64, 1024)["output"] <= sk.SMEM_LIMIT
     assert sk.smem_bytes(128, 64, 16_384)["output"] > sk.SMEM_LIMIT
-    assert sk.launches == {"ssd_scan": 0} and rk.launches == {"rmsnorm": 0}
+    assert sk.launches == {"ssd_scan": 0} and \
+        rk.launches == {"rmsnorm": 0, "rmsnorm_bwd": 0}
     assert not any(sk.route_launches.values())
 
 
