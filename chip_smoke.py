@@ -274,6 +274,27 @@ bitwise equal.
    ``run_training`` on the flash route raise; granite's smoke config
    dies at step 6 and resumes from 5 to the uninterrupted run's
    parameters.
+16c. lm_mesh: the mesh planner (ROADMAP A13d, first half) on Granite-8B
+   at its published widths cut to 4 of 36 layers, on a one-card ("data",
+   "model") (1, 1) ``DeviceMesh`` over a world-size-1 ``nccl`` group
+   (FileStore rendezvous, destroyed at the phase's end): the parameters as
+   DTensors laid out by ``param_specs()`` + ``fsdp_specs``; step 1's loss,
+   gradient norm and every gradient against the unsharded
+   ``make_grad_fn`` from the same weights and batch (≤1e-5 relative; it
+   prints whether they are bitwise equal); prefill 8 × 512 and 8 forced
+   decode steps, the logits against the unsharded serving steps
+   (≤1e-5); a scoring forward of 4 × 2048 tokens on K5's route against
+   the unsharded one (≤1e-5); K7 (forward and backward) and K5 launches
+   of each, equal between the routes (the kernels run on the local
+   shards); 3 AdamW steps of 4 × 2048 tokens on each route: ms per step
+   and peak memory, and the prefill's and a decode step's ms.
+16d. mesh_dryrun: ``python -m repro_torch.launch.dryrun --arch granite-8b
+   --shape train_4k --mesh single --layers 18`` on the host (256 ranks of
+   torch's ``fake`` process group, fake tensors; started after the build,
+   read here; cut to 18 of 36 layers to keep its wall under 120 s):
+   per-device bytes and ``fits`` at 80 GB, the three roofline terms and the collective summary —
+   estimates for H100 constants — ``choose_layout``'s pick for the same
+   arch, shape and 256 devices, and the dry run's own wall time.
 17. perf_record: ``repro_torch.obs.perfbridge.perf_record`` of one
    lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B,
    Zamba2-1.2B and Arctic-480B at 2 layers (its expert slots against the
@@ -304,9 +325,11 @@ card, one JSON object listing every ported kernel and, last,
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -490,6 +513,22 @@ RESUME_STEPS, RESUME_EVERY, RESUME_DIE = 10, 5, 6
 RESUME_BATCH, RESUME_SEQ = 2, 64
 # K7's backward against its plain version: dw (float32, a sum over rows)
 DW_REL = 1e-4
+# the fourteenth slice: the mesh planner.  Granite-8B at its published
+# widths cut to 4 of 36 layers (the phase holds an unsharded and a sharded
+# copy, each with its gradients and moments), on a one-card ("data",
+# "model") (1, 1) mesh over a world-size-1 process group: 3 AdamW steps of
+# 4 x 2048 tokens, prefill 8 x 512 and 8 decode steps, a scoring forward
+# on K5's route; then the dry run of granite_8b x train_4k x single on 256
+# fake ranks, on the host beside the card's phases, cut to 18 of 36
+# layers: at 36 its wall was 133.6 s on the H100's host (its counted run
+# 115.7 s), over the 120 s it is held to
+MESH_ARCH, MESH_LAYERS = "granite_8b", 4
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 2048, 3
+MESH_REL = 1e-5
+DRYRUN_CELL = ("granite-8b", "train_4k", "single")
+DRYRUN_LAYERS = 18
+DRYRUN_WALL = 120.0
+DRYRUN_TIMEOUT = 900.0    # the child is killed past this
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -3800,6 +3839,303 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
             "planted_fails": all(not r["planted"] <= r["bar"]
                                  for r in (first, full))}
 
+# -- the fourteenth slice: the mesh planner ---------------------------------
+
+@contextlib.contextmanager
+def one_rank_group(backend: str):
+    """A world-size-1 ``backend`` process group (FileStore rendezvous in a
+    temporary directory) inside the block, destroyed after it."""
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(backend, store=dist.FileStore(
+            str(Path(d) / "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
+                  seq: int = MESH_SEQ, n_steps: int = MESH_STEPS,
+                  serve: tuple = (SERVE_BATCH, SERVE_PROMPT, SERVE_FORCED),
+                  backend: str = "nccl", card: str = "",
+                  cut: str = "") -> dict:
+    """The mesh planner's sharded steps (ROADMAP A13d) on ``cfg`` against
+    the unsharded ones, on a (1, 1) ("data", "model") mesh over a
+    world-size-1 ``backend`` group: (1) step 1's loss, global gradient norm
+    and every gradient (``MESH_REL``; bitwise or not, printed), K7 and its
+    backward launched as often on both routes; (2) prefill
+    ``serve[0]`` × ``serve[1]`` and ``serve[2]`` forced decode steps, the
+    logits of each (``MESH_REL``), K7 and K5 launches equal; (3) a scoring
+    forward on K5's route (``attention_impl="pallas"``), logits
+    (``MESH_REL``), K5 and K7 launches equal and above 0; (4)
+    ``n_steps`` AdamW steps on each route: ms per step (median of the steps
+    after the first), launches per step equal, peak memory.  The sharded
+    route's launch counts are set to 0 just before each of its runs and
+    read just after."""
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.launch.shardings import shard_cache, shard_model
+    from repro_torch.models.sharding import distribute, logical_spec, plain
+    from repro_torch.train import steps
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    phase = f"lm_mesh {cfg.name}"
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 26)
+    data = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq)),
+                                device=dev) for k in ("tokens", "labels")}
+            for _ in range(n_steps)]
+    B, S_, F_ = serve
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S_)),
+                              device=dev)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab, (B, F_)), device=dev)
+
+    def peak_reset():
+        if cuda:
+            sync(torch, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+            else float("nan")
+
+    def counted(fn):
+        sync(torch, dev)
+        reset_lm_launches()
+        out = fn()
+        sync(torch, dev)
+        return out, dict(lm_launches())
+
+    def serve_run(model, shard=None):
+        logits, walls = [], []
+        with torch.no_grad():
+            cache = model.init_cache(B, S_ + F_)
+            if shard is not None:
+                cache = shard_cache(cache, model.cache_specs(), shard)
+            pre = steps.make_prefill_step(model, model.cfg)
+            dec = steps.make_decode_step(model, model.cfg)
+            sync(torch, dev)
+            t = time.perf_counter()
+            lg, cache = pre({"tokens": prompts}, cache)
+            logits.append(plain(lg))
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t)
+            for i in range(F_):
+                t = time.perf_counter()
+                _, lg, cache = dec(cache, S_ + i, forced[:, i:i + 1])
+                logits.append(plain(lg))
+                sync(torch, dev)
+                walls.append(time.perf_counter() - t)
+        return torch.cat(logits, dim=1), walls
+
+    def score_run(model, shard=None):
+        saved = model.cfg
+        model.cfg = saved.replace(attention_impl="pallas")
+        tokens = data[0]["tokens"]
+        if shard is not None:       # the rows over the batch axes
+            tokens = distribute(tokens, logical_spec("batch", None), shard)
+        try:
+            with torch.no_grad():
+                return plain(model({"tokens": tokens})[0])
+        finally:
+            model.cfg = saved
+
+    with one_rank_group(backend):
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        t0 = time.perf_counter()
+        flat = seeded_model(torch, cfg, dev)
+        sharded = seeded_model(torch, cfg, dev)
+        with use_mesh(mesh):
+            specs = shard_model(sharded, mesh)
+        sync(torch, dev)
+        setup_s = time.perf_counter() - t0
+        n_split = sum(any(e is not None for e in sp) for sp in specs.values())
+
+        # (1) step 1's gradients
+        (l0, _, g0), k_flat = counted(
+            lambda: steps.make_grad_fn(flat, cfg)(data[0]))
+        with use_mesh(mesh):
+            (l1, _, g1), k_mesh = counted(
+                lambda: steps.make_grad_fn(sharded, cfg)(data[0]))
+        g1 = {n: plain(g) for n, g in g1.items()}
+        n0 = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g0.values()))
+        n1 = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g1.values()))
+        grad = {"loss": abs(float(plain(l1)) - float(l0)) / abs(float(l0)),
+                "grad_norm": abs(float(n1) - float(n0)) / float(n0),
+                "grads": max(rel_err(g1[n], g)[0] for n, g in g0.items())}
+        bitwise = float(plain(l1)) == float(l0) and all(
+            torch.equal(g1[n], g) for n, g in g0.items())
+        del g0, g1
+        for k, v in grad.items():
+            check(v <= MESH_REL, f"{phase}: step 1's {k} {v:.3e} from the "
+                                 f"unsharded route (bar {MESH_REL})")
+        check(k_mesh == k_flat and k_mesh["rmsnorm"] > 0
+              and k_mesh["rmsnorm_bwd"] > 0,
+              f"{phase}: step 1's launches {k_mesh}, unsharded {k_flat}")
+
+        # (2) serving
+        peak_reset()
+        (want, walls0), s_flat = counted(lambda: serve_run(flat))
+        serve_peak0 = peak_gib()
+        peak_reset()
+        with use_mesh(mesh):
+            (got, walls1), s_mesh = counted(lambda: serve_run(sharded, mesh))
+        serve_peak1 = peak_gib()
+        serve_gap = rel_err(got, want)[0]
+        check(serve_gap <= MESH_REL, f"{phase}: prefill + decode logits "
+                                     f"{serve_gap:.3e} from the unsharded "
+                                     f"route (bar {MESH_REL})")
+        check(s_mesh == s_flat and s_mesh["rmsnorm"] > 0,
+              f"{phase}: serving launches {s_mesh}, unsharded {s_flat}")
+        del want, got
+
+        # (3) a scoring forward on K5's route
+        want, f_flat = counted(lambda: score_run(flat))
+        with use_mesh(mesh):
+            got, f_mesh = counted(lambda: score_run(sharded, mesh))
+        score_gap = rel_err(got, want)[0]
+        del want, got
+        check(score_gap <= MESH_REL, f"{phase}: scoring logits "
+                                     f"{score_gap:.3e} from the unsharded "
+                                     f"route (bar {MESH_REL})")
+        check(f_mesh == f_flat and f_mesh["flash_attention"] == cfg.n_layers
+              and f_mesh["rmsnorm"] > 0,
+              f"{phase}: scoring launches {f_mesh}, unsharded {f_flat}")
+
+        # (4) training steps on each route
+        train = {}
+        for name, model in (("unsharded", flat), ("sharded", sharded)):
+            ctx = use_mesh(mesh) if name == "sharded" else \
+                contextlib.nullcontext()
+            with ctx:
+                opt_cfg = AdamWConfig(lr=TRAIN_LR)
+                opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+                step = steps.make_train_step(model, cfg, opt_cfg)
+                peak_reset()
+                walls, per_step, losses = [], [], []
+                for b in data:
+                    sync(torch, dev)
+                    reset_lm_launches()
+                    t = time.perf_counter()
+                    opt, met = step(opt, b)
+                    losses.append(float(met["loss"]))
+                    sync(torch, dev)
+                    walls.append(time.perf_counter() - t)
+                    per_step.append(dict(lm_launches()))
+                train[name] = {"ms": statistics.median(walls[1:] or walls)
+                               * 1e3, "walls": walls, "launches": per_step,
+                               "losses": losses, "peak": peak_gib()}
+                del opt, step
+            if cuda:
+                torch.cuda.empty_cache()
+        check(train["sharded"]["launches"] == train["unsharded"]["launches"],
+              f"{phase}: launches per step {train['sharded']['launches']}, "
+              f"unsharded {train['unsharded']['launches']}")
+        check(all(np.isfinite(train["sharded"]["losses"])),
+              f"{phase}: non-finite losses {train['sharded']['losses']}")
+        del flat, sharded
+    per = train["sharded"]["launches"][0]
+    print(f"{phase}{cut} [{card}]: (1, 1) (data, model) mesh over a "
+          f"world-size-1 {backend} group; set-up {setup_s:.1f} s; "
+          f"{n_split} of {len(specs)} parameters carry a split spec; step 1 "
+          f"vs the unsharded route: loss {grad['loss']:.3e}, gradient norm "
+          f"{grad['grad_norm']:.3e}, gradients {grad['grads']:.3e} (bar "
+          f"{MESH_REL}; bitwise equal: {bitwise}); launches {k_mesh} "
+          f"(unsharded {k_flat})")
+    print(f"{phase}: prefill {B} x {S_} + {F_} decode steps: logits "
+          f"{serve_gap:.3e} from the unsharded route; launches {s_mesh} "
+          f"(unsharded {s_flat}); prefill {walls1[0] * 1e3:.2f} ms "
+          f"(unsharded {walls0[0] * 1e3:.2f}), decode "
+          f"{statistics.median(walls1[1:]) * 1e3:.2f} ms/step (unsharded "
+          f"{statistics.median(walls0[1:]) * 1e3:.2f}); peak "
+          f"{serve_peak1:.2f} GiB (unsharded {serve_peak0:.2f})")
+    print(f"{phase}: scoring forward {batch} x {seq} on K5's route: logits "
+          f"{score_gap:.3e} from the unsharded route; launches {f_mesh} "
+          f"(unsharded {f_flat})")
+    for name, r in train.items():
+        print(f"{phase} [{card}]: {name} train step {r['ms']:.2f} ms "
+              f"(median of steps 2-{n_steps} of {batch} x {seq} tokens); "
+              f"launches per step {r['launches'][0]}; peak {r['peak']:.2f} "
+              f"GiB; losses {', '.join(f'{v:.4f}' for v in r['losses'])}; "
+              f"walls {', '.join(f'{w:.3f}' for w in r['walls'])} s")
+    return {"grad": grad, "bitwise": bitwise, "serve_gap": serve_gap,
+            "score_gap": score_gap, "launches": {"grad": k_mesh,
+                                                 "serve": s_mesh,
+                                                 "score": f_mesh,
+                                                 "step": per},
+            "train": train}
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` of ``DRYRUN_CELL`` (arch,
+    shape, mesh) at ``DRYRUN_LAYERS`` started in a child process on the
+    host (its own ``fake`` process group, no card): (the process, its start
+    time)."""
+    arch, shape, mesh = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh, "--json", "--layers",
+           str(DRYRUN_LAYERS)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
+           + os.environ.get("PYTHONPATH", ""), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(ROOT))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def mesh_dryrun_phase(started, card: str = "") -> dict:
+    """The dry run :func:`start_dryrun` ``started`` (so that it runs on the
+    host beside the card's phases): prints the record's per-device bytes,
+    ``fits``, the roofline terms, the collective summary,
+    ``choose_layout``'s pick and the dry run's own wall time, which must
+    stay under ``DRYRUN_WALL``."""
+    arch, shape, mesh = DRYRUN_CELL
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"mesh_dryrun: exit {proc.returncode}: "
+                                f"{err[-2000:]}")
+    rec = json.loads([ln for ln in out.splitlines()
+                      if ln.startswith("{")][-1])
+    m, roof, a = rec["memory"], rec["roofline"], rec["autoshard"]
+    check(roof["compute_s"] > 0 and roof["memory_s"] > 0
+          and rec["collectives"]["total_wire_bytes"] > 0,
+          f"mesh_dryrun: empty terms {roof} or no collectives")
+    cut = f" (cut to {DRYRUN_LAYERS} of {rec['layers_published']} layers)"
+    print(f"mesh_dryrun {arch} x {shape} x {mesh}{cut}: {rec['chips']} fake "
+          f"ranks; per device: parameters {m['param_bytes'] / 1e9:.4f} GB, "
+          f"optimizer {m['opt_bytes'] / 1e9:.4f} GB, inputs "
+          f"{m['input_bytes'] / 1e9:.6f} GB, step's live peak "
+          f"{m['temp_bytes'] / 1e9:.4f} GB, peak {m['peak_bytes'] / 1e9:.4f}"
+          f" GB, fits 80 GB: {m['fits_80GB']}")
+    print(f"mesh_dryrun roofline (estimates for H100 constants, not "
+          f"measured): compute {roof['compute_s']:.6f} s, memory "
+          f"{roof['memory_s']:.6f} s, collective {roof['collective_s']:.6f}"
+          f" s, dominant {roof['dominant']}, mfu_bound "
+          f"{roof['mfu_bound']:.4f}; counted FLOPs/device "
+          f"{rec['hlo_flops_per_device']:.4e}, bytes/device "
+          f"{rec['hlo_bytes_per_device']:.4e}; effective {rec['effective']}")
+    print(f"mesh_dryrun collectives per device: {rec['collectives']}; the "
+          f"loss alone (a microbatch): {rec['loss']}")
+    print(f"mesh_dryrun choose_layout for {rec['chips']} devices (estimate "
+          f"for H100 constants): dp {a['dp']} x tp {a['tp']}, vocab-parallel "
+          f"CE {a['vocab_parallel_ce']}, remat {a['remat']}, step "
+          f"{a['step_time_s']:.6f} s ({a['dominant']}); dry run wall "
+          f"{rec['wall_s']:.1f} s in the child (build {rec['build_s']:.1f} "
+          f"s, warm-up {rec['trace_s']:.1f} s, counted run "
+          f"{rec['count_s']:.1f} s; {wall:.1f} s from its start to its "
+          f"record here) [{card}]")
+    check(rec["wall_s"] <= DRYRUN_WALL, f"mesh_dryrun: wall "
+          f"{rec['wall_s']:.1f} s over {DRYRUN_WALL} s: cut the depth")
+    return {"record": rec, "wall_s": wall}
+
+
 # -- the eleventh slice: the perf record, the build hooks --------------------
 
 def hook_overhead_phase(torch, dispatch_fn, samples: int = HOOK_SAMPLES,
@@ -4185,6 +4521,8 @@ def main() -> int:
     print("kernels: " + "; ".join(
         f"{k} (cuda, {SOURCES[k]}, replaces {REPLACES[k]})"
         for k in SOURCES))
+    # phase 16d's dry run needs no card: it runs on the host from here on
+    dryrun = start_dryrun()
 
     # -- the serving instance (shared with the kernel phase's shapes) -------
     rng = np.random.default_rng(SEED)
@@ -4589,6 +4927,14 @@ def main() -> int:
     report["rmsnorm_bwd"] = max(train["held"].values(),
                                 key=lambda r: r["rows"] * r["D"])
     torch.cuda.empty_cache()
+
+    # -- 16c./16d. the mesh planner and its dry run ------------------------
+    lm_mesh_phase(torch, np, dev,
+                  get_config(MESH_ARCH).replace(n_layers=MESH_LAYERS),
+                  card=smi, cut=(f" (cut to {MESH_LAYERS} of "
+                                 f"{get_config(MESH_ARCH).n_layers} layers)"))
+    torch.cuda.empty_cache()
+    mesh_dryrun_phase(dryrun, card=smi)
 
     # -- 17./18. the perf records and the build hooks ---------------------
     # the counting hooks, disarmed, on K7 dispatches at a decode step's shape

@@ -1,7 +1,8 @@
 """Cost-model core of the port: graphs, fleets, placements, the float64
 oracle (copies of ``repro.core``), the batched torch twin, the §3.1
 objective sets, the placement problems with their discrete optimizers,
-and the smoothed model with ``projected_gradient``."""
+the smoothed model with ``projected_gradient``, and the cost-model-driven
+layout choice (``autoshard``)."""
 
 from repro_torch.core.costmodel import (CostConfig, device_occupancy,
                                         edge_latencies, edge_latency,

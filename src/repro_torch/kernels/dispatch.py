@@ -30,6 +30,16 @@ The single-tile routes (K4a, K4b) are the whole-V references the blocked
 kernels are held against; as in the reference, no path of the system
 reaches them.
 
+Sharded operands (DTensors, the mesh planner's route) are taken to their
+local shards at the boundary: the kernel, or its plain version, runs on
+each device's shard and the result comes back as a DTensor with the
+operand's placements (:func:`_on_local_shards`).  K7 needs whole rows, so
+its last dim must not be split; K5 takes q, k and v split alike over rows
+and heads only (a replicated k hands each ``model`` rank the kv heads of
+its own query heads).  Gradients cross the
+boundary with the placements they have: an operand's own, and partial
+sums for a replicated weight applied to split rows (K7's dw).
+
 :func:`resolve_device` is the policy for the public entry points
 (``BatchedEvaluator``, ``WhatIfService``, ``build_model``): ``None`` means
 the card, and a machine without CUDA raises instead of quietly running on
@@ -169,9 +179,69 @@ def edge_latency_structured_single_tile(x_i, x_j, mass, a,
                                                              a, corr)
 
 
+def _is_dtensor(*tensors) -> bool:
+    return any(type(t).__name__ == "DTensor" for t in tensors)
+
+
+def _on_local_shards(fn, x, others, grads):
+    """``fn(x_local, *others_local)`` as a DTensor with ``x``'s placements.
+    ``others`` are DTensors already in the layout ``fn`` needs; ``grads``
+    gives each operand's gradient placements (x first)."""
+    from torch.distributed.tensor import DTensor
+    local = [t.to_local(grad_placements=g)
+             for t, g in zip((x, *others), grads)]
+    out = fn(*local).contiguous()
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _replicated(x, mesh):
+    """``x`` as a DTensor replicated over ``mesh`` (a plain tensor is taken
+    to be the same on every device)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = (Replicate(),) * mesh.ndim
+    if not _is_dtensor(x):
+        return DTensor.from_local(x, mesh, rep, run_check=False)
+    return x if tuple(x.placements) == rep else x.redistribute(mesh, rep)
+
+
+def _sharded_rmsnorm(x, w, eps: float):
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.models.sharding import settle
+    x = settle(x)
+    if any(p.is_shard(x.dim() - 1) for p in x.placements):
+        raise ValueError(f"rmsnorm: the normalized dim of a {tuple(x.shape)} "
+                         f"operand is split ({x.placements}); K7 needs "
+                         f"whole rows (the 'embed' rule must replicate)")
+    w = _replicated(w, x.device_mesh)
+    dw = tuple(Partial() if p.is_shard() else Replicate()
+               for p in x.placements)
+    return _on_local_shards(lambda xl, wl: rmsnorm(xl, wl, eps), x, (w,),
+                            (x.placements, dw))
+
+
+def _sharded_flash_attention(q, k, v, causal: bool):
+    from torch.distributed.tensor import Replicate
+    mesh = q.device_mesh
+    # attention is independent per row and per head: any other split
+    # (the sequence, the head dim, a partial sum) is gathered
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+               for p in q.placements)
+    q, k, v = (t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+               for t in (q, k, v))
+    return _on_local_shards(
+        lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal), q,
+        (k, v), (q.placements,) * 3)
+
+
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) attention with kv repeated to H → (B, S, H, D) in q's
-    dtype: K5 on the card, its plain version on the CPU."""
+    dtype: K5 on the card, its plain version on the CPU; DTensor operands
+    on their local shards."""
+    if _is_dtensor(q, k, v):
+        return _sharded_flash_attention(q, k, v, causal)
     with kernel_scope("flash_attention"):
         if plan_attention_kernel(q, k, v) == "cuda":
             return attention_kernel.flash_attention(q, k, v, causal=causal)
@@ -183,7 +253,9 @@ def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
     card, its plain version on the CPU.  The weight is read as float32.
     Under grad (grad mode on, x or w requiring grad) the card route is
     K7's autograd function: the forward kernel, and K7's backward kernel
-    for the gradient."""
+    for the gradient.  A DTensor operand runs on its local shards."""
+    if _is_dtensor(x, w):
+        return _sharded_rmsnorm(x, w, eps)
     with kernel_scope("rmsnorm"):
         if _plan("rmsnorm", "rmsnorm", (x, w)) == "cuda":
             if torch.is_grad_enabled() and (x.requires_grad

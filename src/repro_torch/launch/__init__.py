@@ -1,2 +1,3 @@
-"""Launchers of the port: the LM token server (``serve``) and the trainer
-(``train``)."""
+"""Launchers of the port: the LM token server (``serve``), the trainer
+(``train``), the device meshes (``mesh``), the sharding plans
+(``shardings``) and the mesh planner's dry run (``dryrun``)."""

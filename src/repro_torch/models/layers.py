@@ -23,9 +23,18 @@ the reference does: a cache (prefill and decode), non-causal attention
 (the Whisper encoder) and cross-attention (``kv_source``, or a cache read
 without ``cache_pos``: the VLM and the audio decoder) — except a
 one-token query with grouped kv heads, which takes the reference's
-grouped einsum and never repeats the keys.  The reference's mesh
-constraints (``shard``, ``shard_div``, ``constrain_tree``) are identities
-on one device and have no counterpart.
+grouped einsum and never repeats the keys.
+
+The reference's mesh constraints sit where it puts them: ``shard_div`` on
+q, k and v (heads over ``model`` where they divide), ``shard`` on the MLP's
+hidden activations (``ff``).  Without an ambient mesh they are identities;
+with one, the tensors are DTensors and the kernels run on their local
+shards (:mod:`repro_torch.kernels.dispatch`).  Grouped kv heads that do
+not divide the ``model`` axis stay replicated, and the repeat to H heads
+hands each ``model`` rank the kv heads of its own query heads' groups.
+The loss is vocab-parallel: its logsumexp reduces the local shards' max
+and sum across the vocabulary's ranks, and the label's logit is a masked
+sum over each rank's own columns (:func:`token_cross_entropy`).
 
 Training: every layer here is differentiable on both routes (K7 through
 its backward kernel on the card).  :func:`embed_lookup`'s table gradient
@@ -37,16 +46,21 @@ between the float32 head and the layer stack.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch, ref
+from repro_torch.models.sharding import (gather_inner, gather_inner_grad,
+                                         keep_grad_layout, param_spec, settle,
+                                         shard, shard_div)
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "dense", "embed_lookup",
     "rotary_embedding", "apply_rotary", "KVCache", "attention", "mlp",
     "cotangent_cast", "token_cross_entropy", "cross_entropy_loss",
+    "attn_specs",
 ]
 
 ATTENTION_IMPLS = ("reference", "pallas")
@@ -91,8 +105,12 @@ def apply_norm(norm_type: str, x: torch.Tensor, w, eps: float = 1e-6):
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with the weight cast to the activation dtype and the result
     in the activation dtype (bf16 products accumulate in float32 inside the
-    matmul, as the reference's ``preferred_element_type=x.dtype``)."""
-    return torch.matmul(x, w.to(x.dtype))
+    matmul, as the reference's ``preferred_element_type=x.dtype``).
+    Sequence-split DTensor rows are gathered first (Megatron's gather
+    into the tensor-parallel region)."""
+    if not hasattr(x, "placements"):
+        return torch.matmul(x, w.to(x.dtype))
+    return gather_inner_grad(torch.matmul(gather_inner(x), w.to(x.dtype)))
 
 
 # the reference's one-hot embedding runs in chunks of this many positions
@@ -199,6 +217,51 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def attn_specs(qk_norm: bool = False) -> dict:
+    """Specs for one attention site (flat-weight layout), the reference's
+    ``attn_specs``: wk / wv pass no divisibility, so on ``model`` 16 their
+    1024 columns split into 64-column blocks, half of a 128-wide head."""
+    s = {"wq": param_spec((None, "heads")),
+         "wk": param_spec((None, "kv_heads")),
+         "wv": param_spec((None, "kv_heads")),
+         "wo": param_spec(("heads", None))}
+    if qk_norm:
+        s["q_norm"] = param_spec((None,))
+        s["k_norm"] = param_spec((None,))
+    return s
+
+
+def _reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(shape)`` for a reshape that keeps the leading dims and
+    splits or merges the trailing ones.  A DTensor split on a trailing dim
+    that the reshape cannot keep — a head count that its shards do not
+    divide (wk's 64-column blocks of 128-wide heads on ``model`` 16), or a
+    merged dim after the first — is gathered on that dim first, as GSPMD
+    reshards there."""
+    pl = getattr(t, "placements", None)
+    if pl is None:
+        return t.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    c = 0
+    while c < min(t.dim(), len(shape)) and t.shape[c] == shape[c]:
+        c += 1
+    mesh = t.device_mesh
+    ways = 1
+    for p, n in zip(pl, mesh.shape):
+        if p.is_shard(c):
+            ways *= n
+    new = []
+    for p in pl:
+        if p.is_shard() and (p.dim > c or (p.dim == c and c < len(shape)
+                                           and shape[c] != -1
+                                           and shape[c] % ways)):
+            p = Replicate()
+        new.append(p)
+    if tuple(new) != tuple(pl):
+        t = t.redistribute(mesh, new)
+    return t.reshape(shape)
+
+
 @dataclasses.dataclass
 class KVCache:
     """k/v: (B, S_max, K·D) per layer (the model stacks a layer axis in
@@ -219,7 +282,7 @@ def _grouped_decode(q, k, v, n_kv_heads: int, q_offset: int,
     B, Sq, H, D = q.shape
     G = H // n_kv_heads
     ct = torch.promote_types(q.dtype, torch.float32)
-    q5 = q.reshape(B, Sq, n_kv_heads, G, D)
+    q5 = _reshape(q, B, Sq, n_kv_heads, G, D)
     s = torch.einsum("bqkgd,bskd->bqkgs", q5.to(ct), k.to(ct)) * D ** -0.5
     if causal:
         kv_pos = torch.arange(k.shape[1], device=q.device)
@@ -228,7 +291,81 @@ def _grouped_decode(q, k, v, n_kv_heads: int, q_offset: int,
         s = s.masked_fill(~mask[None, :, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd", p.to(v.dtype), v)
-    return out.reshape(B, Sq, H, D)
+    return _reshape(out, B, Sq, H, D)
+
+
+def _attend(q, k, v, *, causal: bool, q_offset: int, chunk: int,
+            flash: bool) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) over k, v (B, Skv, K, D): the grouped
+    einsum for one grouped query, else kv repeated to H (as the reference
+    does) and K5 (``flash``) or the chunked route."""
+    G = q.shape[2] // k.shape[2]
+    if G > 1 and q.shape[1] == 1:
+        return _grouped_decode(q, k, v, k.shape[2], q_offset, causal)
+    if G > 1:   # GQA: repeat kv heads to H, as the reference does
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    if flash:
+        return dispatch.flash_attention(q, k, v, causal=True)
+    return _sdpa_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                         chunk=chunk)
+
+
+def _split_of(placements, mesh, dim: int) -> tuple[int, int]:
+    """(this device's index, the number of ways) of the split of ``dim``
+    by ``placements``: mesh dims split it major to minor, in mesh order."""
+    coord = mesh.get_coordinate()
+    idx, ways = 0, 1
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            idx, ways = idx * mesh.size(i) + coord[i], ways * mesh.size(i)
+    return idx, ways
+
+
+def _on_local_heads(fn, q, k, v) -> torch.Tensor:
+    """``fn`` (:func:`_attend`) on each device's local shards of DTensors
+    q (B, Sq, H, D), k and v (B, Skv, K, D); the result is a DTensor laid
+    out as q.  Attention is independent per row and per head, so q keeps
+    its batch and head splits (any other split is gathered), k and v its
+    batch split.  kv heads split as q's heads when the ways divide K;
+    else they are replicated and each device takes the kv heads of its own
+    query heads' groups (a device whose query heads straddle groups gets q
+    gathered).  A replicated kv operand's gradient leaves each device as a
+    partial sum over its heads' devices."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    keep = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                 for p in q.placements)
+    _, ways = _split_of(keep, mesh, 2)
+    Hl = H // ways
+    if K % ways and not (Hl % G == 0 or G % Hl == 0):
+        keep = tuple(Replicate() if p.is_shard(2) else p for p in keep)
+        ways, Hl = 1, H
+    if keep != tuple(q.placements):
+        q = q.redistribute(mesh, keep)
+    split_kv = K % ways == 0
+    kv_pl = tuple(p if p.is_shard(0) or (split_kv and p.is_shard(2))
+                  else Replicate() for p in keep)
+    k, v = (t if tuple(t.placements) == kv_pl else t.redistribute(mesh, kv_pl)
+            for t in (k, v))
+    kv_grad = tuple(Partial() if (p.is_shard(2) and not split_kv) else pl
+                    for p, pl in zip(keep, kv_pl))
+    idx, _ = _split_of(keep, mesh, 2)
+    lo = (idx * Hl) // G
+    hi = ((idx + 1) * Hl - 1) // G + 1
+
+    def local(ql, kl, vl):
+        if not split_kv:
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl)
+
+    out = local(q.to_local(grad_placements=keep),
+                k.to_local(grad_placements=kv_grad),
+                v.to_local(grad_placements=kv_grad))
+    return DTensor.from_local(out.contiguous(), mesh, keep, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
@@ -261,20 +398,25 @@ def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                          f"{ATTENTION_IMPLS}")
     B, Sq, _ = x.shape
     G = n_heads // n_kv_heads
-    q = dense(params["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    x = gather_inner(x)     # sequence-split rows gathered once for q, k, v
+    if kv_source is not None:
+        kv_source = gather_inner(kv_source)
+    q = _reshape(dense(params["wq"], x), B, Sq, n_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"])
     base = 0
     if cache is not None and cache_pos is None:
         # cross-attention read: keys and values precomputed at prefill
         S_c = cache.k.shape[1]
-        k = cache.k.reshape(B, S_c, n_kv_heads, head_dim)
-        v = cache.v.reshape(B, S_c, n_kv_heads, head_dim)
+        k = _reshape(cache.k, B, S_c, n_kv_heads, head_dim)
+        v = _reshape(cache.v, B, S_c, n_kv_heads, head_dim)
     else:
         src = x if kv_source is None else kv_source
         Skv = src.shape[1]
-        k = dense(params["wk"], src).reshape(B, Skv, n_kv_heads, head_dim)
-        v = dense(params["wv"], src).reshape(B, Skv, n_kv_heads, head_dim)
+        k = _reshape(dense(params["wk"], src), B, Skv, n_kv_heads,
+                     head_dim)
+        v = _reshape(dense(params["wv"], src), B, Skv, n_kv_heads,
+                     head_dim)
         if qk_norm:
             k = rms_norm(k, params["k_norm"])
         if cache is not None:
@@ -286,35 +428,36 @@ def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
         if cache is not None:
-            cache.k[:, base:base + Skv] = k.reshape(B, Skv, -1).to(
+            cache.k[:, base:base + Skv] = _reshape(k, B, Skv, -1).to(
                 cache.k.dtype)
-            cache.v[:, base:base + Skv] = v.reshape(B, Skv, -1).to(
+            cache.v[:, base:base + Skv] = _reshape(v, B, Skv, -1).to(
                 cache.v.dtype)
             S_c = cache.k.shape[1]
-            k = cache.k.reshape(B, S_c, n_kv_heads, head_dim)
-            v = cache.v.reshape(B, S_c, n_kv_heads, head_dim)
-    if G > 1 and Sq == 1:
-        out = _grouped_decode(q, k, v, n_kv_heads, base, causal)
-    else:
-        if G > 1:   # GQA: repeat kv heads to H, as the reference does
-            k = k.repeat_interleave(G, dim=2)
-            v = v.repeat_interleave(G, dim=2)
-        if impl == "pallas" and causal and cache is None \
-                and kv_source is None:
-            out = dispatch.flash_attention(q, k, v, causal=True)
-        else:
-            out = _sdpa_chunked(q, k, v, causal=causal, q_offset=base,
-                                chunk=chunk)
-    return dense(params["wo"], out.reshape(B, Sq, n_heads * head_dim))
+            k = _reshape(cache.k, B, S_c, n_kv_heads, head_dim)
+            v = _reshape(cache.v, B, S_c, n_kv_heads, head_dim)
+    # pin head-parallelism where the heads divide the model axis
+    q = shard_div(q, ("batch", None, "heads", None))
+    k = shard_div(k, ("batch", None, "kv_heads", None))
+    v = shard_div(v, ("batch", None, "kv_heads", None))
+    flash = impl == "pallas" and causal and cache is None \
+        and kv_source is None
+    core = functools.partial(_attend, causal=causal, q_offset=base,
+                             chunk=chunk, flash=flash)
+    out = _on_local_heads(core, q, k, v) if hasattr(q, "placements") \
+        else core(q, k, v)
+    return dense(params["wo"],
+                 _reshape(out, B, Sq, n_heads * head_dim))
 
 
 # ---------------------------------------------------------------- MLPs -----
 
 def mlp(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    x = gather_inner(x)     # sequence-split rows gathered once
     if kind == "swiglu":
         h = F.silu(dense(params["wi_gate"], x)) * dense(params["wi_up"], x)
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(dense(params["wi"], x), approximate="tanh")
+    h = shard(h, "batch", None, "ff")
     return dense(params["wo"], h)
 
 
@@ -350,9 +493,63 @@ def token_cross_entropy(logits: torch.Tensor,
     every column of ``logits`` (padded vocabulary columns included, as the
     reference)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].long())[..., 0]
-    return lse - ll
+    if not _split_last(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None].long())
+        if hasattr(ll, "placements"):   # reduce a masked partial
+            ll = settle(ll)
+        return lse - ll[..., 0]
+    # vocab-parallel: the shards' max and sum reduce across the vocabulary's
+    # devices; the label's logit is a masked sum of each device's own
+    # columns (DTensor's gather would take its gradient over the whole
+    # vocabulary of the global batch).  Each per-row result, and its
+    # gradient, is laid out as the logits' rows: split over the batch axes
+    # only, so nothing of (B, S, V) is ever gathered
+    from torch.distributed.tensor import Replicate
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    rows = tuple(p if p.is_shard() and p.dim < last else Replicate()
+                 for p in logits.placements)
+
+    def per_row(t):
+        if tuple(t.placements) != rows:
+            t = t.redistribute(mesh, rows)
+        return keep_grad_layout(t)
+
+    m = per_row(logits.detach().amax(dim=-1, keepdim=True))
+    total = per_row(torch.exp(logits - m).sum(-1, keepdim=True))
+    ll = per_row((logits * _label_onehot(logits, labels)).sum(-1))
+    return (m + torch.log(total))[..., 0] - ll
+
+
+def _label_onehot(logits, labels):
+    """A DTensor laid out as ``logits`` (B, S, V) that is 1 at each row's
+    label column and 0 elsewhere, built on each device from its rows'
+    labels and its own vocabulary columns (no (B, S, V) gather)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl, last = logits.device_mesh, logits.placements, logits.dim() - 1
+    lab_pl = tuple(p if p.is_shard() and p.dim < last else Replicate()
+                   for p in pl)
+    if not hasattr(labels, "placements"):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    if tuple(labels.placements) != lab_pl:
+        labels = labels.redistribute(mesh, lab_pl)
+    idx, ways = _split_of(pl, mesh, last)
+    width = -(-logits.shape[-1] // ways)        # torch.chunk's piece
+    local = logits.to_local()
+    cols = idx * width + torch.arange(local.shape[-1], device=local.device)
+    hot = (labels.to_local().long()[..., None] == cols).to(local.dtype)
+    return DTensor.from_local(hot, mesh, pl, run_check=False,
+                              shape=logits.shape, stride=logits.stride())
+
+
+def _split_last(x: torch.Tensor) -> bool:
+    """Whether a DTensor's last dim is split over a mesh dim of size > 1."""
+    pl = getattr(x, "placements", None)
+    if pl is None:
+        return False
+    sizes = x.device_mesh.shape
+    return any(p.is_shard(x.dim() - 1) and n > 1 for p, n in zip(pl, sizes))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -158,6 +158,33 @@ def _group_size(arg) -> int:
     return _resolve_process_group(arg).size()
 
 
+def _sharded(types) -> bool:
+    """Whether an op's operand types include a DTensor.  Both counting modes
+    hand such an op back (``NotImplemented``) so that DTensor runs it and
+    the modes count what one device does: the ops on its local shards and
+    the collectives its redistributions issue.  The first time DTensor
+    meets an op's layout its sharding propagation runs the op on fake
+    global shapes, which the modes would count too: count a sharded call
+    after a warm-up call."""
+    return any(t.__name__ == "DTensor" for t in types)
+
+
+def _local_flops(mode: FlopCounterMode) -> None:
+    """Make an entered ``FlopCounterMode`` hand DTensor ops back, as
+    :class:`_BytesMode` does (its dispatch mode is the ``mode`` attribute
+    it creates on entry)."""
+    inner = mode.mode
+    base = type(inner)
+
+    class _Local(base):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _sharded(types):
+                return NotImplemented
+            return base.__torch_dispatch__(self, func, types, args, kwargs)
+
+    inner.__class__ = _Local
+
+
 class _BytesMode(TorchDispatchMode):
     """Counts each aten op's bytes and each functional collective into
     its :class:`OpCounter`."""
@@ -167,6 +194,8 @@ class _BytesMode(TorchDispatchMode):
         self.counter = counter
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _sharded(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
@@ -208,6 +237,7 @@ class OpCounter:
 
     def __enter__(self):
         self._flops_mode.__enter__()
+        _local_flops(self._flops_mode)
         self._bytes_mode.__enter__()
         ACTIVE.append(self)
         return self

@@ -1,2 +1,3 @@
-"""The port's runtime: checkpoint and restart (``checkpoint``).  The elastic
-re-mesh and straggler handling wait for the mesh slice."""
+"""The port's runtime: checkpoint and restart (``checkpoint``), the elastic
+re-mesh after losing devices (``elastic``) and straggler detection
+(``stragglers``)."""

@@ -33,7 +33,12 @@ One difference stays: with ``bits8`` a per-layer *scalar* (the VLM's cross
 gates) is quantized on its own, where the reference's stacked (n_cross,)
 leaf shares one scale across the cross blocks.  ``run_training`` takes
 ``bits8`` only for bf16 parameters (Arctic, Grok), which have none.
-``opt_state_specs`` (the moments' mesh layout) waits for the mesh slice.
+Sharded parameters (DTensors, the mesh planner's route) take the same
+code: the moments are DTensors in their parameters' layout, the global
+norm sums each device's partial sums, and an 8-bit moment's per-row scale
+is a max across the devices that split its row (DTensor reduces the
+partial max), so the scale is replicated where the reference's
+:func:`opt_state_specs` drops the last entry.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 
 __all__ = ["AdamWConfig", "QBLOCK", "quantize_blockwise",
            "dequantize_blockwise", "stacked_ndim", "adamw_init",
-           "adamw_update"]
+           "adamw_update", "opt_state_specs"]
 
 QBLOCK = 128
 
@@ -90,7 +95,8 @@ def stacked_ndim(name: str, p: torch.Tensor) -> int:
 
 
 def _moment_init(p: torch.Tensor, bits8: bool):
-    z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    z = torch.zeros_like(p, dtype=torch.float32,
+                         memory_format=torch.contiguous_format)
     return quantize_blockwise(z) if bits8 else z
 
 
@@ -153,3 +159,22 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
             opt_state["v"][name] = quantize_blockwise(v_f)
     opt_state["count"] = count
     return params, opt_state, gnorm
+
+
+def opt_state_specs(param_specs: dict, cfg: AdamWConfig) -> dict:
+    """The moments' specs, mirroring the parameters' (the reference's
+    ``opt_state_specs``, ``optim.py:152``): with ``bits8`` q keeps its
+    parameter's spec and the per-row scale drops the last (reduced) entry."""
+    from repro_torch.models.sharding import P
+
+    def leaf(spec):
+        spec = P(*(spec or ()))
+        if cfg.bits8:
+            entries = tuple(spec)
+            return {"q": P(*entries),
+                    "scale": P(*(entries[:-1] + (None,))) if entries
+                    else P()}
+        return spec
+
+    moments = {n: leaf(s) for n, s in param_specs.items()}
+    return {"m": moments, "v": moments, "count": P()}

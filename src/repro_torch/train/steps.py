@@ -20,6 +20,17 @@ carries the VLM's ``image_embeds`` or the audio model's ``audio_frames``
 through to the model); decode takes one token per row and picks the next
 greedily over the TRUE vocabulary (the tables are padded to a multiple of
 256).  The model writes its cache in place.
+
+The same steps are the sharded steps of the mesh planner: called under an
+ambient mesh (``repro_torch.launch.mesh.use_mesh``) on a model whose
+parameters are DTensors (``repro_torch.launch.shardings.shard_model``),
+they take the batch's plain tensors — the same global batch on every
+device — to the "batch" rule's layout (each device keeps its rows; with
+``microbatches`` each microbatch is split over the batch axes, as the
+reference's microbatches are; a batch already laid out is gathered
+first), reduce each gradient to its parameter's
+layout (the reference's gradient reduce-scatter), accumulate into
+DTensors in the parameters' layout, and hand back plain metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import cross_entropy_loss
+from repro_torch.models.sharding import active_mesh, distribute, plain, shard
 from repro_torch.train.optim import AdamWConfig, adamw_update
 
 __all__ = ["MOE_AUX_COEF", "require_trainable", "make_loss_fn",
@@ -72,18 +84,42 @@ def make_grad_fn(model, cfg: ModelConfig):
         p.requires_grad_(True)
 
     def grad_fn(batch):
-        total, (loss, aux) = loss_fn(batch)
+        total, (loss, aux) = loss_fn(_rows(batch))
         grads = torch.autograd.grad(total, list(params.values()),
                                     allow_unused=True)
         return loss.detach(), aux.detach(), {
-            n: torch.zeros_like(p) if g is None else g
+            n: torch.zeros_like(p) if g is None else _like(g, p)
             for (n, p), g in zip(params.items(), grads)}
 
     return grad_fn
 
 
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient reduced to its parameter's layout."""
+    pl = getattr(p, "placements", None)
+    if pl is None or tuple(g.placements) == tuple(pl):
+        return g
+    return g.redistribute(p.device_mesh, pl)
+
+
 def _on(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    return {k: v if hasattr(v, "placements")
+            else torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _rows(batch: dict) -> dict:
+    """Under a mesh, each array laid out by the "batch" rule on its first
+    dim (a plain one split with no communication); else as it is."""
+    mesh = active_mesh()
+    if mesh is None:
+        return batch
+    from repro_torch.models.sharding import logical_spec
+    out = {}
+    for k, v in batch.items():
+        spec = logical_spec("batch", *([None] * (v.dim() - 1)))
+        out[k] = shard(v, "batch", *([None] * (v.dim() - 1))) \
+            if hasattr(v, "placements") else distribute(v, spec, mesh)
+    return out
 
 
 def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -106,11 +142,15 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             inv = 1.0 / microbatches
-            grads = {n: torch.zeros(p.shape, dtype=acc_dtype,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(
+                         p, dtype=acc_dtype,
+                         memory_format=torch.contiguous_format)
                      for n, p in params.items()}
             loss = torch.zeros((), device=model.device)
             aux = torch.zeros((), device=model.device)
+            # a laid-out batch is gathered whole: microbatch i is the
+            # reference's rows i·b/n .. (i+1)·b/n, split over the batch axes
+            batch = {k: plain(v) for k, v in batch.items()}
             for i in range(microbatches):
                 part = {k: v.reshape(microbatches, b // microbatches,
                                      *v.shape[1:])[i]
@@ -122,22 +162,25 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
                 del g
             loss, aux = loss / microbatches, aux / microbatches
         _, opt_state, gnorm = adamw_update(grads, opt_state, params, opt_cfg)
-        return opt_state, {"loss": loss, "aux": aux, "grad_norm": gnorm}
+        return opt_state, {"loss": plain(loss), "aux": plain(aux),
+                           "grad_norm": plain(gnorm)}
 
     return train_step
 
 
 def make_prefill_step(model, cfg: ModelConfig):
     def prefill_step(batch, cache):
-        return model.prefill(batch, cache)
+        return model.prefill(_rows(_on(batch, model.device)), cache)
 
     return prefill_step
 
 
 def make_decode_step(model, cfg: ModelConfig):
     def decode_step(cache, pos: int, tokens: torch.Tensor):
+        tokens = _rows(_on({"tokens": tokens}, model.device))["tokens"]
         logits, cache = model.decode_step(cache, pos, tokens)
-        next_tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)
+        last = plain(logits[:, -1, :])     # the whole row on every device
+        next_tok = torch.argmax(last[:, :cfg.vocab], dim=-1)
         return next_tok.to(torch.int32)[:, None], logits, cache
 
     return decode_step
