@@ -274,27 +274,40 @@ bitwise equal.
    ``run_training`` on the flash route raise; granite's smoke config
    dies at step 6 and resumes from 5 to the uninterrupted run's
    parameters.
-16c. lm_mesh: the mesh planner (ROADMAP A13d, first half) on Granite-8B
+16c. lm_mesh: the mesh planner (ROADMAP A13d) on Granite-8B
    at its published widths cut to 4 of 36 layers, on a one-card ("data",
    "model") (1, 1) ``DeviceMesh`` over a world-size-1 ``nccl`` group
    (FileStore rendezvous, destroyed at the phase's end): the parameters as
    DTensors laid out by ``param_specs()`` + ``fsdp_specs``; step 1's loss,
    gradient norm and every gradient against the unsharded
-   ``make_grad_fn`` from the same weights and batch (≤1e-5 relative; it
-   prints whether they are bitwise equal); prefill 8 × 512 and 8 forced
-   decode steps, the logits against the unsharded serving steps
-   (≤1e-5); a scoring forward of 4 × 2048 tokens on K5's route against
-   the unsharded one (≤1e-5); K7 (forward and backward) and K5 launches
-   of each, equal between the routes (the kernels run on the local
-   shards); 3 AdamW steps of 4 × 2048 tokens on each route: ms per step
-   and peak memory, and the prefill's and a decode step's ms.
+   ``make_grad_fn`` from the same weights and batch; prefill 8 × 512 and
+   8 forced decode steps, the logits against the unsharded serving steps;
+   a scoring forward of 4 × 2048 tokens on K5's route against the
+   unsharded one; K7 (forward and backward) and K5 launches of each,
+   equal between the routes (the kernels run on the local shards); 3
+   AdamW steps of 4 × 2048 tokens on each route in turn, one copy at a
+   time: the losses and the updated parameters, ms per step and peak
+   memory, and the prefill's and a decode step's ms; every compared value
+   **bitwise** the unsharded route's.  Then the second half
+   (``MESH_FAMILIES``), each held bitwise against its unsharded route with
+   launches equal: Mamba2-1.3B whole (prefill + decode and a 4 × 2048
+   scoring forward: K6 on each device's heads, K7), Grok-1 at its
+   published widths cut to 1 of 64 layers (step 1's forward and backward
+   of 2 × 512 tokens: K7 and its backward; prefill + decode; 2 AdamW
+   steps with 8-bit moments on the expert leaves, one route after the
+   other), Zamba2-1.2B and Whisper-large-v3 whole and
+   Llama-3.2-Vision-11B at 24 of 40 layers (prefill + decode with their
+   image / frame inputs), each phase's wall under 60 s; the sharded
+   route's launches by family and run are printed.
 16d. mesh_dryrun: ``python -m repro_torch.launch.dryrun --arch granite-8b
-   --shape train_4k --mesh single --layers 18`` on the host (256 ranks of
-   torch's ``fake`` process group, fake tensors; started after the build,
-   read here; cut to 18 of 36 layers to keep its wall under 120 s):
-   per-device bytes and ``fits`` at 80 GB, the three roofline terms and the collective summary —
-   estimates for H100 constants — ``choose_layout``'s pick for the same
-   arch, shape and 256 devices, and the dry run's own wall time.
+   --shape train_4k --mesh single --layers 18`` and ``--arch arctic-480b
+   --variant moe_ep=data --layers 3`` on the host (256 ranks of torch's
+   ``fake`` process group each, fake tensors; both started after the
+   build, read here; cut in depth to keep each wall under 120 s):
+   per-device bytes and ``fits`` at 80 GB, the three roofline terms and
+   the collective summary — estimates for H100 constants —
+   ``choose_layout``'s pick for the same arch, shape and 256 devices (the
+   MoE branch for Arctic), and the dry run's own wall time.
 17. perf_record: ``repro_torch.obs.perfbridge.perf_record`` of one
    lm_score shard (11 × 2048 tokens) of OLMo-1B, Mamba2-1.3B,
    Zamba2-1.2B and Arctic-480B at 2 layers (its expert slots against the
@@ -515,20 +528,46 @@ RESUME_BATCH, RESUME_SEQ = 2, 64
 DW_REL = 1e-4
 # the fourteenth slice: the mesh planner.  Granite-8B at its published
 # widths cut to 4 of 36 layers (the phase holds an unsharded and a sharded
-# copy, each with its gradients and moments), on a one-card ("data",
-# "model") (1, 1) mesh over a world-size-1 process group: 3 AdamW steps of
-# 4 x 2048 tokens, prefill 8 x 512 and 8 decode steps, a scoring forward
-# on K5's route; then the dry run of granite_8b x train_4k x single on 256
-# fake ranks, on the host beside the card's phases, cut to 18 of 36
-# layers: at 36 its wall was 133.6 s on the H100's host (its counted run
-# 115.7 s), over the 120 s it is held to
+# copy, each with its gradients), on a one-card ("data", "model") (1, 1)
+# mesh over a world-size-1 process group: 3 AdamW steps of 4 x 2048
+# tokens on each route in turn, prefill 8 x 512 and 8 decode steps, a
+# scoring forward on K5's route; then the dry run of granite_8b x
+# train_4k x single on 256 fake ranks, on the host beside the card's
+# phases, cut to 18 of 36 layers: at 36 its wall was 133.6 s on the
+# H100's host (its counted run 115.7 s), over the 120 s it is held to
 MESH_ARCH, MESH_LAYERS = "granite_8b", 4
 MESH_BATCH, MESH_SEQ, MESH_STEPS = 4, 2048, 3
-MESH_REL = 1e-5
-DRYRUN_CELL = ("granite-8b", "train_4k", "single")
+DRYRUN_CELL = ("granite-8b", "train_4k", "single", "")
 DRYRUN_LAYERS = 18
 DRYRUN_WALL = 120.0
 DRYRUN_TIMEOUT = 900.0    # the child is killed past this
+# the fifteenth slice: the mesh planner's second half on the same (1, 1)
+# mesh, each family held bitwise against its unsharded route with launches
+# equal: (arch, layers kept or None, what runs).  Mamba2-1.3B whole: a
+# scoring forward, prefill and decode (K6 and K7 on local shards; no
+# training: K6 has no backward on the card, ROADMAP B2).  Grok-1 at its
+# published widths cut to 1 of 64 layers: its experts are 9.7 GB of bf16 a
+# layer, and step 1's gradients hold two copies (13.1 GB each with the
+# embedding and the head) and both routes' bf16 gradients; at 2 layers
+# those take 90 GB.  Its MESH_MOE_STEPS AdamW steps (K7 and its backward,
+# 8-bit moments on the expert leaves) run one route after the other, one
+# copy at a time: 8-bit AdamW on one 1.6e9-element expert leaf takes
+# ≈ 38 GB of float32 temporaries, which do not fit beside two copies.
+# Zamba2-1.2B and Whisper-large-v3 whole, Llama-3.2-Vision-11B cut to 24 of
+# 40 layers (two copies of 40 GB of float32 parameters do not fit; 24 take
+# ≈ 50 GB): prefill and decode, each phase's wall held under
+# MESH_FAMILY_WALL
+MESH_FAMILIES = (("mamba2_1_3b", None, ("serve", "score")),
+                 ("grok_1_314b", 1, ("grad", "serve", "train")),
+                 ("zamba2_1_2b", None, ("serve",)),
+                 ("llama_3_2_vision_11b", 24, ("serve",)),
+                 ("whisper_large_v3", None, ("serve",)))
+MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_STEPS = 2, 512, 2
+MESH_FAMILY_WALL = 60.0
+# 16d's second cell: Arctic-480B x train_4k on 256 fake ranks with its
+# experts over the data axis (moe_ep=data), cut in depth for its wall
+DRYRUN_MOE_CELL = ("arctic-480b", "train_4k", "single", "moe_ep=data")
+DRYRUN_MOE_LAYERS = 3
 # profiler groups: float32 GEMMs (the dt projection and the head) first
 F32_GEMM = ("f32f32", "sgemm", "nvjet_sss", "nvjet_tss")
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -3860,18 +3899,24 @@ def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
                   seq: int = MESH_SEQ, n_steps: int = MESH_STEPS,
                   serve: tuple = (SERVE_BATCH, SERVE_PROMPT, SERVE_FORCED),
                   backend: str = "nccl", card: str = "",
-                  cut: str = "") -> dict:
+                  cut: str = "", parts=("grad", "serve", "score", "train")
+                  ) -> dict:
     """The mesh planner's sharded steps (ROADMAP A13d) on ``cfg`` against
     the unsharded ones, on a (1, 1) ("data", "model") mesh over a
-    world-size-1 ``backend`` group: (1) step 1's loss, global gradient norm
-    and every gradient (``MESH_REL``; bitwise or not, printed), K7 and its
-    backward launched as often on both routes; (2) prefill
-    ``serve[0]`` × ``serve[1]`` and ``serve[2]`` forced decode steps, the
-    logits of each (``MESH_REL``), K7 and K5 launches equal; (3) a scoring
-    forward on K5's route (``attention_impl="pallas"``), logits
-    (``MESH_REL``), K5 and K7 launches equal and above 0; (4)
-    ``n_steps`` AdamW steps on each route: ms per step (median of the steps
-    after the first), launches per step equal, peak memory.  The sharded
+    world-size-1 ``backend`` group, for the ``parts`` asked: (grad) step
+    1's loss, global gradient norm and every gradient, K7 and its backward
+    launched as often on both routes; (serve) prefill ``serve[0]`` ×
+    ``serve[1]`` (with the model's image or frame inputs) and ``serve[2]``
+    forced decode steps, the logits of each, launches equal; (score) a
+    scoring forward on K5's route (``attention_impl="pallas"``), logits,
+    launches equal, K5 (or for Mamba2 K6) once a layer; (train)
+    ``n_steps`` AdamW steps on each route in turn, each on a model of its
+    own built after the others are freed (8-bit moments for bf16
+    parameters, as ``run_training`` picks): the losses and the updated
+    parameters, ms per step (median of the steps after the first),
+    launches per step equal, peak memory.  Every compared value must be
+    equal bit for bit (on one device the sharded route runs the same local
+    ops); the largest relative gap is printed beside it.  The sharded
     route's launch counts are set to 0 just before each of its runs and
     read just after."""
     from repro_torch.launch.mesh import make_mesh, use_mesh
@@ -3889,6 +3934,8 @@ def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S_)),
                               device=dev)
     forced = torch.as_tensor(rng.integers(0, cfg.vocab, (B, F_)), device=dev)
+    extras = model_extras(torch, cfg, B, dev)
+    out = {"launches": {}}
 
     def peak_reset():
         if cuda:
@@ -3902,12 +3949,22 @@ def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
     def counted(fn):
         sync(torch, dev)
         reset_lm_launches()
-        out = fn()
+        t = time.perf_counter()
+        res = fn()
         sync(torch, dev)
-        return out, dict(lm_launches())
+        return res, dict(lm_launches()), time.perf_counter() - t
+
+    def held(what, got, want):
+        """(largest relative gap, bit for bit equal) of ``got`` vs
+        ``want``; checked to be equal."""
+        gap = rel_err(got, want)[0]
+        same = bool(torch.equal(got, want))
+        check(same, f"{phase}: {what} not bitwise the unsharded route's "
+                    f"(gap {gap:.3e})")
+        return gap, same
 
     def serve_run(model, shard=None):
-        logits, walls = [], []
+        logits, ws = [], []
         with torch.no_grad():
             cache = model.init_cache(B, S_ + F_)
             if shard is not None:
@@ -3916,17 +3973,17 @@ def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
             dec = steps.make_decode_step(model, model.cfg)
             sync(torch, dev)
             t = time.perf_counter()
-            lg, cache = pre({"tokens": prompts}, cache)
+            lg, cache = pre({"tokens": prompts, **extras}, cache)
             logits.append(plain(lg))
             sync(torch, dev)
-            walls.append(time.perf_counter() - t)
+            ws.append(time.perf_counter() - t)
             for i in range(F_):
                 t = time.perf_counter()
                 _, lg, cache = dec(cache, S_ + i, forced[:, i:i + 1])
                 logits.append(plain(lg))
                 sync(torch, dev)
-                walls.append(time.perf_counter() - t)
-        return torch.cat(logits, dim=1), walls
+                ws.append(time.perf_counter() - t)
+        return torch.cat(logits, dim=1), ws
 
     def score_run(model, shard=None):
         saved = model.cfg
@@ -3940,148 +3997,223 @@ def lm_mesh_phase(torch, np, dev, cfg, batch: int = MESH_BATCH,
         finally:
             model.cfg = saved
 
+    t_phase = time.perf_counter()
     with one_rank_group(backend):
         mesh = make_mesh((1, 1), ("data", "model"), dev)
+
+        def build(route):
+            model = seeded_model(torch, cfg, dev)
+            if route == "sharded":
+                with use_mesh(mesh):
+                    build.specs = shard_model(model, mesh)
+            return model
+
         t0 = time.perf_counter()
-        flat = seeded_model(torch, cfg, dev)
-        sharded = seeded_model(torch, cfg, dev)
-        with use_mesh(mesh):
-            specs = shard_model(sharded, mesh)
+        flat, sharded = build("unsharded"), build("sharded")
         sync(torch, dev)
         setup_s = time.perf_counter() - t0
+        specs = build.specs
         n_split = sum(any(e is not None for e in sp) for sp in specs.values())
 
-        # (1) step 1's gradients
-        (l0, _, g0), k_flat = counted(
-            lambda: steps.make_grad_fn(flat, cfg)(data[0]))
-        with use_mesh(mesh):
-            (l1, _, g1), k_mesh = counted(
-                lambda: steps.make_grad_fn(sharded, cfg)(data[0]))
-        g1 = {n: plain(g) for n, g in g1.items()}
-        n0 = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g0.values()))
-        n1 = torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g1.values()))
-        grad = {"loss": abs(float(plain(l1)) - float(l0)) / abs(float(l0)),
-                "grad_norm": abs(float(n1) - float(n0)) / float(n0),
-                "grads": max(rel_err(g1[n], g)[0] for n, g in g0.items())}
-        bitwise = float(plain(l1)) == float(l0) and all(
-            torch.equal(g1[n], g) for n, g in g0.items())
-        del g0, g1
-        for k, v in grad.items():
-            check(v <= MESH_REL, f"{phase}: step 1's {k} {v:.3e} from the "
-                                 f"unsharded route (bar {MESH_REL})")
-        check(k_mesh == k_flat and k_mesh["rmsnorm"] > 0
-              and k_mesh["rmsnorm_bwd"] > 0,
-              f"{phase}: step 1's launches {k_mesh}, unsharded {k_flat}")
+        if "grad" in parts:         # step 1's gradients
+            peak_reset()
+            (l0, _, g0), k_flat, gw0 = counted(
+                lambda: steps.make_grad_fn(flat, cfg)(data[0]))
+            grad_peak0 = peak_gib()
+            peak_reset()
+            with use_mesh(mesh):
+                (l1, _, g1), k_mesh, gw1 = counted(
+                    lambda: steps.make_grad_fn(sharded, cfg)(data[0]))
+            grad_peak1 = peak_gib()
+            g1 = {n: plain(g) for n, g in g1.items()}
+            n0, n1, gap, same = grad_gaps(torch, g1, g0)
+            grad = {"loss": abs(float(plain(l1)) - float(l0))
+                    / abs(float(l0)),
+                    "grad_norm": abs(n1 - n0) / n0, "grads": gap}
+            same = same and float(plain(l1)) == float(l0)
+            del g0, g1
+            check(same, f"{phase}: step 1 not bitwise the unsharded route's "
+                        f"({grad})")
+            check(k_mesh == k_flat and k_mesh["rmsnorm"] > 0
+                  and k_mesh["rmsnorm_bwd"] > 0,
+                  f"{phase}: step 1's launches {k_mesh}, unsharded {k_flat}")
+            out.update(grad=grad, bitwise=same, grad_ms=gw1 * 1e3,
+                       grad_ms_unsharded=gw0 * 1e3, grad_peak=grad_peak1,
+                       grad_peak_unsharded=grad_peak0)
+            out["launches"]["grad"] = k_mesh
+            print(f"{phase}{cut} [{card}]: step 1 vs the unsharded route: "
+                  f"loss {grad['loss']:.3e}, gradient norm "
+                  f"{grad['grad_norm']:.3e}, gradients {grad['grads']:.3e} "
+                  f"(bitwise equal: {same}); launches "
+                  f"{k_mesh} (unsharded {k_flat}); forward + backward of "
+                  f"{batch} x {seq} tokens {gw1 * 1e3:.2f} ms (unsharded "
+                  f"{gw0 * 1e3:.2f}, the first call on each route); peak "
+                  f"{grad_peak1:.2f} GiB (unsharded {grad_peak0:.2f})")
 
-        # (2) serving
-        peak_reset()
-        (want, walls0), s_flat = counted(lambda: serve_run(flat))
-        serve_peak0 = peak_gib()
-        peak_reset()
-        with use_mesh(mesh):
-            (got, walls1), s_mesh = counted(lambda: serve_run(sharded, mesh))
-        serve_peak1 = peak_gib()
-        serve_gap = rel_err(got, want)[0]
-        check(serve_gap <= MESH_REL, f"{phase}: prefill + decode logits "
-                                     f"{serve_gap:.3e} from the unsharded "
-                                     f"route (bar {MESH_REL})")
-        check(s_mesh == s_flat and s_mesh["rmsnorm"] > 0,
-              f"{phase}: serving launches {s_mesh}, unsharded {s_flat}")
-        del want, got
+        if "serve" in parts:
+            peak_reset()
+            (want, walls0), s_flat, _ = counted(lambda: serve_run(flat))
+            serve_peak0 = peak_gib()
+            peak_reset()
+            with use_mesh(mesh):
+                (got, walls1), s_mesh, _ = counted(
+                    lambda: serve_run(sharded, mesh))
+            serve_peak1 = peak_gib()
+            gap, same = held("prefill + decode logits", got, want)
+            check(s_mesh == s_flat and s_mesh["rmsnorm"] > 0,
+                  f"{phase}: serving launches {s_mesh}, unsharded {s_flat}")
+            del want, got
+            out.update(serve_gap=gap, serve_bitwise=same, serve={
+                "prefill_ms": walls1[0] * 1e3,
+                "prefill_ms_unsharded": walls0[0] * 1e3,
+                "decode_ms": statistics.median(walls1[1:]) * 1e3,
+                "decode_ms_unsharded": statistics.median(walls0[1:]) * 1e3,
+                "peak": serve_peak1, "peak_unsharded": serve_peak0})
+            out["launches"]["serve"] = s_mesh
+            print(f"{phase}{cut} [{card}]: prefill {B} x {S_} + {F_} decode "
+                  f"steps: logits {gap:.3e} from the unsharded route "
+                  f"(bitwise equal: {same}); launches {s_mesh} (unsharded "
+                  f"{s_flat}); prefill {walls1[0] * 1e3:.2f} ms (unsharded "
+                  f"{walls0[0] * 1e3:.2f}), decode "
+                  f"{statistics.median(walls1[1:]) * 1e3:.2f} ms/step "
+                  f"(unsharded {statistics.median(walls0[1:]) * 1e3:.2f}); "
+                  f"peak {serve_peak1:.2f} GiB (unsharded "
+                  f"{serve_peak0:.2f})")
 
-        # (3) a scoring forward on K5's route
-        want, f_flat = counted(lambda: score_run(flat))
-        with use_mesh(mesh):
-            got, f_mesh = counted(lambda: score_run(sharded, mesh))
-        score_gap = rel_err(got, want)[0]
-        del want, got
-        check(score_gap <= MESH_REL, f"{phase}: scoring logits "
-                                     f"{score_gap:.3e} from the unsharded "
-                                     f"route (bar {MESH_REL})")
-        check(f_mesh == f_flat and f_mesh["flash_attention"] == cfg.n_layers
-              and f_mesh["rmsnorm"] > 0,
-              f"{phase}: scoring launches {f_mesh}, unsharded {f_flat}")
+        if "score" in parts:        # a scoring forward on K5's route
+            want, f_flat, w0 = counted(lambda: score_run(flat))
+            with use_mesh(mesh):
+                got, f_mesh, w1 = counted(lambda: score_run(sharded, mesh))
+            gap, same = held("scoring logits", got, want)
+            del want, got
+            kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+            check(f_mesh == f_flat and f_mesh[kernel] == cfg.n_layers
+                  and f_mesh["rmsnorm"] > 0,
+                  f"{phase}: scoring launches {f_mesh}, unsharded {f_flat}")
+            out.update(score_gap=gap, score_bitwise=same,
+                       score_ms=w1 * 1e3, score_ms_unsharded=w0 * 1e3)
+            out["launches"]["score"] = f_mesh
+            print(f"{phase}{cut} [{card}]: scoring forward {batch} x {seq} "
+                  f"on K5's route: logits {gap:.3e} from the unsharded route"
+                  f" (bitwise equal: {same}); launches {f_mesh} (unsharded "
+                  f"{f_flat}); {w1 * 1e3:.2f} ms (unsharded "
+                  f"{w0 * 1e3:.2f})")
 
-        # (4) training steps on each route
-        train = {}
-        for name, model in (("unsharded", flat), ("sharded", sharded)):
-            ctx = use_mesh(mesh) if name == "sharded" else \
-                contextlib.nullcontext()
-            with ctx:
-                opt_cfg = AdamWConfig(lr=TRAIN_LR)
-                opt = adamw_init(dict(model.named_parameters()), opt_cfg)
-                step = steps.make_train_step(model, cfg, opt_cfg)
-                peak_reset()
-                walls, per_step, losses = [], [], []
-                for b in data:
-                    sync(torch, dev)
-                    reset_lm_launches()
-                    t = time.perf_counter()
-                    opt, met = step(opt, b)
-                    losses.append(float(met["loss"]))
-                    sync(torch, dev)
-                    walls.append(time.perf_counter() - t)
-                    per_step.append(dict(lm_launches()))
-                train[name] = {"ms": statistics.median(walls[1:] or walls)
-                               * 1e3, "walls": walls, "launches": per_step,
-                               "losses": losses, "peak": peak_gib()}
-                del opt, step
-            if cuda:
-                torch.cuda.empty_cache()
-        check(train["sharded"]["launches"] == train["unsharded"]["launches"],
-              f"{phase}: launches per step {train['sharded']['launches']}, "
-              f"unsharded {train['unsharded']['launches']}")
-        check(all(np.isfinite(train["sharded"]["losses"])),
-              f"{phase}: non-finite losses {train['sharded']['losses']}")
         del flat, sharded
-    per = train["sharded"]["launches"][0]
+        if "train" in parts:        # each route in turn, one copy at a time
+            train, after = {}, {}
+            bits8 = cfg.param_dtype == "bfloat16"
+            for name in ("unsharded", "sharded"):
+                if cuda:
+                    torch.cuda.empty_cache()
+                model = build(name)
+                ctx = use_mesh(mesh) if name == "sharded" else \
+                    contextlib.nullcontext()
+                with ctx:
+                    opt_cfg = AdamWConfig(lr=TRAIN_LR, bits8=bits8)
+                    opt = adamw_init(dict(model.named_parameters()), opt_cfg)
+                    step = steps.make_train_step(model, cfg, opt_cfg)
+                    peak_reset()
+                    ws, per_step, losses = [], [], []
+                    for b in data:
+                        sync(torch, dev)
+                        reset_lm_launches()
+                        t = time.perf_counter()
+                        opt, met = step(opt, b)
+                        losses.append(float(met["loss"]))
+                        sync(torch, dev)
+                        ws.append(time.perf_counter() - t)
+                        per_step.append(dict(lm_launches()))
+                    train[name] = {"ms": statistics.median(ws[1:] or ws)
+                                   * 1e3, "walls": ws,
+                                   "launches": per_step, "losses": losses,
+                                   "peak": peak_gib()}
+                    del opt, step
+                # the updated parameters: the unsharded route's to the host,
+                # the sharded route's held against them leaf by leaf
+                if name == "unsharded":
+                    after = {n: p.detach().cpu()
+                             for n, p in model.named_parameters()}
+                else:
+                    differ = [n for n, p in model.named_parameters()
+                              if not torch.equal(plain(p.detach()).cpu(),
+                                                 after[n])]
+                del model
+            del after
+            check(train["sharded"]["launches"]
+                  == train["unsharded"]["launches"],
+                  f"{phase}: launches per step "
+                  f"{train['sharded']['launches']}, unsharded "
+                  f"{train['unsharded']['launches']}")
+            check(all(np.isfinite(train["sharded"]["losses"])),
+                  f"{phase}: non-finite losses {train['sharded']['losses']}")
+            check(train["sharded"]["losses"] == train["unsharded"]["losses"],
+                  f"{phase}: losses {train['sharded']['losses']} not "
+                  f"bitwise {train['unsharded']['losses']}")
+            check(not differ, f"{phase}: after {n_steps} steps the "
+                              f"parameters {differ[:4]} are not bitwise the "
+                              f"unsharded route's")
+            out["train"] = train
+            out["launches"]["step"] = train["sharded"]["launches"][0]
+            for name, r in train.items():
+                print(f"{phase} [{card}]: {name} train step {r['ms']:.2f} ms"
+                      f" (median of steps 2-{n_steps} of {batch} x {seq} "
+                      f"tokens{', 8-bit moments' if bits8 else ''}); "
+                      f"launches per step {r['launches'][0]}; peak "
+                      f"{r['peak']:.2f} GiB (this route's copy alone); "
+                      f"losses {', '.join(f'{v:.4f}' for v in r['losses'])};"
+                      f" walls {', '.join(f'{w:.3f}' for w in r['walls'])} s")
+            print(f"{phase} [{card}]: after {n_steps} AdamW steps every "
+                  f"parameter and every loss bitwise the unsharded route's")
+    out["wall_s"] = time.perf_counter() - t_phase
     print(f"{phase}{cut} [{card}]: (1, 1) (data, model) mesh over a "
-          f"world-size-1 {backend} group; set-up {setup_s:.1f} s; "
-          f"{n_split} of {len(specs)} parameters carry a split spec; step 1 "
-          f"vs the unsharded route: loss {grad['loss']:.3e}, gradient norm "
-          f"{grad['grad_norm']:.3e}, gradients {grad['grads']:.3e} (bar "
-          f"{MESH_REL}; bitwise equal: {bitwise}); launches {k_mesh} "
-          f"(unsharded {k_flat})")
-    print(f"{phase}: prefill {B} x {S_} + {F_} decode steps: logits "
-          f"{serve_gap:.3e} from the unsharded route; launches {s_mesh} "
-          f"(unsharded {s_flat}); prefill {walls1[0] * 1e3:.2f} ms "
-          f"(unsharded {walls0[0] * 1e3:.2f}), decode "
-          f"{statistics.median(walls1[1:]) * 1e3:.2f} ms/step (unsharded "
-          f"{statistics.median(walls0[1:]) * 1e3:.2f}); peak "
-          f"{serve_peak1:.2f} GiB (unsharded {serve_peak0:.2f})")
-    print(f"{phase}: scoring forward {batch} x {seq} on K5's route: logits "
-          f"{score_gap:.3e} from the unsharded route; launches {f_mesh} "
-          f"(unsharded {f_flat})")
-    for name, r in train.items():
-        print(f"{phase} [{card}]: {name} train step {r['ms']:.2f} ms "
-              f"(median of steps 2-{n_steps} of {batch} x {seq} tokens); "
-              f"launches per step {r['launches'][0]}; peak {r['peak']:.2f} "
-              f"GiB; losses {', '.join(f'{v:.4f}' for v in r['losses'])}; "
-              f"walls {', '.join(f'{w:.3f}' for w in r['walls'])} s")
-    return {"grad": grad, "bitwise": bitwise, "serve_gap": serve_gap,
-            "score_gap": score_gap, "launches": {"grad": k_mesh,
-                                                 "serve": s_mesh,
-                                                 "score": f_mesh,
-                                                 "step": per},
-            "train": train}
+          f"world-size-1 {backend} group; set-up {setup_s:.1f} s; {n_split} "
+          f"of {len(specs)} parameters carry a split spec; phase wall "
+          f"{out['wall_s']:.1f} s")
+    return out
 
 
-def start_dryrun():
-    """``python -m repro_torch.launch.dryrun`` of ``DRYRUN_CELL`` (arch,
-    shape, mesh) at ``DRYRUN_LAYERS`` started in a child process on the
-    host (its own ``fake`` process group, no card): (the process, its start
-    time)."""
-    arch, shape, mesh = DRYRUN_CELL
+def grad_gaps(torch, got: dict, want: dict,
+              chunk: int = 1 << 26) -> tuple[float, float, float, bool]:
+    """(the global norm of ``got``, of ``want``, the largest relative gap
+    of a leaf — max |got − want| / max |want| — and whether every leaf is
+    equal bit for bit), in float64 over slices of ``chunk`` elements so
+    that a leaf of billions of elements (an MoE layer's experts) needs no
+    float64 copy of itself."""
+    sq_got = sq_want = 0.0
+    gap, same = 0.0, True
+    for name, w in want.items():
+        g = got[name]
+        same = same and bool(torch.equal(g, w))
+        err = top = 0.0
+        for a, b in zip(g.reshape(-1).split(chunk),
+                        w.reshape(-1).split(chunk)):
+            a, b = a.double(), b.double()
+            sq_got += float(torch.sum(a * a))
+            sq_want += float(torch.sum(b * b))
+            err = max(err, float((a - b).abs().max()))
+            top = max(top, float(b.abs().max()))
+        if w.numel():
+            gap = max(gap, err / max(top, 1e-30))
+    return sq_got ** 0.5, sq_want ** 0.5, gap, same
+
+
+def start_dryrun(cell=DRYRUN_CELL, layers: int = DRYRUN_LAYERS):
+    """``python -m repro_torch.launch.dryrun`` of ``cell`` (arch, shape,
+    mesh, variant) at ``layers`` started in a child process on the host
+    (its own ``fake`` process group, no card): (the process, its start
+    time, the cell, the layers)."""
+    arch, shape, mesh, variant = cell
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--shape", shape, "--mesh", mesh, "--json", "--layers",
-           str(DRYRUN_LAYERS)]
+           str(layers), "--variant", variant]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
            + os.environ.get("PYTHONPATH", ""), "CUDA_VISIBLE_DEVICES": ""}
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
                             cwd=str(ROOT))
     atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, time.perf_counter()
+    return proc, time.perf_counter(), cell, layers
 
 
 def mesh_dryrun_phase(started, card: str = "") -> dict:
@@ -4090,8 +4222,7 @@ def mesh_dryrun_phase(started, card: str = "") -> dict:
     ``fits``, the roofline terms, the collective summary,
     ``choose_layout``'s pick and the dry run's own wall time, which must
     stay under ``DRYRUN_WALL``."""
-    arch, shape, mesh = DRYRUN_CELL
-    proc, t0 = started
+    proc, t0, (arch, shape, mesh, variant), layers = started
     try:
         out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
     finally:
@@ -4107,8 +4238,9 @@ def mesh_dryrun_phase(started, card: str = "") -> dict:
     check(roof["compute_s"] > 0 and roof["memory_s"] > 0
           and rec["collectives"]["total_wire_bytes"] > 0,
           f"mesh_dryrun: empty terms {roof} or no collectives")
-    cut = f" (cut to {DRYRUN_LAYERS} of {rec['layers_published']} layers)"
-    print(f"mesh_dryrun {arch} x {shape} x {mesh}{cut}: {rec['chips']} fake "
+    cut = f" (cut to {layers} of {rec['layers_published']} layers)"
+    arch = f"{arch} x {shape} x {mesh}" + (f" [{variant}]" if variant else "")
+    print(f"mesh_dryrun {arch}{cut}: {rec['chips']} fake "
           f"ranks; per device: parameters {m['param_bytes'] / 1e9:.4f} GB, "
           f"optimizer {m['opt_bytes'] / 1e9:.4f} GB, inputs "
           f"{m['input_bytes'] / 1e9:.6f} GB, step's live peak "
@@ -4133,6 +4265,9 @@ def mesh_dryrun_phase(started, card: str = "") -> dict:
           f"record here) [{card}]")
     check(rec["wall_s"] <= DRYRUN_WALL, f"mesh_dryrun: wall "
           f"{rec['wall_s']:.1f} s over {DRYRUN_WALL} s: cut the depth")
+    if variant.startswith("moe_ep="):   # the tokens cross to their experts
+        check(rec["collectives"]["counts"].get("all-to-all", 0) > 0,
+              f"mesh_dryrun: {arch} moved no tokens by all-to-all")
     return {"record": rec, "wall_s": wall}
 
 
@@ -4521,8 +4656,9 @@ def main() -> int:
     print("kernels: " + "; ".join(
         f"{k} (cuda, {SOURCES[k]}, replaces {REPLACES[k]})"
         for k in SOURCES))
-    # phase 16d's dry run needs no card: it runs on the host from here on
-    dryrun = start_dryrun()
+    # phase 16d's dry runs need no card: they run on the host from here on
+    dryruns = [start_dryrun(), start_dryrun(DRYRUN_MOE_CELL,
+                                            DRYRUN_MOE_LAYERS)]
 
     # -- the serving instance (shared with the kernel phase's shapes) -------
     rng = np.random.default_rng(SEED)
@@ -4934,7 +5070,32 @@ def main() -> int:
                   card=smi, cut=(f" (cut to {MESH_LAYERS} of "
                                  f"{get_config(MESH_ARCH).n_layers} layers)"))
     torch.cuda.empty_cache()
-    mesh_dryrun_phase(dryrun, card=smi)
+    mesh_launches = {}
+    for arch, layers, parts in MESH_FAMILIES:
+        mesh_cfg, cut = get_config(arch), ""
+        if layers is not None:
+            gb = count_params(mesh_cfg)[0] * mesh_cfg.pdtype.itemsize / 1e9
+            cut = (f" (cut to {layers} of {mesh_cfg.n_layers} layers: "
+                   f"{gb:.0f} GB of {mesh_cfg.param_dtype} parameters a "
+                   f"copy at full depth)")
+            mesh_cfg = mesh_cfg.replace(n_layers=layers)
+        moe = mesh_cfg.family == "moe"
+        got = lm_mesh_phase(
+            torch, np, dev, mesh_cfg,
+            batch=MESH_MOE_BATCH if moe else MESH_BATCH,
+            seq=MESH_MOE_SEQ if moe else MESH_SEQ,
+            n_steps=MESH_MOE_STEPS if moe else MESH_STEPS, card=smi,
+            cut=cut, parts=parts)
+        mesh_launches[arch] = got["launches"]
+        if parts == ("serve",):
+            check(got["wall_s"] <= MESH_FAMILY_WALL,
+                  f"lm_mesh {arch}: phase wall {got['wall_s']:.1f} s over "
+                  f"{MESH_FAMILY_WALL} s: cut the depth")
+        torch.cuda.empty_cache()
+    print(f"lm_mesh launches on the sharded route, by family and run: "
+          f"{json.dumps(mesh_launches)}")
+    for started in dryruns:
+        mesh_dryrun_phase(started, card=smi)
 
     # -- 17./18. the perf records and the build hooks ---------------------
     # the counting hooks, disarmed, on K7 dispatches at a decode step's shape

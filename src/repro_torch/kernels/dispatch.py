@@ -36,9 +36,13 @@ each device's shard and the result comes back as a DTensor with the
 operand's placements (:func:`_on_local_shards`).  K7 needs whole rows, so
 its last dim must not be split; K5 takes q, k and v split alike over rows
 and heads only (a replicated k hands each ``model`` rank the kv heads of
-its own query heads).  Gradients cross the
+its own query heads); K6 takes x, dt, A and D split over heads (whole
+heads only: a split of the head dim, or of a head count that the ways do
+not divide, is refused before launch) and rows, B and C split over rows
+and replicated over the heads' devices.  Gradients cross the
 boundary with the placements they have: an operand's own, and partial
-sums for a replicated weight applied to split rows (K7's dw).
+sums for an operand replicated over devices that split the work (K7's dw,
+K6's B and C over heads, A and D over rows).
 
 :func:`resolve_device` is the policy for the public entry points
 (``BatchedEvaluator``, ``WhatIfService``, ``build_model``): ``None`` means
@@ -188,8 +192,9 @@ def _on_local_shards(fn, x, others, grads):
     ``others`` are DTensors already in the layout ``fn`` needs; ``grads``
     gives each operand's gradient placements (x first)."""
     from torch.distributed.tensor import DTensor
-    local = [t.to_local(grad_placements=g)
-             for t, g in zip((x, *others), grads)]
+
+    from repro_torch.models.sharding import to_local
+    local = [to_local(t, g) for t, g in zip((x, *others), grads)]
     out = fn(*local).contiguous()
     return DTensor.from_local(out, x.device_mesh, x.placements,
                               run_check=False, shape=x.shape,
@@ -265,12 +270,93 @@ def rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
         return ref.rmsnorm_plain(x, w, eps)
 
 
+def _sharded_ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool,
+                      state_out):
+    """K6 on the local shards: each device scans its rows and its heads.
+    x (b, L, H, P) keeps its split of rows (dim 0) and heads (dim 2), a
+    split of L is gathered (the scan runs over the whole sequence), and a
+    split of P or of a head count that the ways do not divide raises
+    before launch.  dt follows x, A and D (H,) its heads, B and C (b, L, N)
+    its rows; y comes back laid out as x, the final state (b, H, N, P)
+    split as x's rows and heads, and a DTensor ``state_out`` must already
+    be laid out so (its local shard is written in place)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models.sharding import settle, to_local
+    x = settle(x)
+    mesh = x.device_mesh
+    H = x.shape[2]
+    for p, n in zip(x.placements, mesh.shape):
+        if p.is_shard(3) or (p.is_shard(2) and n > 1 and H % n):
+            raise ValueError(
+                f"ssd_scan: a {tuple(x.shape)} operand split {x.placements} "
+                f"on mesh {tuple(mesh.shape)} cuts a head; K6 takes whole "
+                f"heads (the 'heads' rule must divide d_inner / P)")
+    heads = tuple(p.is_shard(2) for p in x.placements)
+    rows = tuple(p.is_shard(0) for p in x.placements)
+    ways = 1
+    for h, n in zip(heads, mesh.shape):
+        ways *= n if h else 1
+    if H % ways:
+        raise ValueError(f"ssd_scan: {H} heads do not split {ways} ways")
+
+    def lay(per_rows, per_heads, other=Replicate()):
+        return tuple(per_rows if r else per_heads if h else other
+                     for r, h in zip(rows, heads))
+
+    x_pl = lay(Shard(0), Shard(2))
+    want = {"x": x_pl, "dt": x_pl, "A": lay(Replicate(), Shard(0)),
+            "D": lay(Replicate(), Shard(0)),
+            "B": lay(Shard(0), Replicate()), "C": lay(Shard(0), Replicate())}
+    grads = {"x": x_pl, "dt": x_pl, "A": lay(Partial(), Shard(0)),
+             "D": lay(Partial(), Shard(0)), "B": lay(Shard(0), Partial()),
+             "C": lay(Shard(0), Partial())}
+    ops = dict(x=x, B=B, C=C, dt=dt, A=A, D=D)
+    local = {}
+    for name, t in ops.items():
+        t = _replicated(t, mesh) if not _is_dtensor(t) else settle(t)
+        if tuple(t.placements) != want[name]:
+            t = t.redistribute(mesh, want[name])
+        ops[name] = t
+        local[name] = to_local(t, grads[name])
+    state_pl = lay(Shard(0), Shard(1))
+    into = {}
+    if state_out is not None:
+        if not _is_dtensor(state_out) \
+                or tuple(state_out.placements) != state_pl:
+            raise ValueError(
+                f"ssd_scan: state_out must be a DTensor laid out "
+                f"{state_pl}, got {getattr(state_out, 'placements', None)}")
+        into = {"state_out": state_out.to_local()}
+    x = ops["x"]
+    out = ssd_scan(local["x"], local["B"], local["C"], local["dt"],
+                   local["A"], local["D"], chunk, final_state, **into)
+    y, S = out if isinstance(out, tuple) else (out, None)
+    y = DTensor.from_local(y.contiguous(), mesh, x_pl, run_check=False,
+                           shape=x.shape, stride=x.stride())
+    if S is None:
+        return y
+    if state_out is not None:
+        return y, state_out
+    b, _, _, P = x.shape
+    N = ops["B"].shape[-1]
+    shape = (b, H, N, P)
+    return y, DTensor.from_local(S, mesh, state_pl, run_check=False,
+                                 shape=torch.Size(shape),
+                                 stride=torch.empty(shape,
+                                                    device="meta").stride())
+
+
 def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
              state_out=None):
     """The Mamba2 SSD chunked scan → y (b, L, H, P) in x's dtype, or
     (y, final state (b, H, N, P) float32) with ``final_state`` or a
     ``state_out`` to write it into: K6 on the card, its plain version on
-    the CPU."""
+    the CPU.  DTensor operands run on their local shards
+    (:func:`_sharded_ssd_scan`)."""
+    if _is_dtensor(x, B, C, dt, A, D):
+        return _sharded_ssd_scan(x, B, C, dt, A, D, chunk, final_state,
+                                 state_out)
     into = {} if state_out is None else {"state_out": state_out}
     with kernel_scope("ssd_scan"):
         if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":

@@ -39,12 +39,16 @@ training takes the reference attention, and its prefill and decode take
 the chunked route and the grouped einsum, as the reference's do, so no
 cell of ``SHAPES`` runs K5 and their ``kernel_adjusted`` is None.
 
+Every family builds: dense, MoE, Mamba2, the hybrid, the VLM and the
+encoder–decoder (the warm-up cuts each of a model's layer stacks to its
+first ``WARM_LAYERS``, the config's depth with them).
+
 Variants: ``remat=full|dots|none``, ``microbatches=N``, ``attn_chunk=N``,
+``moe_group=N`` (the MoE group size), ``moe_ep=AXIS`` (the ``experts``
+rule: ``moe_ep=data`` is expert parallelism over the data axis),
 ``param_dtype=...``, ``no_vocab_dp``, ``no_fsdp``, ``seq_shard``,
-``no_seq_shard``.  Left out: ``moe_group`` and ``moe_ep`` (the MoE
-family's specs are the second half of ROADMAP A13d), ``unroll`` and
-``scan`` (the port has one module per layer and no scan to toggle).
-Families other than dense raise, naming A13d's second half.
+``no_seq_shard``.  Left out: ``unroll`` and ``scan`` (the port has one
+module per layer and no scan to toggle).
 
 Private PyTorch APIs, each for one purpose: the ``fake`` process-group
 backend (``torch.testing._internal.distributed.fake_pg``: registers the
@@ -52,7 +56,9 @@ backend and its ``FakeStore``) stands in for 256 or 512 devices.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k --mesh single
-  python -m repro_torch.launch.dryrun --sweep --mesh both    # dense cells
+  python -m repro_torch.launch.dryrun --sweep --mesh both    # every cell
+  python -m repro_torch.launch.dryrun --arch arctic-480b --shape train_4k \
+      --variant moe_ep=data
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k \
       --variant remat=dots,microbatches=4
 """
@@ -60,6 +66,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -75,8 +82,6 @@ H100_HBM_BYTES = 80e9       # NVIDIA H100 80GB HBM3 (data sheet)
 WARM_LAYERS = 2             # blocks the warm-up runs
 
 VARIANTS_LEFT_OUT = {
-    "moe_group": "the MoE family's specs are the second half of ROADMAP A13d",
-    "moe_ep": "the MoE family's specs are the second half of ROADMAP A13d",
     "unroll": "the port has one module per layer and no scan to toggle",
     "scan": "the port has one module per layer and no scan to toggle",
 }
@@ -148,7 +153,7 @@ def parse_variant(variant: str, shape, total_params: float) -> dict:
     out = {"seq_shard": train,
            "microbatches": (2 if total_params < 10e9 else
                             4 if total_params < 100e9 else 8) if train else 1,
-           "fsdp_embed": True, "overrides": {}}
+           "fsdp_embed": True, "overrides": {}, "rules": {}}
     for item in filter(None, variant.split(",")):
         k, v = item.split("=", 1) if "=" in item else (item, "1")
         if k in VARIANTS_LEFT_OUT:
@@ -160,6 +165,10 @@ def parse_variant(variant: str, shape, total_params: float) -> dict:
             out["overrides"]["remat"] = v
         elif k == "attn_chunk":
             out["overrides"]["attn_chunk"] = int(v)
+        elif k == "moe_group":
+            out["overrides"]["moe_group_size"] = int(v)
+        elif k == "moe_ep":
+            out["rules"]["experts"] = v     # "data": experts over data
         elif k == "param_dtype":
             out["overrides"]["param_dtype"] = v
         elif k == "no_vocab_dp":
@@ -175,6 +184,28 @@ def parse_variant(variant: str, shape, total_params: float) -> dict:
     if not train:
         out["overrides"].setdefault("remat", "none")
     return out
+
+
+@contextlib.contextmanager
+def first_layers(model, n: int):
+    """``model`` with each of its layer stacks (``blocks``, ``encoder``,
+    ``decoder``, the VLM's ``cross``) cut to its first ``n`` layers and its
+    config's depth with them inside the block; restored after it."""
+    cfg = model.cfg
+    saved = {name: getattr(model, name)
+             for name in ("blocks", "encoder", "decoder", "cross")
+             if hasattr(model, name)}
+    model.cfg = cfg.replace(n_layers=min(n, cfg.n_layers),
+                            encoder_layers=min(n, cfg.encoder_layers))
+    try:
+        for name, stack in saved.items():
+            keep = model.n_cross if name == "cross" else n
+            setattr(model, name, stack[:keep])
+        yield model
+    finally:
+        model.cfg = cfg
+        for name, stack in saved.items():
+            setattr(model, name, stack)
 
 
 def _counted(fn, warm) -> tuple:
@@ -227,10 +258,6 @@ def build_cell(arch: str, shape_name, multi_pod: bool = False,
     skip = shape_skip_reason(cfg, shape)
     if skip:
         return {"arch": arch, "shape": shape_name, "skipped": skip}
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's specs and shard sites "
-            f"are the second half of the mesh planner (ROADMAP A13d)")
     full_layers = cfg.n_layers
     total_params, active_params = count_params(cfg)
     opts = parse_variant(variant, shape, total_params)
@@ -255,7 +282,7 @@ def build_cell(arch: str, shape_name, multi_pod: bool = False,
                       "remat": cfg.remat, "param_dtype": cfg.param_dtype},
         "layers": cfg.n_layers, "layers_published": full_layers,
     }
-    rules = {"batch": baxes if baxes else None}
+    rules = {"batch": baxes if baxes else None, **opts["rules"]}
     if opts["seq_shard"]:
         rules["seq"] = "model"
     t0 = time.perf_counter()
@@ -303,12 +330,8 @@ def build_cell(arch: str, shape_name, multi_pod: bool = False,
         rec["build_s"] = time.perf_counter() - t0
 
         def warm():
-            blocks = model.blocks
-            model.blocks = blocks[:WARM_LAYERS]
-            try:
+            with first_layers(model, WARM_LAYERS):
                 run()
-            finally:
-                model.blocks = blocks
 
         stats, live, rec["trace_s"], rec["count_s"] = _counted(run, warm)
 
@@ -375,7 +398,8 @@ def build_cell(arch: str, shape_name, multi_pod: bool = False,
         chips, sharding.mesh_axes(mesh).get("pod", 1), n_layers=full_layers,
         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
         seq=shape.seq_len, global_batch=shape.global_batch,
-        n_params=float(total_params), train=shape.kind == "train",
+        n_params=float(total_params), moe_experts=cfg.moe_experts,
+        top_k=cfg.moe_top_k, train=shape.kind == "train",
         param_bytes=float(cfg.pdtype.itemsize))
     rec["autoshard"] = {
         "dp": best.layout.dp, "tp": best.layout.tp,
@@ -433,7 +457,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, variant: str = "",
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.configs import ARCH_IDS, SHAPES
     from repro_torch.configs.registry import canonical_arch
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
@@ -450,8 +474,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="one subprocess per cell (robust to a crash)")
     args = ap.parse_args(argv)
-    archs = ([a for a in ARCH_IDS if get_config(a).family == "dense"]
-             if args.arch == "all" else [canonical_arch(args.arch)])
+    archs = (list(ARCH_IDS) if args.arch == "all"
+             else [canonical_arch(args.arch)])
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.sweep:

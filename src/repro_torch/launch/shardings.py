@@ -153,9 +153,14 @@ def shard_model(model, mesh) -> dict:
 
 
 def shard_cache(cache, spec_tree, mesh):
-    """A cache dataclass (``KVCache``) with each tensor laid out by its
-    spec in ``spec_tree`` (a cache of specs)."""
+    """A cache dataclass (``KVCache``, ``SSMCache``, or one nesting them:
+    ``HybridCache``, ``VLMCache``, ``EncDecCache``) with each tensor laid
+    out by its spec in ``spec_tree`` (a cache of specs alike)."""
+    def lay(leaf, spec):
+        if dataclasses.is_dataclass(leaf):
+            return shard_cache(leaf, spec, mesh)
+        return distribute(leaf, spec, mesh)
+
     return type(cache)(**{
-        f.name: distribute(getattr(cache, f.name),
-                           getattr(spec_tree, f.name), mesh)
+        f.name: lay(getattr(cache, f.name), getattr(spec_tree, f.name))
         for f in dataclasses.fields(cache)})

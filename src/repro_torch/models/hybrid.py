@@ -26,6 +26,15 @@ Serving: :class:`HybridCache` holds the Mamba2 caches stacked over the L
 layers (``ssm``) and one KV cache per attention site (``attn``): the
 shared block has one parameter set but its keys and values differ per
 site.  Prefill and decode write both in place and return the cache.
+
+Sharding: :meth:`Zamba2LM.param_specs` and :meth:`Zamba2LM.cache_specs` are
+the reference's, keyed like ``named_parameters()`` (the Mamba2 blocks'
+per-layer specs without their layer entry, the shared block's as they
+are).  Under an ambient mesh the shared block gathers its weights to their
+tensor-parallel specs at each site (it is one parameter set, gathered once
+a site) and its output is constrained as the reference's (``hybrid.py:116``),
+as are the embedded tokens and the vocab-parallel logits; the Mamba2
+blocks shard as :mod:`repro_torch.models.mamba2` says.
 """
 
 from __future__ import annotations
@@ -38,9 +47,13 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       cotangent_cast, embed_lookup, mlp)
+                                       attn_specs, cotangent_cast, lm_embed,
+                                       lm_logits, mlp)
 from repro_torch.models.mamba2 import (SSMCache, _Block, _param,
-                                       init_mamba_block, mamba_block)
+                                       init_mamba_block, mamba_block,
+                                       mamba_block_specs, ssm_cache_specs)
+from repro_torch.models.sharding import (P, active_mesh, block_weights,
+                                         param_spec, shard, subtree)
 from repro_torch.models.transformer import remat_wrap
 
 __all__ = ["Zamba2LM", "HybridCache"]
@@ -133,18 +146,55 @@ class Zamba2LM(nn.Module):
         normal(self.head, cfg.d_model)
         return self
 
+    # ------------------------------------------------------------- specs --
+    def _shared_specs(self) -> dict[str, P]:
+        """The shared block's specs, keyed like its
+        ``named_parameters()``."""
+        cfg = self.cfg
+        s = {"attn." + k: v for k, v in attn_specs().items()}
+        if cfg.norm_type == "rmsnorm":
+            s["ln1"] = s["ln2"] = param_spec((None,))
+        ff = ({"wi_gate": (None, "ff"), "wi_up": (None, "ff"),
+               "wo": ("ff", None)} if cfg.mlp_kind == "swiglu"
+              else {"wi": (None, "ff"), "wo": ("ff", None)})
+        s.update({"mlp." + k: param_spec(v) for k, v in ff.items()})
+        return s
+
+    def param_specs(self) -> dict[str, P]:
+        """The reference's ``param_specs()`` (``hybrid.py:82``) keyed like
+        ``named_parameters()``."""
+        out = {"embed": param_spec(("vocab", None))}
+        block = mamba_block_specs(self.cfg)
+        for i in range(self.cfg.n_layers):
+            out.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+        out.update({f"shared_attn.{k}": v
+                    for k, v in self._shared_specs().items()})
+        if self.final_norm is not None:
+            out["final_norm"] = param_spec((None,))
+        out["head"] = param_spec((None, "vocab"))
+        return out
+
+    def cache_specs(self) -> HybridCache:
+        kv = param_spec((None, "batch", None, "kv_heads"))
+        return HybridCache(ssm_cache_specs(), KVCache(kv, kv))
+
     # ------------------------------------------------------------ pieces --
     def _shared_block(self, x: torch.Tensor, cache: KVCache | None = None,
                       cache_pos: int | None = None) -> torch.Tensor:
         cfg, sp = self.cfg, self.shared_attn
-        h = apply_norm(cfg.norm_type, x, sp.ln1)
-        x = x + attention(sp.attn, h, n_heads=cfg.n_heads,
+        ln1, attn, ln2, ffn = sp.ln1, sp.attn, sp.ln2, sp.mlp
+        if active_mesh() is not None:               # the ZeRO-3 gather
+            w = block_weights(sp, self._shared_specs())
+            ln1, ln2 = w.get("ln1"), w.get("ln2")
+            attn, ffn = subtree(w, "attn."), subtree(w, "mlp.")
+        h = apply_norm(cfg.norm_type, x, ln1)
+        x = x + attention(attn, h, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                           rope_theta=cfg.rope_theta, causal=True,
                           cache=cache, cache_pos=cache_pos,
                           impl=cfg.attention_impl, chunk=cfg.attn_chunk)
-        h = apply_norm(cfg.norm_type, x, sp.ln2)
-        return x + mlp(sp.mlp, h, cfg.mlp_kind)
+        h = apply_norm(cfg.norm_type, x, ln2)
+        return shard(x + mlp(ffn, h, cfg.mlp_kind), "batch", "seq", None)
 
     def _run(self, x: torch.Tensor, cache: HybridCache | None = None,
              cache_pos: int | None = None,
@@ -171,15 +221,13 @@ class Zamba2LM(nn.Module):
 
     # -------------------------------------------------------------- API ---
     def _embed(self, tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=self.device)
-        return embed_lookup(self.embed, tokens, self.cfg.adtype)
+        return lm_embed(self.embed, tokens, self.cfg.adtype, self.device)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) → (B, S, V_pad) float32: the final norm, then both
         operands in float32 (exact for bf16), the reference's promoted
-        einsum."""
-        x = apply_norm(self.cfg.norm_type, x, self.final_norm)
-        return torch.matmul(x.float(), self.head.float())
+        einsum; vocab-parallel under a mesh."""
+        return lm_logits(self.cfg.norm_type, x, self.final_norm, self.head)
 
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,

@@ -52,12 +52,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch, ref
-from repro_torch.models.sharding import (gather_inner, gather_inner_grad,
-                                         keep_grad_layout, param_spec, settle,
-                                         shard, shard_div)
+from repro_torch.models.sharding import (constrain_tree, gather_inner,
+                                         gather_inner_grad, keep_grad_layout,
+                                         param_spec, settle, shard, shard_div,
+                                         to_local)
 
 __all__ = [
     "rms_norm", "layer_norm", "apply_norm", "dense", "embed_lookup",
+    "lm_embed", "lm_logits",
     "rotary_embedding", "apply_rotary", "KVCache", "attention", "mlp",
     "cotangent_cast", "token_cross_entropy", "cross_entropy_loss",
     "attn_specs",
@@ -163,6 +165,37 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     return F.embedding(tokens, table).to(out_dtype)
 
 
+def lm_embed(table: torch.Tensor, tokens, out_dtype: torch.dtype,
+             device) -> torch.Tensor:
+    """The reference's ``embed_tokens``: rows of ``table`` for ``tokens``
+    (a DTensor, or anything ``torch.as_tensor`` takes onto ``device``).
+    Under a mesh the table is gathered to its ("vocab", None) spec and the
+    rows are constrained to ("batch", "seq", None)."""
+    if not hasattr(tokens, "placements"):
+        tokens = torch.as_tensor(tokens, device=device)
+    table = constrain_tree({"embed": table},
+                           {"embed": param_spec(("vocab", None))})["embed"]
+    return shard(embed_lookup(table, tokens, out_dtype), "batch", "seq",
+                 None)
+
+
+def lm_logits(norm_type: str, x: torch.Tensor, final_norm,
+              head: torch.Tensor) -> torch.Tensor:
+    """The reference's ``logits``: (B, S, d) → (B, S, V_pad) float32, the
+    final norm, then both operands in float32 (exact for bf16), its
+    promoted einsum.  Under a mesh the head is gathered to its (None,
+    "vocab") spec and the logits are vocab-parallel."""
+    ends = constrain_tree(
+        {k: v for k, v in (("final_norm", final_norm), ("head", head))
+         if v is not None},
+        {"final_norm": param_spec((None,)),
+         "head": param_spec((None, "vocab"))})
+    x = apply_norm(norm_type, x, ends.get("final_norm"))
+    out = gather_inner_grad(
+        torch.matmul(gather_inner(x).float(), ends["head"].float()))
+    return shard(out, "batch", None, "vocab")   # vocab-parallel logits
+
+
 # --------------------------------------------------------------- rotary ----
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float):
@@ -259,7 +292,10 @@ def _reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
         new.append(p)
     if tuple(new) != tuple(pl):
         t = t.redistribute(mesh, new)
-    return t.reshape(shape)
+    # the gradient comes back in the layout the reshape gave, which its
+    # backward can undo (a split of merged heads that the ways do not
+    # divide, say, cannot be viewed back into heads)
+    return keep_grad_layout(t.reshape(shape))
 
 
 @dataclasses.dataclass
@@ -361,9 +397,7 @@ def _on_local_heads(fn, q, k, v) -> torch.Tensor:
             kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
         return fn(ql, kl, vl)
 
-    out = local(q.to_local(grad_placements=keep),
-                k.to_local(grad_placements=kv_grad),
-                v.to_local(grad_placements=kv_grad))
+    out = local(to_local(q, keep), to_local(k, kv_grad), to_local(v, kv_grad))
     return DTensor.from_local(out.contiguous(), mesh, keep, run_check=False,
                               shape=q.shape, stride=q.stride())
 

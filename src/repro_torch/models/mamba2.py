@@ -43,6 +43,28 @@ cache holds (only the conv history is read).  Decode is the O(1)
 recurrence :func:`ssd_decode_step`, plain tensor code as in the reference
 (no kernel there).  Prefill and decode update each layer's state and conv
 history in the cache in place and return the cache.
+
+Sharding: :func:`mamba_block_specs` and :meth:`Mamba2LM.cache_specs` are
+the reference's specs (``mamba_block_specs``, ``cache_specs``) keyed like
+``named_parameters()``, a per-layer spec without its stacked layer entry.
+Under an ambient mesh each block first gathers its weights to their
+tensor-parallel specs (the ZeRO-3 gather; the conv taps and the gate norm
+whole), then keeps d_inner split over ``model`` where GSPMD keeps it and
+gathers it where an op needs whole rows:
+
+* z and the x projection come out split on ``inner``, the B / C
+  projections replicated; the causal conv runs on whole channels (x's
+  part gathered: the conv is depthwise, and its cache slice is laid out
+  on ``inner`` as the reference's, so it is gathered and written back
+  shard by shard);
+* xs is split on ``heads`` (the reference's ``shard`` at
+  ``mamba2.py:194``), so K6 scans each device's heads, with B and C
+  replicated; its output keeps the head split through the gate;
+* the gate norm normalises over d_inner, and K7 takes whole rows: its
+  input is gathered first, as GSPMD gathers the reduced dim, and the out
+  projection splits it again against ``out_proj``'s rows.
+
+Without a mesh all of it is a no-op.
 """
 
 from __future__ import annotations
@@ -55,12 +77,16 @@ from torch import nn
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.layers import (apply_norm, cotangent_cast, dense,
-                                       embed_lookup, rms_norm)
+from repro_torch.models.layers import (_reshape, apply_norm, cotangent_cast,
+                                       dense, lm_embed, lm_logits, rms_norm)
+from repro_torch.models.sharding import (P, active_mesh, block_weights,
+                                         gather_inner, gather_inner_grad,
+                                         param_spec, shard, whole_last,
+                                         write_into)
 from repro_torch.models.transformer import remat_wrap
 
 __all__ = ["Mamba2LM", "SSMCache", "mamba_block", "init_mamba_block",
-           "causal_conv", "ssd_decode_step"]
+           "mamba_block_specs", "causal_conv", "ssd_decode_step"]
 
 
 @dataclasses.dataclass
@@ -134,6 +160,31 @@ def init_mamba_block(blk: _Block, cfg: ModelConfig,
         blk.norm.fill_(1.0)
 
 
+def mamba_block_specs(cfg: ModelConfig) -> dict[str, P]:
+    """One block's specs, keyed like its ``named_parameters()``: the
+    reference's ``mamba_block_specs`` (a non-parametric norm has no
+    parameter here)."""
+    s = {"wz": (None, "inner"), "wx": (None, "inner"), "wB": (None, None),
+         "wC": (None, None), "wdt": (None, "heads"),
+         "conv_w": (None, "inner"), "conv_b": ("inner",),
+         "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+         "gate_norm": ("inner",), "out_proj": ("inner", None)}
+    if cfg.norm_type == "rmsnorm":
+        s = {"norm": (None,), **s}
+    return {k: param_spec(v) for k, v in s.items()}
+
+
+def _weights(blk: _Block, cfg: ModelConfig) -> dict:
+    """``blk``'s weights by name; under a mesh each gathered to its
+    tensor-parallel spec, the conv taps and the gate norm whole (the conv
+    runs on whole channels, K7 on whole rows)."""
+    if active_mesh() is None:
+        return blk._parameters
+    specs = mamba_block_specs(cfg)
+    specs.update(conv_w=P(None, None), conv_b=P(None), gate_norm=P(None))
+    return block_weights(blk, specs)
+
+
 def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 conv_cache: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv: u (B, L, Dc), w (k, Dc), b (Dc,) → y (B, L,
@@ -142,17 +193,19 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     before u is ``conv_cache`` (B, k−1, Dc) or zeros; a ``conv_cache`` is
     then overwritten in place with the last k−1 rows of history + u."""
     k, L = w.shape[0], u.shape[1]
-    if conv_cache is None:
+    if conv_cache is None and hasattr(u, "placements"):
+        hist = torch.zeros_like(u[:, :1]).expand(-1, k - 1, -1)  # u's layout
+    elif conv_cache is None:
         hist = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
                            device=u.device)
     else:
-        hist = conv_cache.to(u.dtype)
+        hist = whole_last(conv_cache).to(u.dtype)
     full = torch.cat([hist, u], dim=1)                  # (B, L+k−1, Dc)
     y = full[:, 0:L] * w[0]
     for i in range(1, k):
         y = y + full[:, i:i + L] * w[i]
     if conv_cache is not None and k > 1:
-        conv_cache.copy_(full[:, -(k - 1):])
+        write_into(conv_cache, full[:, -(k - 1):])
     return y + b
 
 
@@ -166,31 +219,44 @@ def mamba_block(blk: _Block, x: torch.Tensor, cfg: ModelConfig,
     on it."""
     b, L, _ = x.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    h = apply_norm(cfg.norm_type, x, blk.norm)
-    z = dense(blk.wz, h)
-    xin = dense(blk.wx, h)
-    Bin = dense(blk.wB, h)
-    Cin = dense(blk.wC, h)
-    pt = torch.promote_types(h.dtype, blk.wdt.dtype)     # JAX's promotion
-    dt_raw = torch.matmul(h.to(pt), blk.wdt.to(pt)).float()
-    conv = causal_conv(torch.cat([xin, Bin, Cin], dim=-1), blk.conv_w,
-                       blk.conv_b, None if cache is None else cache.conv)
+    w = _weights(blk, cfg)
+    h = apply_norm(cfg.norm_type, x, w.get("norm"))
+    z = dense(w["wz"], h)
+    xin = dense(w["wx"], h)
+    Bin = dense(w["wB"], h)
+    Cin = dense(w["wC"], h)
+    pt = torch.promote_types(h.dtype, w["wdt"].dtype)    # JAX's promotion
+    dt_raw = gather_inner_grad(torch.matmul(
+        gather_inner(h).to(pt), w["wdt"].to(pt))).float()
+    # the depthwise conv on whole channels: x's split part gathered
+    conv = causal_conv(torch.cat([whole_last(xin), Bin, Cin], dim=-1),
+                       w["conv_w"], w["conv_b"],
+                       None if cache is None else cache.conv)
     conv = F.silu(conv.float()).to(x.dtype)
-    xs = conv[..., :di].reshape(b, L, H, Pd)             # views of conv
+    xs = _reshape(conv[..., :di], b, L, H, Pd)           # views of conv
+    xs = shard(xs, "batch", None, "heads", None)
     Bs = conv[..., di:di + N]
     Cs = conv[..., di + N:]
-    dt = F.softplus(dt_raw + blk.dt_bias)
-    A = -torch.exp(blk.A_log)
+    dt = F.softplus(dt_raw + w["dt_bias"])
+    A = -torch.exp(w["A_log"])
     if decode:
-        y = ssd_decode_step(xs, Bs, Cs, dt, A, blk.D, cache.state)
+        y = ssd_decode_step(xs, Bs, Cs, dt, A, w["D"], cache.state)
     elif cache is not None:
-        y, _ = dispatch.ssd_scan(xs, Bs, Cs, dt, A, blk.D, cfg.ssm_chunk,
+        y, _ = dispatch.ssd_scan(xs, Bs, Cs, dt, A, w["D"], cfg.ssm_chunk,
                                  state_out=cache.state)
     else:
-        y = dispatch.ssd_scan(xs, Bs, Cs, dt, A, blk.D, cfg.ssm_chunk)
-    y = y.reshape(b, L, di) * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(y, blk.gate_norm)
-    return x + dense(blk.out_proj, y)
+        y = dispatch.ssd_scan(xs, Bs, Cs, dt, A, w["D"], cfg.ssm_chunk)
+    y = _reshape(y, b, L, di) * F.silu(z.float()).to(x.dtype)
+    # K7 normalises whole rows of d_inner
+    y = rms_norm(whole_last(y), w["gate_norm"])
+    return x + dense(w["out_proj"], y)
+
+
+def ssm_cache_specs() -> SSMCache:
+    """The reference's ``SSMCache`` specs: the state split on rows and
+    heads, the conv history on rows and ``inner``."""
+    return SSMCache(param_spec((None, "batch", "heads", None, None)),
+                    param_spec((None, "batch", None, "inner")))
 
 
 class Mamba2LM(nn.Module):
@@ -233,12 +299,28 @@ class Mamba2LM(nn.Module):
         normal(self.head, cfg.d_model ** -0.5)
         return self
 
+    # ------------------------------------------------------------- specs --
+    def param_specs(self) -> dict[str, P]:
+        """The reference's ``param_specs()`` keyed like
+        ``named_parameters()``, each per-layer spec without its stacked
+        layer entry."""
+        out = {"embed": param_spec(("vocab", None))}
+        block = mamba_block_specs(self.cfg)
+        for i in range(self.cfg.n_layers):
+            out.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+        if self.final_norm is not None:
+            out["final_norm"] = param_spec((None,))
+        out["head"] = param_spec((None, "vocab"))
+        return out
+
+    def cache_specs(self) -> SSMCache:
+        return ssm_cache_specs()
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) → (B, S, V_pad) float32: the final norm, then both
         operands in float32 (exact for bf16), the reference's promoted
-        einsum."""
-        x = apply_norm(self.cfg.norm_type, x, self.final_norm)
-        return torch.matmul(x.float(), self.head.float())
+        einsum; vocab-parallel under a mesh."""
+        return lm_logits(self.cfg.norm_type, x, self.final_norm, self.head)
 
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
@@ -251,8 +333,7 @@ class Mamba2LM(nn.Module):
         return self.logits(x), torch.zeros((), device=self.device)
 
     def _embed(self, tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=self.device)
-        return embed_lookup(self.embed, tokens, self.cfg.adtype)
+        return lm_embed(self.embed, tokens, self.cfg.adtype, self.device)
 
     # ------------------------------------------------------------- cache --
     def init_cache(self, batch_size: int, max_seq: int) -> SSMCache:

@@ -39,7 +39,10 @@ __all__ = ["P", "AxisRules", "DEFAULT_RULES", "axis_rules", "set_axis_rules",
            "rules_override", "logical_spec", "shard", "shard_div",
            "param_spec", "fsdp_leaf_spec", "constrain_tree", "mesh_axes",
            "active_mesh", "placements", "distribute",
-           "settle", "gather_inner", "gather_inner_grad", "keep_grad_layout",
+           "settle", "whole_last", "write_into", "gather_inner",
+           "gather_inner_grad", "keep_grad_layout", "to_local",
+           "block_weights",
+           "subtree",
            "plain", "FSDP_AXIS", "FSDP_MIN_ELEMS"]
 
 MeshAxes = tuple[str, ...] | str | None
@@ -188,6 +191,8 @@ def distribute(x, spec, mesh):
             pieces = torch.chunk(local, n, dim=p.dim)
             local = pieces[coord[i]] if coord[i] < len(pieces) \
                 else local.narrow(p.dim, 0, 0)
+    if local is not x:      # each device owns its chunk, not a view
+        local = local.contiguous()
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=x.shape, stride=x.stride())
 
@@ -198,6 +203,29 @@ def settle(x):
     pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
     return x if pl == tuple(x.placements) else x.redistribute(
         x.device_mesh, pl)
+
+
+def whole_last(x):
+    """A DTensor with its last dim gathered where it is split (a kernel
+    that needs whole rows, a concatenation along it); any other value as
+    it is."""
+    pl = getattr(x, "placements", None)
+    if pl is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    last = x.dim() - 1
+    new = tuple(Replicate() if p.is_shard(last) else p for p in pl)
+    return x if new == tuple(pl) else x.redistribute(x.device_mesh, new)
+
+
+def write_into(dst, src) -> None:
+    """``dst.copy_(src)`` where ``dst`` may be a DTensor in another layout
+    than ``src`` (a cache slice): ``src`` is laid out as ``dst`` first, so
+    each device writes its own shard."""
+    pl = getattr(dst, "placements", None)
+    if pl is not None and tuple(src.placements) != tuple(pl):
+        src = src.redistribute(dst.device_mesh, pl)
+    dst.copy_(src)
 
 
 def gather_inner(x):
@@ -253,6 +281,27 @@ def keep_grad_layout(y):
     if getattr(y, "placements", None) is None or not y.requires_grad:
         return y
     return _GradLayout.apply(y)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def to_local(x, grad_placements=None):
+    """The DTensor ``x``'s local shard, its gradient handed back to the
+    DTensor contiguous: DTensor lays a local gradient out as the global
+    one (contiguous) and views it so, which fails on the transposed
+    gradients of a local einsum."""
+    local = x.to_local(grad_placements=grad_placements)
+    if not (torch.is_grad_enabled() and local.requires_grad):
+        return local
+    return _ContiguousGrad.apply(local)
 
 
 def plain(x):
@@ -347,6 +396,23 @@ def constrain_tree(params: Mapping, spec_tree: Mapping) -> dict:
         return dict(params)
     return {name: _constrain(x, spec_tree[name], mesh)
             for name, x in params.items()}
+
+
+def block_weights(module, specs: Mapping) -> dict:
+    """``module``'s parameters by name (``named_parameters()``); under a
+    mesh, DTensors redistributed to their specs in ``specs`` (the ZeRO-3
+    gather at the top of a block)."""
+    params = dict(module.named_parameters())
+    if active_mesh() is None:
+        return params
+    return constrain_tree(params, specs)
+
+
+def subtree(params: Mapping, prefix: str) -> dict:
+    """The entries of ``params`` under ``prefix`` ("attn."), the prefix
+    taken off their names."""
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
 
 
 def param_spec(shape_logical: tuple[str | None, ...],

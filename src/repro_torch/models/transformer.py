@@ -28,7 +28,7 @@ of (L, B, S_max, K·hd) tensors in the activation dtype.  Prefill and
 decode write each layer's new keys and values into it in place and
 return it.
 
-Sharding (the dense family): :meth:`DecoderLM.param_specs` and
+Sharding: :meth:`DecoderLM.param_specs` and
 :meth:`DecoderLM.cache_specs` are the reference's specs, keyed like
 ``named_parameters()``; a per-layer parameter's spec is the reference's
 stacked one without its layer entry.  Under an ambient mesh
@@ -37,12 +37,14 @@ first redistributes its weights to their tensor-parallel specs — the
 ZeRO-3 gather, which the reference leaves to GSPMD after pinning the
 block's FSDP layout (its ``constrain_tree``) — and the activations are
 constrained at the reference's sites (after the embedding and each block,
-the vocab-parallel logits).  Without a mesh all of it is a no-op.
+the vocab-parallel logits); the MoE FFN shards its experts as
+:mod:`repro_torch.models.moe` says.  Without a mesh all of it is a no-op.
 """
 
 from __future__ import annotations
 
 import functools
+import types
 
 import torch
 from torch import nn
@@ -51,12 +53,11 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       attn_specs, cotangent_cast,
-                                       embed_lookup, mlp)
-from repro_torch.models.moe import MoE, init_moe, moe_ffn
-from repro_torch.models.sharding import (P, active_mesh, constrain_tree,
-                                         gather_inner, gather_inner_grad,
-                                         param_spec, shard)
+                                       attn_specs, cotangent_cast, lm_embed,
+                                       lm_logits, mlp)
+from repro_torch.models.moe import MoE, init_moe, moe_ffn, moe_specs
+from repro_torch.models.sharding import (P, active_mesh, block_weights,
+                                         param_spec, shard, subtree)
 
 __all__ = ["DecoderLM", "remat_wrap", "REMAT_MODES"]
 
@@ -184,13 +185,12 @@ class DecoderLM(nn.Module):
     def _block_specs(self) -> dict[str, P]:
         """One block's specs, keyed like its ``named_parameters()``."""
         cfg = self.cfg
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE family's specs are the second half of "
-                f"the mesh planner (ROADMAP A13d)")
         s = {"attn." + k: v for k, v in attn_specs(cfg.qk_norm).items()}
         if cfg.norm_type == "rmsnorm":
             s["ln1"] = s["ln2"] = param_spec((None,))
+        if cfg.moe_experts:
+            s.update({"moe." + k: v for k, v in moe_specs(cfg).items()})
+            return s
         ff = ({"wi_gate": (None, "ff"), "wi_up": (None, "ff"),
                "wo": ("ff", None)} if cfg.mlp_kind == "swiglu"
               else {"wi": (None, "ff"), "wo": ("ff", None)})
@@ -215,20 +215,22 @@ class DecoderLM(nn.Module):
         return KVCache(spec, spec)
 
     def _gathered(self, blk: _Block) -> tuple:
-        """(ln1, attn, ln2, mlp) of ``blk``; under a mesh each weight
-        redistributed to its tensor-parallel spec (the ZeRO-3 gather at
-        the top of the block)."""
+        """(ln1, attn, ln2, the FFN: mlp's weights or the MoE's) of
+        ``blk``; under a mesh each weight redistributed to its
+        tensor-parallel spec (the ZeRO-3 gather at the top of the
+        block)."""
+        ffn = blk.moe if self.cfg.moe_experts else blk.mlp
         if active_mesh() is None:
-            return blk.ln1, blk.attn, blk.ln2, blk.mlp
-        params = constrain_tree(dict(blk.named_parameters()),
-                                self._block_specs())
-
-        def sub(prefix):
-            return {k[len(prefix):]: v for k, v in params.items()
-                    if k.startswith(prefix)}
-
-        return (params.get("ln1"), sub("attn."), params.get("ln2"),
-                sub("mlp."))
+            return blk.ln1, blk.attn, blk.ln2, ffn
+        w = block_weights(blk, self._block_specs())
+        if self.cfg.moe_experts:
+            moe = subtree(w, "moe.")
+            ffn = types.SimpleNamespace(
+                dense_residual=subtree(moe, "dense_residual.") or None,
+                **{k: moe[k] for k in ("router", "wi_gate", "wi_up", "wo")})
+        else:
+            ffn = subtree(w, "mlp.")
+        return w.get("ln1"), subtree(w, "attn."), w.get("ln2"), ffn
 
     # ----------------------------------------------------------- forward --
     def _block(self, blk: _Block, x: torch.Tensor,
@@ -236,10 +238,7 @@ class DecoderLM(nn.Module):
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """One layer → (x, the MoE aux loss or None without experts)."""
         cfg = self.cfg
-        if cfg.moe_experts:
-            ln1, attn, ln2, ffn = blk.ln1, blk.attn, blk.ln2, None
-        else:
-            ln1, attn, ln2, ffn = self._gathered(blk)
+        ln1, attn, ln2, ffn = self._gathered(blk)
         h = apply_norm(cfg.norm_type, x, ln1)
         x = x + attention(attn, h, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -249,23 +248,15 @@ class DecoderLM(nn.Module):
                           qk_norm=cfg.qk_norm)
         h = apply_norm(cfg.norm_type, x, ln2)
         if cfg.moe_experts:
-            m, aux = moe_ffn(blk.moe, h, cfg)
-            return x + m, aux
+            m, aux = moe_ffn(ffn, h, cfg)
+            return shard(x + m, "batch", "seq", None), aux
         x = x + mlp(ffn, h, cfg.mlp_kind)
         return shard(x, "batch", "seq", None), None
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) → (B, S, V_pad) float32.  Both operands go to float32
         (exact for bf16), which is the reference's promoted einsum."""
-        ends = constrain_tree(
-            {k: v for k, v in (("final_norm", self.final_norm),
-                               ("head", self.head)) if v is not None},
-            {"final_norm": param_spec((None,)),
-             "head": param_spec((None, "vocab"))})
-        x = apply_norm(self.cfg.norm_type, x, ends.get("final_norm"))
-        out = gather_inner_grad(
-            torch.matmul(gather_inner(x).float(), ends["head"].float()))
-        return shard(out, "batch", None, "vocab")   # vocab-parallel logits
+        return lm_logits(self.cfg.norm_type, x, self.final_norm, self.head)
 
     def forward(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (B, S) ints → (logits (B, S, V_pad) float32,
@@ -282,12 +273,7 @@ class DecoderLM(nn.Module):
         return self.logits(x), aux
 
     def _embed(self, tokens) -> torch.Tensor:
-        if not hasattr(tokens, "placements"):
-            tokens = torch.as_tensor(tokens, device=self.device)
-        table = constrain_tree({"embed": self.embed},
-                               {"embed": param_spec(("vocab", None))})["embed"]
-        x = embed_lookup(table, tokens, self.cfg.adtype)
-        return shard(x, "batch", "seq", None)
+        return lm_embed(self.embed, tokens, self.cfg.adtype, self.device)
 
     # ------------------------------------------------------------- cache --
     def init_cache(self, batch_size: int, max_seq: int) -> KVCache:

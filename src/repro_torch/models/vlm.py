@@ -25,6 +25,13 @@ Training: the self-attention layers run under ``remat_wrap`` per
 ``cfg.remat`` (in ``forward``, and in a prefill of more than one token, as
 the reference; the cross blocks are not recomputed), and ``forward`` casts
 the gradient back to the activation dtype before the head.
+
+Sharding: the decoder's specs (:meth:`DecoderLM.param_specs`) plus each
+cross block's, the reference's (``vlm.py:67``: the gate replicated, P()),
+and :meth:`VisionLM.cache_specs`.  Under an ambient mesh a cross block
+gathers its weights to their tensor-parallel specs, its output is
+constrained as the reference's (``vlm.py:86``), and the prefill writes
+each device's shard of the image keys and values.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ from torch import nn
 
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       cotangent_cast)
+                                       attn_specs, cotangent_cast)
+from repro_torch.models.sharding import (P, block_weights, param_spec, shard,
+                                         subtree, write_into)
 from repro_torch.models.transformer import DecoderLM, _param, remat_wrap
 
 __all__ = ["VisionLM", "VLMCache"]
@@ -109,18 +118,43 @@ class VisionLM(DecoderLM):
             cb.gate.zero_()
         return self
 
+    # ------------------------------------------------------------- specs --
+    def _cross_specs(self) -> dict[str, P]:
+        """One cross block's specs, keyed like its
+        ``named_parameters()``."""
+        s = {"attn." + k: v for k, v in attn_specs().items()}
+        if self.cfg.norm_type == "rmsnorm":
+            s["ln"] = param_spec((None,))
+        s["gate"] = param_spec(())
+        return s
+
+    def param_specs(self) -> dict[str, P]:
+        """The reference's ``param_specs()`` (``vlm.py:67``) keyed like
+        ``named_parameters()``."""
+        out = super().param_specs()
+        cross = self._cross_specs()
+        for s in range(self.n_cross):
+            out.update({f"cross.{s}.{k}": v for k, v in cross.items()})
+        return out
+
+    def cache_specs(self) -> VLMCache:
+        spec = param_spec((None, "batch", None, "kv_heads"))
+        return VLMCache(KVCache(spec, spec), KVCache(spec, spec))
+
     # ------------------------------------------------------------ pieces --
-    def _cross_block(self, cb: _CrossBlock, x: torch.Tensor,
+    def _cross_block(self, w: dict, x: torch.Tensor,
                      image_embeds: torch.Tensor | None = None,
                      cache: KVCache | None = None) -> torch.Tensor:
+        """One cross block on its weights ``w`` (:func:`block_weights`)."""
         cfg = self.cfg
-        h = apply_norm(cfg.norm_type, x, cb.ln)
-        a = attention(cb.attn, h, n_heads=cfg.n_heads,
+        h = apply_norm(cfg.norm_type, x, w.get("ln"))
+        a = attention(subtree(w, "attn."), h, n_heads=cfg.n_heads,
                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                       rope_theta=None, causal=False, cache=cache,
                       cache_pos=None, kv_source=image_embeds,
                       impl="reference", chunk=cfg.attn_chunk)
-        return x + torch.tanh(cb.gate.float()).to(x.dtype) * a
+        x = x + torch.tanh(w["gate"].float()).to(x.dtype) * a
+        return shard(x, "batch", "seq", None)
 
     def _run(self, x: torch.Tensor, image_embeds: torch.Tensor | None = None,
              cache: VLMCache | None = None,
@@ -131,16 +165,19 @@ class VisionLM(DecoderLM):
         also writes the image keys and values into ``cache.cross``."""
         block = self._block if cache is not None and x.shape[1] == 1 else \
             remat_wrap(self._block, self.cfg.remat)
+        specs = self._cross_specs()
         for s in range(self.n_cross):
-            cb = self.cross[s]
+            w = block_weights(self.cross[s], specs)
             cross = None
             if cache is not None and image_embeds is None:
                 cross = KVCache(cache.cross.k[s], cache.cross.v[s])
-            x = self._cross_block(cb, x, image_embeds, cross)
+            x = self._cross_block(w, x, image_embeds, cross)
             if cache is not None and image_embeds is not None:
                 ad = self.cfg.adtype
-                cache.cross.k[s] = promoted_kv(image_embeds, cb.attn["wk"], ad)
-                cache.cross.v[s] = promoted_kv(image_embeds, cb.attn["wv"], ad)
+                write_into(cache.cross.k[s],
+                           promoted_kv(image_embeds, w["attn.wk"], ad))
+                write_into(cache.cross.v[s],
+                           promoted_kv(image_embeds, w["attn.wv"], ad))
             lo, hi = self._group(s)
             for li in range(lo, hi):
                 layer = None if cache is None else \

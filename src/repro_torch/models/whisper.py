@@ -24,6 +24,15 @@ Training: each encoder layer and each decoder layer runs under
 ``remat_wrap`` per ``cfg.remat`` (``forward``; the prefill's decoder
 layers too, a decode step's not, as the reference), and ``forward`` casts
 the gradient back to the activation dtype before the head.
+
+Sharding: :meth:`EncDecLM.param_specs` and :meth:`EncDecLM.cache_specs`
+are the reference's (``whisper.py:92``, ``:189``) keyed like
+``named_parameters()``, a per-layer spec without its stacked layer entry.
+Under an ambient mesh each encoder and decoder layer gathers its weights
+to their tensor-parallel specs, and the activations are constrained at
+the reference's sites (the frames entering the encoder, each encoder and
+decoder layer's output, the embedded tokens, the vocab-parallel logits);
+the prefill writes each device's shard of the cross keys and values.
 """
 
 from __future__ import annotations
@@ -36,7 +45,10 @@ from torch import nn
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import ModelConfig
 from repro_torch.models.layers import (KVCache, apply_norm, attention,
-                                       cotangent_cast, embed_lookup, mlp)
+                                       attn_specs, cotangent_cast, lm_embed,
+                                       lm_logits, mlp)
+from repro_torch.models.sharding import (P, block_weights, param_spec, shard,
+                                         subtree, write_into)
 from repro_torch.models.transformer import _param, remat_wrap
 from repro_torch.models.vlm import promoted_kv
 
@@ -129,12 +141,46 @@ class EncDecLM(nn.Module):
         normal(self.head, self.cfg.d_model)
         return self
 
+    # ------------------------------------------------------------- specs --
+    def _block_specs(self, kind: str) -> dict[str, P]:
+        """An encoder ("enc") or decoder ("dec") layer's specs, keyed like
+        its ``named_parameters()``."""
+        attn = attn_specs()
+        sites = ("attn",) if kind == "enc" else ("self_attn", "cross_attn")
+        norms = ("ln1", "ln2") if kind == "enc" else ("ln1", "ln_x", "ln2")
+        s = {f"{site}.{k}": v for site in sites for k, v in attn.items()}
+        if self.cfg.norm_type == "rmsnorm":
+            s.update({n: param_spec((None,)) for n in norms})
+        s["mlp.wi"] = param_spec((None, "ff"))
+        s["mlp.wo"] = param_spec(("ff", None))
+        return s
+
+    def param_specs(self) -> dict[str, P]:
+        """The reference's ``param_specs()`` keyed like
+        ``named_parameters()``."""
+        out = {"embed": param_spec(("vocab", None))}
+        for kind, blocks in (("enc", "encoder"), ("dec", "decoder")):
+            spec = self._block_specs(kind)
+            for i in range(len(getattr(self, blocks))):
+                out.update({f"{blocks}.{i}.{k}": v for k, v in spec.items()})
+        for name in ("enc_norm", "final_norm"):
+            if getattr(self, name) is not None:
+                out[name] = param_spec((None,))
+        out["head"] = param_spec((None, "vocab"))
+        return out
+
+    def cache_specs(self) -> EncDecCache:
+        spec = param_spec((None, "batch", None, "kv_heads"))
+        return EncDecCache(KVCache(spec, spec), KVCache(spec, spec))
+
     # ------------------------------------------------------------ pieces --
     def encode(self, audio_frames) -> torch.Tensor:
         """(B, n_frames, d) frame embeddings → the normed encoder output in
         the activation dtype."""
         cfg = self.cfg
-        x = torch.as_tensor(audio_frames, device=self.device).to(cfg.adtype)
+        if not hasattr(audio_frames, "placements"):
+            audio_frames = torch.as_tensor(audio_frames, device=self.device)
+        x = shard(audio_frames.to(cfg.adtype), "batch", "seq", None)
         layer = remat_wrap(self._enc_block, cfg.remat)
         for blk in self.encoder:
             x = layer(blk, x)
@@ -142,13 +188,15 @@ class EncDecLM(nn.Module):
 
     def _enc_block(self, blk: _EncBlock, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = apply_norm(cfg.norm_type, x, blk.ln1)
-        x = x + attention(blk.attn, h, n_heads=cfg.n_heads,
+        w = block_weights(blk, self._block_specs("enc"))
+        h = apply_norm(cfg.norm_type, x, w.get("ln1"))
+        x = x + attention(subtree(w, "attn."), h, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                           rope_theta=cfg.rope_theta, causal=False,
                           impl="reference", chunk=cfg.attn_chunk)
-        h = apply_norm(cfg.norm_type, x, blk.ln2)
-        return x + mlp(blk.mlp, h, "gelu")
+        h = apply_norm(cfg.norm_type, x, w.get("ln2"))
+        return shard(x + mlp(subtree(w, "mlp."), h, "gelu"), "batch", "seq",
+                     None)
 
     def _dec_block(self, blk: _DecBlock, x: torch.Tensor,
                    enc_out: torch.Tensor | None = None,
@@ -156,28 +204,30 @@ class EncDecLM(nn.Module):
                    cache_pos: int | None = None,
                    cross_cache: KVCache | None = None) -> torch.Tensor:
         cfg = self.cfg
+        w = block_weights(blk, self._block_specs("dec"))
         kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                   head_dim=cfg.hd, chunk=cfg.attn_chunk)
-        h = apply_norm(cfg.norm_type, x, blk.ln1)
-        x = x + attention(blk.self_attn, h, rope_theta=cfg.rope_theta,
-                          causal=True, cache=self_cache, cache_pos=cache_pos,
+        h = apply_norm(cfg.norm_type, x, w.get("ln1"))
+        x = x + attention(subtree(w, "self_attn."), h,
+                          rope_theta=cfg.rope_theta, causal=True,
+                          cache=self_cache, cache_pos=cache_pos,
                           impl=cfg.attention_impl, **kw)
-        h = apply_norm(cfg.norm_type, x, blk.ln_x)
-        x = x + attention(blk.cross_attn, h, rope_theta=None, causal=False,
-                          cache=cross_cache, cache_pos=None,
+        h = apply_norm(cfg.norm_type, x, w.get("ln_x"))
+        x = x + attention(subtree(w, "cross_attn."), h, rope_theta=None,
+                          causal=False, cache=cross_cache, cache_pos=None,
                           kv_source=enc_out, impl="reference", **kw)
-        h = apply_norm(cfg.norm_type, x, blk.ln2)
-        return x + mlp(blk.mlp, h, "gelu")
+        h = apply_norm(cfg.norm_type, x, w.get("ln2"))
+        return shard(x + mlp(subtree(w, "mlp."), h, "gelu"), "batch", "seq",
+                     None)
 
     def _embed(self, tokens) -> torch.Tensor:
-        tokens = torch.as_tensor(tokens, device=self.device)
-        return embed_lookup(self.embed, tokens, self.cfg.adtype)
+        return lm_embed(self.embed, tokens, self.cfg.adtype, self.device)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) → (B, S, V_pad) float32: the final norm, then both
-        operands in float32, the reference's promoted einsum."""
-        x = apply_norm(self.cfg.norm_type, x, self.final_norm)
-        return torch.matmul(x.float(), self.head.float())
+        operands in float32, the reference's promoted einsum;
+        vocab-parallel under a mesh."""
+        return lm_logits(self.cfg.norm_type, x, self.final_norm, self.head)
 
     def _decode(self, x: torch.Tensor, cache: EncDecCache,
                 pos: int) -> torch.Tensor:
@@ -225,9 +275,13 @@ class EncDecLM(nn.Module):
         last position's logits (B, 1, V_pad) float32, cache)."""
         enc_out = self.encode(batch["audio_frames"])
         ad = self.cfg.adtype
+        specs = self._block_specs("dec")
         for li, blk in enumerate(self.decoder):
-            cache.cross.k[li] = promoted_kv(enc_out, blk.cross_attn["wk"], ad)
-            cache.cross.v[li] = promoted_kv(enc_out, blk.cross_attn["wv"], ad)
+            w = block_weights(blk, specs)
+            write_into(cache.cross.k[li],
+                       promoted_kv(enc_out, w["cross_attn.wk"], ad))
+            write_into(cache.cross.v[li],
+                       promoted_kv(enc_out, w["cross_attn.wv"], ad))
         x = self._decode(self._embed(batch["tokens"]), cache, 0)
         # contiguous: K7 takes whole rows in order
         return self.logits(x[:, -1:, :].contiguous()), cache

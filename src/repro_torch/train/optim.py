@@ -150,10 +150,19 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
             m_f, v_f = m, v
         m_f.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v_f.mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)
-        upd = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+        del g
+        # p - lr·((m/bc1) / (sqrt(v/bc2) + eps) + wd·p), op for op, in
+        # place where a temporary would otherwise stay live (8-bit AdamW on
+        # a 1.6e9-element expert leaf then fits beside its model)
+        den = torch.sqrt(v_f / bc2).add_(cfg.eps)
+        upd = (m_f / bc1).div_(den)
+        del den
         if stacked_ndim(name, p) >= 2:   # decoupled decay on matrices only
-            upd = upd + cfg.weight_decay * p.float()
-        p.copy_((p.float() - cfg.lr * upd).to(p.dtype))
+            upd.add_(p.float() * cfg.weight_decay)
+        # p + (-lr·upd) is p - lr·upd exactly (p.float() is p itself for a
+        # float32 parameter, so it is never written in place)
+        p.copy_(upd.mul_(-cfg.lr).add_(p))
+        del upd
         if cfg.bits8:
             opt_state["m"][name] = quantize_blockwise(m_f)
             opt_state["v"][name] = quantize_blockwise(v_f)

@@ -30,7 +30,11 @@ device — to the "batch" rule's layout (each device keeps its rows; with
 reference's microbatches are; a batch already laid out is gathered
 first), reduce each gradient to its parameter's
 layout (the reference's gradient reduce-scatter), accumulate into
-DTensors in the parameters' layout, and hand back plain metrics.
+DTensors in the parameters' layout, and hand back plain metrics.  The MoE
+aux loss enters the loss as ``MOE_AUX_COEF · aux`` on every device alike:
+the model hands it back replicated, each device's groups summed and the
+sums reduced over the batch axes (``repro_torch.models.moe``), the
+reference's mean over every group.
 """
 
 from __future__ import annotations

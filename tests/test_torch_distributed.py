@@ -26,6 +26,7 @@ bitwise the reference's quantize / dequantize per rank summed in rank
 order.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -39,7 +40,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 120
+TIMEOUT = 300        # a child ran 126-224 s beside a full suite run
 WORLD = 4
 FSDP_MIN = 1 << 8            # small enough that the smoke leaves split
 MESHES = {"2x2": ((2, 2), ("data", "model")),
@@ -136,15 +137,45 @@ def _train_case(tmp, rank, mesh_name, micro):
     return out, {"specs": split}
 
 
+def bits8_gaps(model, s1: dict, s0: dict, step=None) -> dict:
+    """The 8-bit moments ``s1`` of the sharded ``model``'s AdamW step
+    against the unsharded port's ``s0``: the per-row scales' largest
+    relative gap, the dequantized moments' largest difference in
+    quantization steps (``step(sa, sb)`` of the sharded and unsharded
+    scales; one step of the unsharded row's scale by default), and
+    whether each scale is replicated over the mesh dims that split its
+    parameter's last dim."""
+    from repro_torch.models.sharding import plain
+    from repro_torch.train.optim import dequantize_blockwise
+    scale_gap = deq_gap = 0.0
+    replicated = True
+    for name, p in model.named_parameters():
+        for mom in ("m", "v"):
+            a, b = s1[mom][name], s0[mom][name]
+            sa, sb = plain(a["scale"]), b["scale"]
+            scale_gap = max(scale_gap, float(
+                (sa - sb).abs().max() / sb.abs().max()))
+            da = plain(dequantize_blockwise(a, p.shape))
+            db = dequantize_blockwise(b, p.shape)
+            # within one quantization step of the row's scale
+            unit = sb * 1.000001 if step is None else step(sa, sb)
+            deq_gap = max(deq_gap, float(((da - db).abs() / unit).max()))
+            last = p.dim() - 1
+            replicated &= all(not pl.is_shard(last)
+                              for pl, q in zip(a["scale"].placements,
+                                               p.placements)
+                              if q.is_shard(last))
+    return {"bits8_scale_gap": scale_gap, "bits8_deq_steps": deq_gap,
+            "bits8_scale_replicated": float(replicated)}
+
+
 def _bits8_case(tmp, rank):
     """One 8-bit AdamW step on the (1, 4) mesh against the unsharded port:
     the per-row scales of m and v (a cross-device max where the row is
     split) and the dequantized moments; whether each scale is replicated
     over the mesh dims that split its parameter's last dim."""
     from repro_torch.launch.mesh import make_mesh, use_mesh
-    from repro_torch.models.sharding import plain
     from repro_torch.train import optim, steps
-    from repro_torch.train.optim import dequantize_blockwise
     cfg, build = _granite(tmp)
     flat, sharded = build(), build()
     mesh = make_mesh(*MESHES["1x4"], "cpu")
@@ -156,26 +187,7 @@ def _bits8_case(tmp, rank):
         _shard(sharded, mesh)
         s1 = optim.adamw_init(dict(sharded.named_parameters()), ocfg)
         s1, _ = steps.make_train_step(sharded, cfg, ocfg)(s1, batch)
-    scale_gap = deq_gap = 0.0
-    replicated = True
-    for name, p in sharded.named_parameters():
-        for mom in ("m", "v"):
-            a, b = s1[mom][name], s0[mom][name]
-            sa, sb = plain(a["scale"]), b["scale"]
-            scale_gap = max(scale_gap, float(
-                (sa - sb).abs().max() / sb.abs().max()))
-            da = plain(dequantize_blockwise(a, p.shape))
-            db = dequantize_blockwise(b, p.shape)
-            # within one quantization step of the row's scale
-            deq_gap = max(deq_gap, float(((da - db).abs()
-                                          / (sb * 1.000001)).max()))
-            last = p.dim() - 1
-            replicated &= all(not pl.is_shard(last)
-                              for pl, q in zip(a["scale"].placements,
-                                               p.placements)
-                              if q.is_shard(last))
-    return {"bits8_scale_gap": scale_gap, "bits8_deq_steps": deq_gap,
-            "bits8_scale_replicated": float(replicated)}, {}
+    return bits8_gaps(sharded, s1, s0), {}
 
 
 def _serve_case(tmp, rank, mesh_name):
@@ -257,7 +269,59 @@ def _boundary_case(tmp, rank):
               for t in (k, v))
     got = dispatch.flash_attention(qd, kd, vd)
     out["flash"] = float((plain(got) - want).abs().max())
+    out.update(_ssd_boundary(mesh, g))
     return out, {}
+
+
+def _ssd_boundary(mesh, g) -> dict:
+    """K6's wrapper on head- and row-split DTensors (its plain version on
+    each device's shard) against the unsharded scan: y, the final state
+    and the gradients of every operand; a split that cuts a head
+    refused."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.sharding import P, distribute, plain
+    b, L, H, Pd, N, Q = 4, 20, 4, 8, 8, 8
+    ops = {"x": torch.randn((b, L, H, Pd), generator=g),
+           "B": torch.randn((b, L, N), generator=g),
+           "C": torch.randn((b, L, N), generator=g),
+           "dt": torch.rand((b, L, H), generator=g) * 0.5 + 0.05,
+           "A": -torch.rand(H, generator=g) - 0.5,
+           "D": torch.randn(H, generator=g)}
+    specs = {"x": P("data", None, "model", None), "B": P("data", None, None),
+             "C": P("data", None, None), "dt": P("data", None, "model"),
+             "A": P("model"), "D": P(None)}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in ops.items()}
+    y, S = dispatch.ssd_scan(*leaves.values(), Q, final_state=True)
+    dy = torch.randn(y.shape, generator=g)
+    want = torch.autograd.grad((y * dy).sum() + S.square().sum(),
+                               list(leaves.values()))
+    sh = {k: distribute(v, specs[k], mesh).requires_grad_(True)
+          for k, v in ops.items()}
+    yd, Sd = dispatch.ssd_scan(*sh.values(), Q, final_state=True)
+    got = torch.autograd.grad(
+        (yd * distribute(dy, specs["x"], mesh)).sum() + Sd.square().sum(),
+        list(sh.values()))
+    out = {"ssd_y": float((plain(yd) - y).abs().max()),
+           "ssd_state": float((plain(Sd) - S).abs().max()),
+           "ssd_grads": max(float((plain(a) - w).abs().max()
+                                  / w.abs().max())
+                            for a, w in zip(got, want)),
+           "ssd_placements": float(
+               tuple(yd.placements) == tuple(sh["x"].placements)
+               and [p.dim for p in Sd.placements] == [0, 1])}
+    refused = 0
+    for x, spec in ((ops["x"], P("data", None, None, "model")),
+                    (ops["x"][:, :, :3], P("data", None, "model", None))):
+        try:
+            dispatch.ssd_scan(distribute(x, spec, mesh), *(
+                distribute(ops[k][..., :x.shape[2]] if k == "dt" else
+                           ops[k][:x.shape[2]] if k in ("A", "D") else
+                           ops[k], P(), mesh)
+                for k in ("B", "C", "dt", "A", "D")), Q)
+        except ValueError:
+            refused += 1
+    out["ssd_split_refused"] = float(refused == 2)
+    return out
 
 
 def _psum_case(tmp, rank):
@@ -275,33 +339,66 @@ def _psum_case(tmp, rank):
     return out, {}
 
 
-def _rank(rank: int, world: int, tmp: str) -> None:
+def _in_step() -> torch.Tensor:
+    """The number of collectives this rank has issued on every process
+    group it belongs to (their sequence numbers summed)."""
+    from torch.distributed import distributed_c10d as c10d
+    n = 0
+    for pg in list(c10d._world.pg_map):
+        if pg is not None and pg is not c10d.GroupMember.NON_GROUP_MEMBER:
+            n += pg._get_sequence_number_for_group()
+    return torch.tensor([n], dtype=torch.int64)
+
+
+@contextlib.contextmanager
+def case_group(tmp: Path, name: str, rank: int, world: int):
+    """A ``gloo`` process group of its own for one case (a ``FileStore`` of
+    its own in ``tmp``), destroyed after it, so that no group, sequence
+    number or pending collective of one case reaches the next.  The case
+    ends with an all-gather of each rank's count of issued collectives
+    (:func:`_in_step`): ranks that did not issue the same collectives raise
+    here, naming the case."""
     import torch.distributed as dist
-    torch.set_num_threads(1)
-    tmp = Path(tmp)
     dist.init_process_group("gloo", store=dist.FileStore(
-        str(tmp / "store"), world), rank=rank, world_size=world)
+        str(tmp / f"store-{name}"), world), rank=rank, world_size=world)
     try:
-        arrays, meta = {}, {}
-        for mesh_name, micro in TRAIN_CASES:
-            a, m = _train_case(tmp, rank, mesh_name, micro)
-            arrays.update({f"train/{mesh_name}/{micro}/{k}": v
-                           for k, v in a.items()})
-            meta[f"{mesh_name}/{micro}"] = m
-        for mesh_name in ("2x2", "1x4", "2x1x2"):
-            a, _ = _serve_case(tmp, rank, mesh_name)
-            arrays.update({f"serve/{mesh_name}/{k}": v for k, v in a.items()})
-        a, _ = _boundary_case(tmp, rank)
-        arrays.update({f"boundary/{k}": v for k, v in a.items()})
-        a, _ = _bits8_case(tmp, rank)
-        arrays.update(a)
-        a, _ = _psum_case(tmp, rank)
-        arrays.update(a)
-        np.savez(tmp / f"rank{rank}.npz", **arrays)
-        if rank == 0:
-            (tmp / "meta.json").write_text(json.dumps(meta))
+        yield
+        mine = _in_step()
+        seen = [torch.zeros_like(mine) for _ in range(world)]
+        dist.all_gather(seen, mine)
+        if any(not torch.equal(t, seen[0]) for t in seen):
+            raise RuntimeError(f"case {name}: the ranks issued "
+                               f"{[int(t) for t in seen]} collectives")
     finally:
         dist.destroy_process_group()
+
+
+def _cases(part: str):
+    """(name, function of (tmp, rank) → (arrays, meta)) of one child's
+    part: "train" (the train steps) or "rest"."""
+    if part == "train":
+        return [(f"train/{m}/{k}",
+                 lambda tmp, rank, m=m, k=k: _train_case(tmp, rank, m, k))
+                for m, k in TRAIN_CASES]
+    return ([(f"serve/{m}", lambda tmp, rank, m=m: _serve_case(tmp, rank, m))
+             for m in ("2x2", "1x4", "2x1x2")]
+            + [("boundary", _boundary_case), ("bits8", _bits8_case),
+               ("psum", _psum_case)])
+
+
+def _rank(rank: int, world: int, tmp: str, part: str) -> None:
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    arrays, meta = {}, {}
+    for name, case in _cases(part):
+        with case_group(tmp, name.replace("/", "-"), rank, world):
+            a, m = case(tmp, rank)
+        arrays.update({f"{name}/{k}": v for k, v in a.items()})
+        if m:
+            meta[name] = m
+    np.savez(tmp / f"{part}-rank{rank}.npz", **arrays)
+    if rank == 0:
+        (tmp / f"{part}-meta.json").write_text(json.dumps(meta))
 
 
 def _fake_cells(tmp: str) -> None:
@@ -364,18 +461,18 @@ def _main(argv) -> None:
         _fake_cells(tmp)
         return
     torch.multiprocessing.start_processes(
-        _rank, args=(WORLD, tmp), nprocs=WORLD, start_method="spawn",
+        _rank, args=(WORLD, tmp, what), nprocs=WORLD, start_method="spawn",
         join=True)
 
 
 # ---------------------------------------------------------------- pytest --
 
-def _child(what: str, tmp: Path) -> None:
-    """This file as a script in its own session (``what``: "gloo" or
-    "fake"); killed with everything it started past ``TIMEOUT``."""
+def _child(what: str, tmp: Path, script: str = __file__) -> None:
+    """``script`` run as ``script what tmp`` in its own session; killed
+    with everything it started past ``TIMEOUT``."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
            + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
-    p = subprocess.Popen([sys.executable, __file__, what, str(tmp)],
+    p = subprocess.Popen([sys.executable, script, what, str(tmp)],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True, env=env, start_new_session=True)
     try:
@@ -389,8 +486,8 @@ def _child(what: str, tmp: Path) -> None:
 
 @pytest.fixture(scope="module")
 def gloo(tmp_path_factory):
-    """The four-rank run: {rank: arrays}, the meta of rank 0 and the
-    reference's tree."""
+    """The four-rank runs, one child for the train steps and one for the
+    rest: {rank: arrays}, the meta of rank 0 and the reference's tree."""
     import jax
 
     from repro.configs import get_smoke_config as jax_smoke
@@ -401,9 +498,13 @@ def gloo(tmp_path_factory):
     tree = jax.tree.map(np.asarray, jmodel.init_params(
         jax.random.PRNGKey(0)))
     np.savez(tmp / "weights.npz", **_flat(tree))
-    _child("gloo", tmp)
-    return ({r: dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)},
-            json.loads((tmp / "meta.json").read_text()), jcfg, jmodel, tree)
+    ranks, meta = {r: {} for r in range(WORLD)}, {}
+    for part in ("train", "rest"):
+        _child(part, tmp)
+        for r in range(WORLD):
+            ranks[r].update(np.load(tmp / f"{part}-rank{r}.npz"))
+        meta.update(json.loads((tmp / f"{part}-meta.json").read_text()))
+    return ranks, meta, jcfg, jmodel, tree
 
 
 @pytest.fixture(scope="module")
@@ -485,7 +586,7 @@ def test_sharded_parameters_split_over_every_mesh_axis(gloo, mesh_name):
     would cross the network tier; it carries the batch); on (1, 4) wk / wv
     split 16 columns into 4-column blocks, half of an 8-wide head."""
     _, meta, *_ = gloo
-    specs = meta[f"{mesh_name}/1"]["specs"]
+    specs = meta[f"train/{mesh_name}/1"]["specs"]
     used = {a for s in specs.values() for e in s for a in e}
     shape, axes = MESHES[mesh_name]
     assert {a for a, n in zip(axes, shape) if n > 1 and a != "pod"} <= used
@@ -503,6 +604,9 @@ def test_sharded_prefill_and_decode_match_unsharded(gloo, mesh_name):
 
 
 def test_kernel_boundary_runs_local_shards(gloo):
+    """K7, K5 and K6 on DTensor operands run on each device's shards and
+    agree with the plain tensors; a split that the kernel cannot take (K7's
+    normalized dim, a cut head for K6) is refused before launch."""
     ranks, *_ = gloo
     for r in range(WORLD):
         b = {k[9:]: float(v) for k, v in ranks[r].items()
@@ -511,6 +615,10 @@ def test_kernel_boundary_runs_local_shards(gloo):
         assert b["rms_gw"] <= 1e-6      # a partial sum over the split rows
         assert b["rms_placements"] == 1 and b["rms_split_refused"] == 1
         assert b["flash"] <= 1e-6
+        # K6 on each device's rows and heads: the same scan per head
+        assert b["ssd_y"] <= 1e-6 and b["ssd_state"] <= 1e-6
+        assert b["ssd_grads"] <= 1e-5     # partial sums over heads / rows
+        assert b["ssd_placements"] == 1 and b["ssd_split_refused"] == 1
 
 
 def test_bits8_moments_on_split_rows_match_unsharded(gloo):
@@ -521,9 +629,9 @@ def test_bits8_moments_on_split_rows_match_unsharded(gloo):
     quantization step."""
     ranks, *_ = gloo
     for r in range(WORLD):
-        assert float(ranks[r]["bits8_scale_gap"]) <= 1e-5
-        assert float(ranks[r]["bits8_deq_steps"]) <= 1.0
-        assert float(ranks[r]["bits8_scale_replicated"]) == 1
+        assert float(ranks[r]["bits8/bits8_scale_gap"]) <= 1e-5
+        assert float(ranks[r]["bits8/bits8_deq_steps"]) <= 1.0
+        assert float(ranks[r]["bits8/bits8_scale_replicated"]) == 1
 
 
 @pytest.mark.parametrize("pods", [2, 4])
@@ -542,7 +650,7 @@ def test_compressed_psum_is_the_reference_bitwise(gloo, pods, shape_index):
                 quantize_blockwise(jnp.asarray(_psum_input(w, shape))),
                 shape)
         want = np.asarray(total / len(members))
-        got = ranks[r][f"psum{pods}:{shape_index}"]
+        got = ranks[r][f"psum/psum{pods}:{shape_index}"]
         assert got.dtype == np.float32 and np.array_equal(got, want)
 
 

@@ -45,8 +45,14 @@ from repro_torch.train import optim  # noqa: E402
 
 MESHES = {"2x4": ({"data": 2, "model": 4}),
           "16x16": ({"data": 16, "model": 16}),
-          "2x16x16": ({"pod": 2, "data": 16, "model": 16})}
+          "2x16x16": ({"pod": 2, "data": 16, "model": 16}),
+          "2x2": ({"data": 2, "model": 2}),
+          "1x4": ({"data": 1, "model": 4}),
+          "2x1x2": ({"pod": 2, "data": 1, "model": 2})}
 DENSE = ["olmo_1b", "granite_8b", "deepseek_coder_33b", "qwen3_32b"]
+MOE = ["arctic_480b", "grok_1_314b"]
+# every registry arch: the dense four first, as their cases were named
+ARCHS = DENSE + [a for a in registry.ARCH_IDS if a not in DENSE]
 LOGICAL = [("batch", "seq", None), ("batch", None, "vocab"),
            ("batch", None, "heads", None), ("batch", None, "kv_heads", None),
            (None, "ff"), ("vocab", None), ("layers", "embed", "inner"),
@@ -147,15 +153,27 @@ def test_fsdp_leaf_spec_gap_is_where_the_stacked_size_decides():
 
 
 def _ref_leaf(tree, name: str):
-    """The reference's spec (or shape) of the port's parameter ``name``,
-    without its layer entry where the reference stacks the layers."""
+    """The reference's spec (or shape) of the port's parameter ``name``
+    and whether the reference stacks it over its layers (a name whose
+    second part is a layer index: ``blocks.3.attn.wq``, ``cross.0.gate``,
+    ``encoder.1.mlp.wi``)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        node = tree["blocks"]
-        for p in parts[2:]:
-            node = node[p]
-        return node, True
-    return tree[parts[0]], False
+    stacked = len(parts) > 1 and parts[1].isdigit()
+    node = tree[parts[0]]
+    for p in parts[2 if stacked else 1:]:
+        node = node[p]
+    return node, stacked
+
+
+def _cache_leaves(tree, prefix: str = "") -> dict:
+    """A cache of specs (nested dataclasses) → path → spec."""
+    if not dataclasses.is_dataclass(tree):
+        return {prefix: tree}
+    out = {}
+    for f in dataclasses.fields(tree):
+        out.update(_cache_leaves(getattr(tree, f.name),
+                                 f"{prefix}.{f.name}".lstrip(".")))
+    return out
 
 
 def _models(arch: str, smoke: bool):
@@ -168,12 +186,36 @@ def _models(arch: str, smoke: bool):
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("arch, smoke", [(a, False) for a in DENSE]
+@pytest.mark.parametrize("arch, smoke", [(a, False) for a in ARCHS]
                          + [("granite_8b", True)])
 def test_param_cache_and_fsdp_specs_match_reference(ambient, mesh_name, arch,
                                                     smoke):
     mesh = ambient(mesh_name)
     cfg, ref, port = _models(arch, smoke)
+    _specs_match_reference(mesh, ref, port)
+
+
+@pytest.mark.parametrize("mesh_name", ["2x4", "16x16", "2x2", "2x1x2"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_specs_with_experts_over_data_match_reference(ambient, mesh_name,
+                                                          arch):
+    """The expert-parallel-over-data variant (``moe_ep=data``: the
+    ``experts`` rule on ``data``): E over data, d_ff over model where E
+    divides the data axis, else the FFN split; specs, FSDP and moments as
+    the reference's under the same rules."""
+    mesh = ambient(mesh_name)
+    _, ref, port = _models(arch, False)
+    ref_rules = jax_sharding.axis_rules()
+    jax_sharding.set_axis_rules(jax_sharding.AxisRules(
+        {**ref_rules.rules, "experts": "data"}))
+    try:
+        with sharding.rules_override(experts="data"):
+            _specs_match_reference(mesh, ref, port)
+    finally:
+        jax_sharding.set_axis_rules(ref_rules)
+
+
+def _specs_match_reference(mesh, ref, port):
     ref_specs = ref.param_specs()
     ref_shapes = jax.eval_shape(ref.init_params, jax.random.PRNGKey(0))
     ref_fsdp = jax_shardings.fsdp_specs(ref_specs, ref_shapes, mesh)
@@ -189,8 +231,11 @@ def test_param_cache_and_fsdp_specs_match_reference(ambient, mesh_name, arch,
         cut = 1 if stacked else 0
         assert _t(specs[name]) == _t(want)[cut:], name
         assert _t(fsdp[name]) == _t(want_f)[cut:], name
-    ref_cache = ref.cache_specs()
-    assert _t(cache.k) == _t(ref_cache.k) and _t(cache.v) == _t(ref_cache.v)
+    got_cache, want_cache = (_cache_leaves(cache),
+                             _cache_leaves(ref.cache_specs()))
+    assert set(got_cache) == set(want_cache)
+    for path, spec in got_cache.items():
+        assert _t(spec) == _t(want_cache[path]), path
     for bits8 in (False, True):
         ocfg = optim.AdamWConfig(bits8=bits8)
         got = optim.opt_state_specs(fsdp, ocfg)
@@ -287,6 +332,43 @@ def test_autoshard_matches_reference_with_its_constants(monkeypatch, size,
         assert ca.step_time_s == cb.step_time_s
 
 
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("pods", [1, 2])
+def test_autoshard_moe_branch_matches_reference_on_an_moe_cell(monkeypatch,
+                                                               arch, pods):
+    """The MoE branch (only top-k experts active, the token all-to-all) on
+    the dry run's MoE cell (the config's sizes at train_4k on 256 or 512
+    devices), as the dry run calls it: every candidate's terms and the
+    choice as the reference's, with its constants."""
+    for name in ("PEAK_BF16_TFLOPS", "HBM_GBPS", "ICI_GBPS", "DCI_GBPS"):
+        monkeypatch.setattr(autoshard, name, getattr(jax_autoshard, name))
+    cfg = get_config(arch)
+    shape = registry.SHAPES["train_4k"]
+    kw = dict(n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+              vocab=cfg.vocab, seq=shape.seq_len,
+              global_batch=shape.global_batch,
+              n_params=float(registry_params(arch)),
+              moe_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+              param_bytes=float(cfg.pdtype.itemsize))
+    chips = 256 * pods
+    for layout in autoshard.candidate_layouts(chips, pods):
+        got = autoshard.estimate_layout(layout, **kw)
+        want = jax_autoshard.estimate_layout(
+            jax_autoshard.Layout(*dataclasses.astuple(layout)), **kw)
+        assert [getattr(got, f) for f in FIELDS] == \
+            [getattr(want, f) for f in FIELDS]
+    ca = autoshard.choose_layout(chips, pods, **kw)
+    cb = jax_autoshard.choose_layout(chips, pods, **kw)
+    assert dataclasses.astuple(ca.layout) == dataclasses.astuple(cb.layout)
+    dense = autoshard.choose_layout(chips, pods, **{**kw, "moe_experts": 0})
+    assert ca.compute_s < dense.compute_s       # only top-k experts active
+
+
+def registry_params(arch: str) -> float:
+    from repro_torch.models.api import count_params
+    return count_params(get_config(arch))[0]
+
+
 def test_autoshard_on_h100_constants_prices_the_network_tier():
     """The reference test's cells (33 B dense on 256 devices, one and two
     pods) with the H100 constants.  Its multi-pod assertions hold: only the
@@ -369,18 +451,33 @@ def test_dryrun_variants_defaults_and_left_out_items():
     assert v["overrides"] == {"remat": "dots"}
     assert (v["microbatches"], v["fsdp_embed"], v["seq_shard"]) == (
         4, False, False)
-    for item in ("moe_ep=data", "moe_group=64", "unroll", "scan"):
+    # the MoE levers, parsed as the reference parses them
+    m = dryrun.parse_variant("moe_ep=data,moe_group=64", train, 480e9)
+    assert m["rules"] == {"experts": "data"}
+    assert m["overrides"] == {"moe_group_size": 64}
+    for item in ("unroll", "scan"):
         with pytest.raises(ValueError, match="left out"):
             dryrun.parse_variant(item, train, 8.1e9)
     with pytest.raises(ValueError, match="unknown"):
         dryrun.parse_variant("bogus", train, 8.1e9)
 
 
-def test_non_dense_families_name_the_second_half():
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in DENSE])
+def test_non_dense_families_name_the_second_half(arch):
+    """Every family other than dense has the specs of A13d's second half:
+    one spec per parameter and per cache leaf, as many entries as the
+    tensor has dims, none raising."""
     with without_data():
-        moe = build_model(get_smoke_config("arctic_480b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13d"):
-        moe.param_specs()
+        model = build_model(get_smoke_config(arch), device="cpu")
+    with use_mesh(_mesh("2x4")):
+        specs = model.param_specs()
+        cache = model.cache_specs()
+    params = dict(model.named_parameters())
+    assert set(specs) == set(params)
+    for name, p in params.items():
+        assert len(specs[name]) <= p.dim(), name
+    assert all(isinstance(v, sharding.P)
+               for v in _cache_leaves(cache).values())
 
 
 def test_named_shardings_keep_the_tree_and_lay_out_each_spec():
