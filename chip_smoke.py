@@ -11,7 +11,8 @@ Phases, each raising on a failed check:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every ``src/repro_torch/kernels/csrc/*.cu`` (``edge_latency.cu``,
-   ``flash_attention.cu``, ``ssd_scan.cu``, ``rmsnorm.cu``) compiled with
+   ``flash_attention.cu``, ``ssd_scan.cu``, ``ssd_scan_bwd.cu``,
+   ``rmsnorm.cu``) compiled with
    ``nvcc`` for ``sm_90a``, all in parallel; per kernel its ptxas
    registers and spills and, from ``cuobjdump -sass``, its tensor-core
    instructions and warpgroup syncs;
@@ -115,6 +116,16 @@ bitwise equal.
    times at the serving shapes, and
    ``torch.nn.functional.rms_norm`` for K7 (timed as a yardstick only,
    never called by the port; there is no single PyTorch call for the scan);
+7b. ssd_bwd: K6's backward (``csrc/ssd_scan_bwd.cu``) against its plain
+   version (``ref.ssd_scan_bwd_plain``) on model-like operands: float32
+   against the float64 plain version at ≤1e-5, bfloat16 against the plain
+   version in float32 math at ≤1e-2, each of dx, dB, dC, ddt, dA, dD
+   norm-wise; at Mamba2-1.3B's and Zamba2-1.2B's training shapes (4 ×
+   2048, 64 heads of 64, N 128 / 64, chunk 256), a ragged L, one chunk and
+   the smoke widths, on both routes; bitwise on repeat, one launch of each
+   of its four passes a call, a planted fault (dy one row late) failing;
+   ms, the device alone, the forward's ms, plain ms and the bound at the
+   training shapes (no single PyTorch call computes it);
 8. lm_score_mamba2: the job of phase 6 with Mamba2-1.3B at its published
    widths (48 layers, d 2048, d_inner 4096, 64 SSM heads of 64, state 128,
    chunk 256, vocab 50432 padded; seeded random weights made on the card)
@@ -265,15 +276,19 @@ bitwise equal.
    float64 plain version, bf16 dx one bf16 ulp of the plain version, dw
    ≤1e-4, bitwise on repeat) and timed beside ``F.rms_norm``'s backward
    and its bound; step 1's loss, global and per-parameter gradient norms
-   against the plain K7 route over 2 layers and the cut depth (≤1e-2 or
-   the plain route's own bf16 error), a planted backward fault (dw × 2)
+   against the plain K6/K7 route over 2 layers and the cut depth (≤1e-2
+   or the plain route's own bf16 error), a planted backward fault (dw × 2)
    failing both; every step's launches (K7 2L+1 + 2L recomputed, its
    backward 2L+1, no K5 or K6); tokens/s, the model-FLOPs share of the
    bf16 peak, peak memory (under 90 % of the card's), the AdamW update's
-   share, the profile of one step; K5 and K6 under grad and
-   ``run_training`` on the flash route raise; granite's smoke config
-   dies at step 6 and resumes from 5 to the uninterrupted run's
-   parameters.
+   share, the profile of one step; K5 under grad and ``run_training`` on
+   the flash route raise, K6 under grad differentiates through one launch
+   of its backward; granite's smoke config dies at step 6 and resumes
+   from 5 to the uninterrupted run's parameters.  Then Mamba2-1.3B (48
+   layers) and Zamba2-1.2B (38) whole at their published widths, the same
+   checks and measures (no resumption): K6 2 × its layers a step (one
+   recomputed) and its backward once a layer, K7 and its backward, a
+   second planted fault (K6's dB × 2).
 16c. lm_mesh: the mesh planner (ROADMAP A13d) on Granite-8B
    at its published widths cut to 4 of 36 layers, on a one-card ("data",
    "model") (1, 1) ``DeviceMesh`` over a world-size-1 ``nccl`` group
@@ -290,14 +305,16 @@ bitwise equal.
    memory, and the prefill's and a decode step's ms; every compared value
    **bitwise** the unsharded route's.  Then the second half
    (``MESH_FAMILIES``), each held bitwise against its unsharded route with
-   launches equal: Mamba2-1.3B whole (prefill + decode and a 4 × 2048
-   scoring forward: K6 on each device's heads, K7), Grok-1 at its
+   launches equal: Mamba2-1.3B whole (prefill + decode, a 4 × 2048
+   scoring forward and 3 AdamW steps: K6 and its backward on each
+   device's heads, K7 and its backward), Grok-1 at its
    published widths cut to 1 of 64 layers (step 1's forward and backward
    of 2 × 512 tokens: K7 and its backward; prefill + decode; 2 AdamW
    steps with 8-bit moments on the expert leaves, one route after the
-   other), Zamba2-1.2B and Whisper-large-v3 whole and
-   Llama-3.2-Vision-11B at 24 of 40 layers (prefill + decode with their
-   image / frame inputs), each phase's wall under 60 s; the sharded
+   other), Zamba2-1.2B whole (prefill + decode and 3 AdamW steps),
+   Whisper-large-v3 whole and Llama-3.2-Vision-11B at 24 of 40 layers
+   (prefill + decode with their image / frame inputs, each phase's wall
+   under 60 s); the sharded
    route's launches by family and run are printed.
 16d. mesh_dryrun: ``python -m repro_torch.launch.dryrun --arch granite-8b
    --shape train_4k --mesh single --layers 18`` and ``--arch arctic-480b
@@ -384,7 +401,8 @@ SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-           "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
+           "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"}
 REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
             "edge_latency_structured": "src/repro/kernels/edge_latency.py:246",
             "edge_latency_dense_single_tile":
@@ -396,7 +414,10 @@ REPLACES = {"edge_latency_dense": "src/repro/kernels/edge_latency.py:160",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:30",
             # K7's gradient: the Pallas kernel has none (JAX cannot
             # differentiate it; the reference trains through rms_norm)
-            "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:30"}
+            "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:30",
+            # K6's gradient: the Pallas kernel has none either (the
+            # reference trains through jax.grad of ssd_chunked)
+            "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:70"}
 # K5 cases: the tests/test_kernels.py shapes and ragged S, (B, S, H, D)
 ATTN_SHAPES = [(1, 128, 1, 64), (2, 128, 4, 64), (1, 256, 2, 128),
                (2, 96, 3, 32), (1, 384, 2, 64), (1, 100, 2, 64),
@@ -417,6 +438,21 @@ SSD_CASES = [(2, 64, 8, 16, 16, 16), (1, 128, 4, 32, 8, 16),
 # where states older than one chunk carry a large share of y: 8 chunks at
 # the model's P, N, chunk, and a ragged L
 SSD_SLOW_CASES = [(1, 2048, 4, 64, 128, 256), (2, 1900, 3, 64, 128, 256)]
+# K6's backward against its plain version, (b, L, H, P, N, chunk, dtype):
+# Mamba2-1.3B's training shape (4 x 2048, 64 heads of 64, N 128, chunk 256)
+# and Zamba2-1.2B's (N 64), a ragged L, one chunk (L < chunk and L = chunk)
+# and the smoke widths, on both routes; the first two and the float32 one
+# at the model's widths are timed (SSD_BWD_TIMED)
+SSD_BWD_CASES = [(4, 2048, 64, 64, 128, 256, "bfloat16"),
+                 (4, 2048, 64, 64, 64, 256, "bfloat16"),
+                 (2, 1900, 6, 64, 128, 256, "bfloat16"),
+                 (2, 200, 5, 64, 128, 256, "bfloat16"),
+                 (2, 20, 5, 8, 16, 8, "bfloat16"),
+                 (1, 2048, 8, 64, 128, 256, "float32"),
+                 (2, 1900, 6, 64, 128, 256, "float32"),
+                 (2, 256, 5, 64, 64, 256, "float32"),
+                 (2, 20, 5, 8, 16, 8, "float32")]
+SSD_BWD_TIMED = (0, 1, 5)
 # the operand roundings K6's tensor-core route could take (emulated)
 SSD_CANDIDATES = ("bf16", "bf16_hilo", "tf32")
 # K6's chunk-parallel grid at the serving shape: at least this many CTAs
@@ -523,6 +559,12 @@ TRAIN_STRICT_LAYERS = 2
 TRAIN_MASK_SCAN = 1000    # batches scanned for the first with a masked row
 TRAIN_MEM_SHARE = 0.9     # the cut's measured peak stays under this share
 RESUME_STEPS, RESUME_EVERY, RESUME_DIE = 10, 5, 6
+# the sixteenth slice: K6's backward, so the Mamba2 and hybrid families
+# train on the card.  Mamba2-1.3B (48 layers) and Zamba2-1.2B (38) whole at
+# their published widths: 16 B a float32 parameter for the parameter, its
+# gradient and two AdamW moments is ≈ 21-23 GB, so no depth cut; the same
+# 4 x 2048 tokens a step and 8 steps as Granite's cut
+TRAIN_SSM_ARCHS = ("mamba2_1_3b", "zamba2_1_2b")
 RESUME_BATCH, RESUME_SEQ = 2, 64
 # K7's backward against its plain version: dw (float32, a sum over rows)
 DW_REL = 1e-4
@@ -544,8 +586,8 @@ DRYRUN_TIMEOUT = 900.0    # the child is killed past this
 # the fifteenth slice: the mesh planner's second half on the same (1, 1)
 # mesh, each family held bitwise against its unsharded route with launches
 # equal: (arch, layers kept or None, what runs).  Mamba2-1.3B whole: a
-# scoring forward, prefill and decode (K6 and K7 on local shards; no
-# training: K6 has no backward on the card, ROADMAP B2).  Grok-1 at its
+# scoring forward, prefill and decode (K6 and K7 on local shards) and
+# AdamW steps (K6's and K7's backward on local shards).  Grok-1 at its
 # published widths cut to 1 of 64 layers: its experts are 9.7 GB of bf16 a
 # layer, and step 1's gradients hold two copies (13.1 GB each with the
 # embedding and the head) and both routes' bf16 gradients; at 2 layers
@@ -553,13 +595,13 @@ DRYRUN_TIMEOUT = 900.0    # the child is killed past this
 # 8-bit moments on the expert leaves) run one route after the other, one
 # copy at a time: 8-bit AdamW on one 1.6e9-element expert leaf takes
 # ≈ 38 GB of float32 temporaries, which do not fit beside two copies.
-# Zamba2-1.2B and Whisper-large-v3 whole, Llama-3.2-Vision-11B cut to 24 of
-# 40 layers (two copies of 40 GB of float32 parameters do not fit; 24 take
-# ≈ 50 GB): prefill and decode, each phase's wall held under
-# MESH_FAMILY_WALL
-MESH_FAMILIES = (("mamba2_1_3b", None, ("serve", "score")),
+# Zamba2-1.2B whole: prefill, decode and AdamW steps.  Whisper-large-v3
+# whole, Llama-3.2-Vision-11B cut to 24 of 40 layers (two copies of 40 GB
+# of float32 parameters do not fit; 24 take ≈ 50 GB): prefill and decode,
+# each phase's wall held under MESH_FAMILY_WALL
+MESH_FAMILIES = (("mamba2_1_3b", None, ("serve", "score", "train")),
                  ("grok_1_314b", 1, ("grad", "serve", "train")),
-                 ("zamba2_1_2b", None, ("serve",)),
+                 ("zamba2_1_2b", None, ("serve", "train")),
                  ("llama_3_2_vision_11b", 24, ("serve",)),
                  ("whisper_large_v3", None, ("serve",)))
 MESH_MOE_BATCH, MESH_MOE_SEQ, MESH_MOE_STEPS = 2, 512, 2
@@ -1548,24 +1590,23 @@ def expected_launches(cfg, mode: str = "forward") -> dict[str, int]:
     norms, qk-norms, Mamba2's gate norms, the shared block's two norms per
     site, a VLM's cross-block norms, the audio model's three norms a
     decoder layer and — outside a decode step — its encoder's two a layer
-    and ``enc_norm``.  ``mode`` "train" is one training step (the dense,
-    MoE, VLM and audio families; K6 has no backward on the card): every
-    forward K7 launch, again for each norm inside a recomputed block
-    (``cfg.remat`` "full" or "dots": all but the final norm, the VLM's
-    cross norms and the encoder's ``enc_norm``), one K7 backward per
-    forward norm, and no K5 or K6 (training takes the reference
-    attention)."""
+    and ``enc_norm``.  ``mode`` "train" is one training step: every
+    forward K6 and K7 launch, again for each inside a recomputed block
+    (``cfg.remat`` "full" or "dots": every Mamba2 layer's scan, and every
+    norm but the final norm, the VLM's cross norms and the encoder's
+    ``enc_norm``), one K6 backward per forward scan, one K7 backward per
+    forward norm, and no K5 (training takes the reference attention)."""
     if mode == "train":
-        if cfg.family in ("ssm", "hybrid"):
-            raise ValueError(f"{cfg.name}: K6 has no backward on the card "
-                             f"(ROADMAP B2)")
         fwd = expected_launches(cfg.replace(attention_impl="reference"))
         outside = (cfg.norm_type == "rmsnorm") * (
             2 if cfg.family == "audio" else 1 + (
                 -(-cfg.n_layers // cfg.cross_attn_every)
                 if cfg.family == "vlm" else 0))
         again = 0 if cfg.remat == "none" else fwd["rmsnorm"] - outside
-        return {"flash_attention": 0, "ssd_scan": 0,
+        scan = fwd.get("ssd_scan", 0)
+        return {"flash_attention": 0,
+                "ssd_scan": scan * (1 if cfg.remat == "none" else 2),
+                "ssd_scan_bwd": scan,
                 "rmsnorm": fwd["rmsnorm"] + again,
                 "rmsnorm_bwd": fwd["rmsnorm"]}
     L, rms = cfg.n_layers, cfg.norm_type == "rmsnorm"
@@ -1588,8 +1629,8 @@ def expected_launches(cfg, mode: str = "forward") -> dict[str, int]:
             + (2 * L if cfg.qk_norm else 0)}
 
 
-# the LM kernels a forward, a prefill or a decode step can launch (K7's
-# backward runs only in training)
+# the LM kernels a forward, a prefill or a decode step can launch (K6's
+# and K7's backward run only in training)
 LM_FORWARD_KERNELS = ("flash_attention", "ssd_scan", "rmsnorm")
 
 
@@ -1610,25 +1651,26 @@ def reset_lm_launches() -> None:
 
 
 @contextlib.contextmanager
-def swapped_ssm_kernels(ssd=None, rms=None, rms_bwd=None):
-    """K6, K7 and K7's backward swapped for ``ssd``, ``rms`` and
-    ``rms_bwd`` (by default their plain versions, uncounted) inside the
-    block, restored after it."""
+def swapped_ssm_kernels(ssd=None, rms=None, rms_bwd=None, ssd_bwd=None):
+    """K6, K7, K7's backward and K6's backward swapped for ``ssd``,
+    ``rms``, ``rms_bwd`` and ``ssd_bwd`` (by default their plain versions,
+    uncounted) inside the block, restored after it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as sk
-    saved = sk.ssd_scan, rk.rmsnorm, rk.rmsnorm_bwd
+    saved = sk.ssd_scan, sk.ssd_scan_bwd, rk.rmsnorm, rk.rmsnorm_bwd
     sk.ssd_scan = ssd or ref.ssd_scan_plain
+    sk.ssd_scan_bwd = ssd_bwd or ref.ssd_scan_bwd_plain
     rk.rmsnorm = rms or ref.rmsnorm_plain
     rk.rmsnorm_bwd = rms_bwd or ref.rmsnorm_bwd_plain
     try:
         yield
     finally:
-        sk.ssd_scan, rk.rmsnorm, rk.rmsnorm_bwd = saved
+        sk.ssd_scan, sk.ssd_scan_bwd, rk.rmsnorm, rk.rmsnorm_bwd = saved
 
 
 def plain_ssm_kernels():
-    """K6, K7 and K7's backward swapped for their plain versions
+    """K6, K7 and their backward swapped for their plain versions
     (uncounted) inside the block, restored after it."""
     return swapped_ssm_kernels()
 
@@ -3023,6 +3065,100 @@ def ssd_final_state_phase(torch, dev, shapes) -> dict:
     return worst
 
 
+def norm_rel(got, want) -> float:
+    """‖got − want‖ / ‖want‖ over all elements, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES,
+                  timed=SSD_BWD_TIMED) -> dict:
+    """K6's backward (``ssd_scan_bwd``) against its plain version
+    (``ref.ssd_scan_bwd_plain``) on the model's operands (x, B and C views
+    of one conv output, Mamba2's decays) and a standard normal dy: float32
+    against the float64 plain version within ``REL``, bfloat16 against the
+    plain version in float32 math within ``LM_REF_REL``, each of the six
+    gradients norm-wise (dA and ddt sum terms that largely cancel); every
+    gradient finite, bitwise on repeat, one launch of each pass a call.  A
+    planted fault — dy read one row late (rolled by a row) — must fail the
+    bar.  At the ``timed`` cases: ms (median of single calls between CUDA
+    events), the device time of its kernels alone, the forward's ms, the
+    plain version's ms and the bound (``roofline.ssd_scan_bwd_terms``).
+    Returns the kernel line's record for the first case (Mamba2-1.3B's
+    training shape)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.perf.roofline import ssd_scan_bwd_terms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    names = ("dx", "dB", "dC", "ddt", "dA", "dD")
+    record = None
+    for i, (b, L, H, P, N, Q, dname) in enumerate(cases):
+        dtype = getattr(torch, dname)
+        ops = ssd_operands(torch, gen, dev, b, L, H, P, N, dtype,
+                           model_like=True)
+        dy = torch.randn((b, L, H, P), generator=gen, device=dev).to(dtype)
+        what = f"ssd_scan_bwd {(b, L, H, P, N, Q)} {dname}"
+        before, n0 = dict(sk.route_launches), sk.launches["ssd_scan_bwd"]
+        got = sk.ssd_scan_bwd(*ops, dy, Q)
+        again = sk.ssd_scan_bwd(*ops, dy, Q)
+        sync(torch, dev)
+        passes = [sk.route_launches[p] - before[p] for p in sk.BWD_PASSES]
+        check(sk.launches["ssd_scan_bwd"] - n0 == 2
+              and passes == [2] * len(passes),
+              f"{what}: launches {sk.launches['ssd_scan_bwd'] - n0}, "
+              f"passes {passes}")
+        f32 = dtype == torch.float32
+        if f32:
+            want = ref.ssd_scan_bwd_plain(*(t.double() for t in ops),
+                                          dy.double(), Q)
+        else:
+            want = ref.ssd_scan_bwd_plain(*ops, dy, Q)
+        bar = REL if f32 else LM_REF_REL
+        rels = {n: norm_rel(g, w) for n, g, w in zip(names, got, want)}
+        worst = max(rels.values())
+        bitwise = all(torch.equal(a, g) for a, g in zip(again, got))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        check([g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 3
+              and all(g.shape == w.shape for g, w in zip(got, want)),
+              f"{what}: dtypes {[g.dtype for g in got]} or shapes differ")
+        check(finite, f"{what}: a gradient is not finite")
+        check(worst <= bar, f"{what}: norm-wise {rels} over {bar}")
+        check(bitwise, f"{what}: not bitwise on repeat")
+        planted = max(norm_rel(g, w) for g, w in zip(
+            sk.ssd_scan_bwd(*ops, dy.roll(1, 1), Q), want))
+        check(planted > bar, f"{what}: the planted fault (dy one row late) "
+                             f"passes ({planted:.3e} <= {bar})")
+        abs_err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got, want))
+        line = (f"{what}: " + ", ".join(f"{n} {v:.2e}" for n, v in
+                                         rels.items())
+                + f" (norm-wise, bar {bar:g}; max abs {abs_err:.3e}); "
+                f"bitwise on repeat; planted fault {planted:.3e}")
+        if i in timed:
+            def call():
+                return sk.ssd_scan_bwd(*ops, dy, Q)
+            ms = time_ms(call, 10)
+            alone = kernel_device_ms(torch, call, 10, "ssd_bwd")
+            fwd_ms = time_ms(lambda: sk.ssd_scan(*ops, Q), 10)
+            plain_ms = time_ms(lambda: ref.ssd_scan_bwd_plain(*ops, dy, Q),
+                               3)
+            terms = ssd_scan_bwd_terms(b, L, H, P, N, Q, dtype)
+            line += (f"; {ms:.4f} ms (the device alone {alone:.4f}; the "
+                     f"forward {fwd_ms:.4f}), plain {plain_ms:.3f} ms, bound "
+                     f"{terms.step_time_s * 1e3:.4f} ms by {terms.bound_by} "
+                     f"({terms.flops:.3e} operations, {terms.bytes:.3e} "
+                     f"bytes), {terms.step_time_s * 1e3 / ms:.2%} of it")
+            if record is None:
+                record = {"max_abs_err": abs_err, "ms": ms,
+                          "device_ms": alone, "plain_ms": plain_ms,
+                          "bound_ms": terms.step_time_s * 1e3,
+                          "bound_by": terms.bound_by, "library_ms": None,
+                          "rel": worst}
+        print(line)
+        del ops, dy, got, again, want
+    return {"ssd_scan_bwd": record}
+
+
 def pg_problems(np, graph, per_region: int):
     """The paper's worked example with its capacity coupling, and phase
     9's DAG on a random_fleet of 8 regions × ``per_region`` with phase 9's
@@ -3605,6 +3741,14 @@ def dw_doubled(x, w, g, eps=1e-6):
     return dx, 2 * dw
 
 
+def db_doubled(x, B, C, dt, A, D, dy, chunk):
+    """The planted fault of K6's backward: the plain backward with dB
+    scaled by 2."""
+    from repro_torch.kernels import ref
+    dx, dB, *rest = ref.ssd_scan_bwd_plain(x, B, C, dt, A, D, dy, chunk)
+    return (dx, 2 * dB, *rest)
+
+
 def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
                    seq: int = TRAIN_SEQ, n_steps: int = TRAIN_STEPS,
                    resume_cfg=None,
@@ -3621,18 +3765,20 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
     (2) K7's backward held on the operands that step hands it
     (:func:`hold_rmsnorm_bwd`, timed); (3) step 1 over the first
     ``TRAIN_STRICT_LAYERS`` layers and at the cut depth against the plain route
-    (K7 and its backward swapped for their plain versions): loss, global
-    gradient norm and every parameter's gradient norm within
+    (K6, K7 and their backward swapped for their plain versions): loss,
+    global gradient norm and every parameter's gradient norm within
     ``LM_REF_REL`` or, where larger, the plain route's own bf16 error
-    against float32 activations; the planted backward fault
-    (:func:`dw_doubled`) must fail both; (4) ``n_steps`` steps of AdamW
+    against float32 activations; the planted backward faults
+    (:func:`dw_doubled`, and for Mamba2 layers :func:`db_doubled`) must
+    fail both; (4) ``n_steps`` steps of AdamW
     (float32 moments, lr ``TRAIN_LR``), each step's launches equal to
     ``expected_launches(cfg, "train")``, the losses finite, tokens/s, the
     model-FLOPs share of the bf16 peak (``analytic_flops(cfg, seq,
     batch, "train")``), peak memory under ``TRAIN_MEM_SHARE`` of the
     card's, the AdamW update's share of a step and the profile of one more
-    step; (5) K5 and K6 under grad and ``run_training`` on the flash route
-    raise; (6) ``resume_cfg`` (granite's smoke config) dies at step
+    step; (5) K5 under grad and ``run_training`` on the flash route raise,
+    and K6 under grad differentiates through its backward (one launch);
+    (6) ``resume_cfg`` (granite's smoke config) dies at step
     ``RESUME_DIE`` and resumes from ``RESUME_EVERY``: its final parameters
     against an uninterrupted run's, bitwise where the path is
     deterministic, else within 1e-5 (the reference test's bar)."""
@@ -3713,14 +3859,21 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
                 exact = grad_summary(torch, gf, data[0])
             finally:
                 model.cfg = saved
-        with plain_route(model, kernels=False), \
-                swapped_ssm_kernels(rms_bwd=dw_doubled):
-            planted = grad_summary(torch, gf, data[0])
+        faults = {"dw x 2": dict(rms_bwd=dw_doubled)}
+        if ssm:
+            faults["dB x 2"] = dict(ssd_bwd=db_doubled)
+        planted = {}
+        for name, swap in faults.items():
+            with plain_route(model, kernels=False), \
+                    swapped_ssm_kernels(**swap):
+                planted[name] = grad_distance(
+                    grad_summary(torch, gf, data[0]), plain)
         own = grad_distance(plain, exact)
         bar = max(LM_REF_REL, own)
         return {"rel": grad_distance(got, plain), "own": own, "bar": bar,
-                "planted": grad_distance(planted, plain)}
+                "planted": min(planted.values()), "faults": planted}
 
+    ssm = cfg.family in ("ssm", "hybrid")
     strict = min(TRAIN_STRICT_LAYERS, cfg.n_layers)
     with depth_cut(model, strict):
         first = against_plain()
@@ -3773,6 +3926,9 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
                 torch, lambda: train_step(opt_state, data[n_steps]),
                 {"K7": ("rmsnorm_kernel", "rmsnorm_rows"),
                  "K7 backward": ("rmsnorm_bwd", "rmsnorm_dw"),
+                 "K6 backward": ("ssd_bwd",),
+                 "K6": ("ssd_scan_states", "ssd_scan_pass",
+                        "ssd_scan_output", "ssd_scan_f32"),
                  "f32 GEMM": F32_GEMM, "bf16 GEMM": GEMM,
                  "casts/copies": ("copy", "memcpy", "cast")})
     finally:
@@ -3796,16 +3952,23 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
     if cuda:
         torch.cuda.empty_cache()
 
-    # (5) the routes without a backward refuse under grad
+    # (5) the route without a backward refuses under grad; K6 differentiates
     refused = []
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev,
                     requires_grad=True)
-    for name, call in (
-            ("K5", lambda: dispatch.flash_attention(q, q, q)),
-            ("K6", lambda: dispatch.ssd_scan(
-                q, q[..., 0, :16], q[..., 0, :16], q[..., 0].float(),
-                -torch.ones(2, device=dev), torch.ones(2, device=dev), 64))):
-        refused.append(refusal(phase, name, RuntimeError, call))
+    refused.append(refusal(phase, "K5", RuntimeError,
+                           lambda: dispatch.flash_attention(q, q, q)))
+    from repro_torch.kernels import ssd_scan as sk
+    n0 = sk.launches["ssd_scan_bwd"]
+    y6 = dispatch.ssd_scan(q, q[..., 0, :16], q[..., 0, :16],
+                           q[..., 0].float(), -torch.ones(2, device=dev),
+                           torch.ones(2, device=dev), 64)
+    y6.float().sum().backward()
+    k6_grad = y6.grad_fn is not None and q.grad is not None \
+        and sk.launches["ssd_scan_bwd"] - n0 == 1
+    check(k6_grad, f"{phase}: K6 under grad did not differentiate through "
+                   f"one launch of its backward")
+    del y6, q
     refused.append(refusal(
         phase, "run_training on the flash route", ValueError,
         lambda: run_training(cfg.replace(attention_impl="pallas",
@@ -3847,10 +4010,11 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
           f"loss-masked share {masked:.4f}")
     for name, r in ((f"first {strict} layers", first),
                     (f"{cfg.n_layers} layers", full)):
-        print(f"{phase}: step 1 vs the plain K7 route, {name}: rel "
+        print(f"{phase}: step 1 vs the plain K6/K7 route, {name}: rel "
               f"{r['rel']:.3e} (loss, global and per-parameter gradient "
               f"norms; bar {r['bar']:.3e}, the plain route's own bf16 error "
-              f"{r['own']:.3e}); planted fault (dw x 2) {r['planted']:.3e}")
+              f"{r['own']:.3e}); planted faults "
+              + ", ".join(f"({k}) {v:.3e}" for k, v in r["faults"].items()))
     print(f"{phase} [{card}]: {n_steps} steps of {batch} x {seq} tokens: "
           f"step {step_s * 1e3:.2f} ms (median of steps 2-{n_steps}), "
           f"{batch * seq / step_s:.1f} tokens/s, model-FLOPs share of the "
@@ -3862,7 +4026,8 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
           + f"; losses {', '.join(f'{v:.4f}' for v in losses)}; "
           f"walls {', '.join(f'{w:.3f}' for w in walls)} s")
     print(f"{phase} profile (one step) [{card}]: {prof}")
-    print(f"{phase}: refusals: " + "; ".join(refused))
+    print(f"{phase}: refusals: " + "; ".join(refused) + "; K6 under grad "
+          f"differentiates through one launch of its backward")
     if resume is not None:
         print(f"{phase}: {resume_cfg.name} died at step {RESUME_DIE}, "
               f"resumed from {RESUME_EVERY}: final parameters "
@@ -3873,7 +4038,7 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
             "launches_per_step": per_step[0], "launches": launched,
             "step_s": step_s, "tokens_per_s": batch * seq / step_s,
             "mfu": mfu, "peak": peak, "update_s": upd_s, "losses": losses,
-            "masked": masked, "refused": refused,
+            "masked": masked, "refused": refused, "k6_grad": k6_grad,
             "resume_bitwise": bool(resume and resume["bitwise"]),
             "planted_fails": all(not r["planted"] <= r["bar"]
                                  for r in (first, full))}
@@ -4975,6 +5140,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     report.update(ssm_kernels_phase(torch, dev, shard, LM_SEQ, ssm_cfg))
     torch.cuda.empty_cache()
+    report.update(ssd_bwd_phase(torch, dev))        # 7b. K6's backward
+    torch.cuda.empty_cache()
     ssm_dims = (ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
     ssd_final_state_phase(torch, dev, [(shard, LM_SEQ, *ssm_dims),
                                        (SERVE_BATCH, SERVE_PROMPT,
@@ -5049,7 +5216,7 @@ def main() -> int:
         lm_serve_phase(torch, np, dev, serve_cfg, cut)
     torch.cuda.empty_cache()
 
-    # -- 16b. the single-card trainer: K7 and its backward ------------------
+    # -- 16b. the single-card trainer: K6, K7 and their backward -----------
     from repro_torch.configs import get_smoke_config
     train_cfg = get_config(TRAIN_ARCH)
     whole = count_params(train_cfg)[0] * 16 / 2 ** 30
@@ -5063,6 +5230,12 @@ def main() -> int:
     report["rmsnorm_bwd"] = max(train["held"].values(),
                                 key=lambda r: r["rows"] * r["D"])
     torch.cuda.empty_cache()
+    # Mamba2-1.3B and Zamba2-1.2B whole: K6 and its backward, K7 and its
+    ssm_train = {}
+    for arch in TRAIN_SSM_ARCHS:
+        ssm_train[arch] = lm_train_phase(torch, np, dev, get_config(arch),
+                                         card=smi, cut=" (whole)")
+        torch.cuda.empty_cache()
 
     # -- 16c./16d. the mesh planner and its dry run ------------------------
     lm_mesh_phase(torch, np, dev,
@@ -5123,6 +5296,8 @@ def main() -> int:
                 "ssd_scan": ssm["kernel_launches"]["ssd_scan"],
                 "rmsnorm": ssm["kernel_launches"]["rmsnorm"],
                 "rmsnorm_bwd": train["launches"]["rmsnorm_bwd"],
+                "ssd_scan_bwd":
+                    ssm_train[SSM_ARCH]["launches"]["ssd_scan_bwd"],
                 **tile["launches"]}
     print(smi)
     print(json.dumps({"kernels": [

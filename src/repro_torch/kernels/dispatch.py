@@ -11,13 +11,15 @@ The rule is the tensors' device, nothing else:
 * any other device, or operands on different devices, raise.
 
 There is no coercion and no fallback: a CUDA tensor reaches the kernel or
-raises.  Gradients follow the same rule.  On the card K7 is the one kernel
-with a backward (:class:`~repro_torch.kernels.rmsnorm.RMSNormFunction`,
-taken when grad mode is on and an operand requires grad); every other
-card route raises in that case instead of returning a tensor without a
-``grad_fn``, naming the ROADMAP item that would give it a backward.  The
-plain routes on the CPU are ordinary autograd, as the reference trains
-through its plain functions.  Block sizes are fixed constants of the
+raises.  Gradients follow the same rule.  On the card K7 and K6 have a
+backward (:class:`~repro_torch.kernels.rmsnorm.RMSNormFunction`,
+:class:`~repro_torch.kernels.ssd_scan.SSDScanFunction`, taken when grad
+mode is on and an operand requires grad; K6's final state is not
+differentiated, and asking for it under grad raises); every other card
+route raises in that case instead of returning a tensor without a
+``grad_fn``, giving the reason (:data:`NO_BACKWARD`).  The plain routes on
+the CPU are ordinary autograd, as the reference trains through its plain
+functions.  Block sizes are fixed constants of the
 kernel sources.  Every decision is counted as
 ``kernels.dispatch.plans{kind, impl}`` in :mod:`repro_torch.obs` when the
 registry is enabled (kind ``dense``,
@@ -104,14 +106,13 @@ def _plan(kind: str, what: str, tensors) -> str:
     return impl
 
 
-# the ROADMAP item that would give each card route a backward
+# why each card route without a backward has none
 NO_BACKWARD = {
-    "flash_attention": "B2, K6's and K5's backward; train with "
+    "flash_attention": "the reference's Pallas kernel has no gradient either "
+                       "(ROADMAP B2, decided against): train with "
                        "attention_impl='reference', as the reference must",
-    "ssd_scan": "B2, K6's and K5's backward; the CPU route trains Mamba2 "
-                "through the plain scan, as the reference does",
     "edge_latency": "none: the reference never differentiates it, A9 "
-                    "differentiates the smoothed model instead",
+                    "differentiates the smoothed model instead (ROADMAP A9)",
 }
 
 
@@ -121,8 +122,8 @@ def _refuse_grad(kind: str, item: str, tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kind}: the CUDA kernel has no backward and would return a "
-            f"tensor without a grad_fn (ROADMAP {NO_BACKWARD[item]}); run "
-            f"under torch.no_grad() or on the CPU route")
+            f"tensor without a grad_fn ({NO_BACKWARD[item]}); run under "
+            f"torch.no_grad() or on the CPU route")
 
 
 def plan_edge_kernel(kind: str, *tensors: torch.Tensor) -> str:
@@ -352,15 +353,27 @@ def ssd_scan(x, B, C, dt, A, D, chunk: int, final_state: bool = False,
     """The Mamba2 SSD chunked scan → y (b, L, H, P) in x's dtype, or
     (y, final state (b, H, N, P) float32) with ``final_state`` or a
     ``state_out`` to write it into: K6 on the card, its plain version on
-    the CPU.  DTensor operands run on their local shards
-    (:func:`_sharded_ssd_scan`)."""
+    the CPU.  Under grad (grad mode on, an operand requiring grad) the
+    card route is K6's autograd function, the forward kernel and K6's
+    backward kernels for the gradient; the final state is not
+    differentiated there, so asking for it raises.  DTensor operands run
+    on their local shards (:func:`_sharded_ssd_scan`)."""
     if _is_dtensor(x, B, C, dt, A, D):
         return _sharded_ssd_scan(x, B, C, dt, A, D, chunk, final_state,
                                  state_out)
     into = {} if state_out is None else {"state_out": state_out}
     with kernel_scope("ssd_scan"):
         if _plan("ssd_scan", "SSD-scan", (x, B, C, dt, A, D)) == "cuda":
-            _refuse_grad("ssd_scan", "ssd_scan", (x, B, C, dt, A, D))
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, B, C, dt, A, D)):
+                if final_state or state_out is not None:
+                    raise RuntimeError(
+                        "ssd_scan: the final state (the prefill's cache) is "
+                        "not differentiated on the card: no training path "
+                        "differentiates it; run the prefill under "
+                        "torch.no_grad()")
+                return ssd_kernel.SSDScanFunction.apply(x, B, C, dt, A, D,
+                                                        chunk)
             return ssd_kernel.ssd_scan(x, B, C, dt, A, D, chunk, final_state,
                                        **into)
         return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state,

@@ -18,7 +18,13 @@
 * The SSD scan (:func:`ssd_scan_plain`): the chunked form of
   ``repro.models.mamba2.ssd_chunked`` (what ``_ssd_kernel`` computes),
   returning y, and on request the final state too.  Like the attention version it computes in float32, or in
-  float64 for float64 inputs.
+  float64 for float64 inputs.  Its decays are formed only on and below
+  the diagonal (:func:`_decay`), so autograd through it stays finite
+  where the reference's ``jax.grad`` is not (the reference exponentiates
+  every in-chunk difference before masking; above the diagonal they
+  overflow float32 at the published chunk of 256).  Its gradient
+  (:func:`ssd_scan_bwd_plain`) is written out by hand, chunk by chunk in
+  reverse, the function K6's backward kernel computes.
 
 The device policy sends CPU tensors here, and ``chip_smoke.py`` holds the
 CUDA kernels against these versions on the card (float64 for float32
@@ -34,7 +40,7 @@ __all__ = ["edge_latency_dense_plain", "edge_latency_structured_plain",
            "edge_latency_structured_single_tile_plain",
            "check_attention_operands", "flash_attention_plain",
            "rmsnorm_plain", "rmsnorm_bwd_plain", "check_ssd_operands",
-           "ssd_scan_plain"]
+           "ssd_scan_plain", "ssd_scan_bwd_plain"]
 
 # the reference kernel's mask value (repro.kernels.flash_attention.NEG_INF)
 # and the floor of its softmax denominator
@@ -175,6 +181,15 @@ def check_ssd_operands(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return b, L, H, P, N, max(min(chunk, L), 1)
 
 
+def _decay(cum: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``exp(cum_i − cum_j)`` (b, i, j, H) for j ≤ i and 0 above the
+    diagonal, where the difference is set to −inf before the exponential:
+    an exponential of the positive differences there would overflow, and
+    its gradient times the mask's zero would be NaN."""
+    diff = cum[:, :, None, :] - cum[:, None, :, :]
+    return torch.exp(diff.masked_fill(~mask[None, :, :, None], float("-inf")))
+
+
 def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                    dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
                    chunk: int, final_state: bool = False,
@@ -215,9 +230,7 @@ def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         cum = torch.cumsum(dt_c * A, dim=1)                   # (b, Q, H)
         total = cum[:, -1, :]                                 # (b, H)
         CB = torch.einsum("biN,bjN->bij", C_c.to(ct), B_c.to(ct))
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
-        M = CB[..., None] * torch.where(mask[None, :, :, None], decay,
-                                        0.0) * dt_c[:, None, :, :]
+        M = CB[..., None] * _decay(cum, mask) * dt_c[:, None, :, :]
         y = torch.einsum("bijh,bjhp->bihp", M, xf)
         y = y + torch.einsum("biN,bhNp->bihp", C_c.to(ct), S) \
             * torch.exp(cum)[..., None]
@@ -228,3 +241,103 @@ def ssd_scan_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, dim=1)[:, :L]
     return (y, S) if final_state else y
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                       dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor, chunk: int):
+    """The gradient of :func:`ssd_scan_plain`'s y against the upstream
+    gradient dy (b, L, H, P) → (dx, dB, dC, ddt, dA, dD), each in its
+    operand's dtype, written out by hand (the final state is not
+    differentiated).  Per chunk c, with a_j = dt_j·A, cum its in-chunk
+    cumsum, total = cum_{Q−1}, L_ij = exp(cum_i − cum_j) on and below the
+    diagonal, G = C·Bᵀ and S_c the state carried into the chunk:
+
+    * the states, forward: S_{c+1} = exp(total)·S_c + Σ_j w_j B_j ⊗ x_j
+      with w_j = exp(total − cum_j)·dt_j; their gradients, in reverse from
+      dS_n = 0: dS_c = exp(total)·dS_{c+1} + Σ_i exp(cum_i)·C_i ⊗ dy_i;
+    * dx_j = dt_j Σ_{i≥j} G_ij L_ij dy_i + w_j B_j·dS_{c+1} + D·dy_j;
+    * dG_ij = Σ_h L_ij dt_j (dy_i·x_j), so dC_i = Σ_j dG_ij B_j +
+      Σ_h exp(cum_i) S_c dy_i and dB_j = Σ_i dG_ij C_i + Σ_h w_j dS_{c+1} x_j
+      (B and C are shared by the heads);
+    * ddt_j: Σ_i G_ij L_ij (dy_i·x_j) + exp(total − cum_j)·(B_j·dS_{c+1}
+      x_j) + A·da_j, where da is the in-chunk reverse cumsum of dcum and
+      total's gradient joins dcum at the chunk's last row;
+    * dA = Σ dt_j·da_j and dD = Σ x·dy over batch and rows.
+
+    It computes in float32, or in float64 for float64 inputs, takes the
+    strided views and the ragged L :func:`ssd_scan_plain` takes (the
+    padded rows have dt 0, so they add nothing)."""
+    b, L, H, Pd, N, Q = check_ssd_operands(x, B, C, dt, A, D, chunk)
+    if tuple(dy.shape) != (b, L, H, Pd):
+        raise ValueError(f"dy {tuple(dy.shape)} must be y's shape "
+                         f"{(b, L, H, Pd)}")
+    ct = torch.promote_types(x.dtype, torch.float32)
+    n = -(-L // Q)
+    f = dict(dtype=ct, device=x.device)
+    dA = torch.zeros(H, **f)
+    dD = torch.zeros(H, **f)
+    if n == 0 or b == 0:
+        return (torch.zeros_like(x), torch.zeros_like(B), torch.zeros_like(C),
+                torch.zeros_like(dt), dA.to(A.dtype), dD.to(D.dtype))
+    pad = n * Q - L
+    ops = [x, B, C, dt, dy]
+    if pad:
+        ops = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+               for t in ops]
+    x, B, C, dt, dy = (t.to(ct) for t in ops)
+    Af, Df = A.to(ct), D.to(ct)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    rows = [slice(c * Q, (c + 1) * Q) for c in range(n)]
+    cums, states = [], []
+    S = torch.zeros((b, H, N, Pd), **f)
+    for r in rows:                       # the states carried into chunks
+        cum = torch.cumsum(dt[:, r] * Af, dim=1)               # (b, Q, H)
+        total = cum[:, -1]
+        cums.append(cum)
+        states.append(S)
+        w = torch.exp(total[:, None] - cum) * dt[:, r]
+        S = torch.exp(total)[..., None, None] * S + torch.einsum(
+            "bjN,bjh,bjhp->bhNp", B[:, r], w, x[:, r])
+    dx, dB, dC, ddt = (torch.empty_like(t) for t in (x, B, C, dt))
+    dS = torch.zeros((b, H, N, Pd), **f)                       # dS_{c+1}
+    for c in reversed(range(n)):
+        r, cum, S = rows[c], cums[c], states[c]
+        x_c, B_c, C_c, dt_c, dy_c = x[:, r], B[:, r], C[:, r], dt[:, r],             dy[:, r]
+        total = cum[:, -1]
+        Lm = _decay(cum, mask)                                 # (b, i, j, H)
+        dot = torch.einsum("bihp,bjhp->bijh", dy_c, x_c)
+        R = torch.einsum("biN,bjN->bij", C_c, B_c)[..., None] * Lm
+        RD = R * dot
+        dG = (Lm * dt_c[:, None] * dot).sum(-1)                # (b, i, j)
+        cols = RD.sum(1)                                       # (b, j, H)
+        dcum = (RD * dt_c[:, None]).sum(2) - dt_c * cols
+        g_dt = cols
+        g_x = torch.einsum("bijh,bihp->bjhp", R, dy_c) * dt_c[..., None]
+        g_C = torch.einsum("bij,bjN->biN", dG, B_c)
+        g_B = torch.einsum("bij,biN->bjN", dG, C_c)
+        e = torch.exp(cum)                                     # exp(cum_i)
+        W = torch.einsum("bihp,bhNp->bihN", dy_c, S)
+        g_C = g_C + torch.einsum("bih,bihN->biN", e, W)
+        dcum = dcum + e * torch.einsum("biN,bihN->bih", C_c, W)
+        decay = torch.exp(total[:, None] - cum)
+        w = decay * dt_c
+        V = torch.einsum("bjhp,bhNp->bjhN", x_c, dS)
+        g_x = g_x + w[..., None] * torch.einsum("bjN,bhNp->bjhp", B_c, dS)
+        g_B = g_B + torch.einsum("bjh,bjhN->bjN", w, V)
+        dw = torch.einsum("bjN,bjhN->bjh", B_c, V)
+        g_dt = g_dt + decay * dw
+        dcum = dcum - w * dw
+        dtotal = (w * dw).sum(1) + torch.exp(total) * (S * dS).sum((-2, -1))
+        dcum[:, -1] += dtotal
+        da = dcum.flip(1).cumsum(1).flip(1)
+        dx[:, r] = g_x + Df[:, None] * dy_c
+        dB[:, r], dC[:, r] = g_B, g_C
+        ddt[:, r] = g_dt + Af * da
+        dA = dA + (dt_c * da).sum((0, 1))
+        dD = dD + (x_c * dy_c).sum((0, 1, 3))
+        dS = torch.exp(total)[..., None, None] * dS + torch.einsum(
+            "bih,biN,bihp->bhNp", e, C_c, dy_c)
+    return (dx[:, :L].to(ops[0].dtype), dB[:, :L].to(ops[1].dtype),
+            dC[:, :L].to(ops[2].dtype), ddt[:, :L].to(ops[3].dtype),
+            dA.to(A.dtype), dD.to(D.dtype))

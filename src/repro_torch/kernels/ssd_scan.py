@@ -27,15 +27,32 @@ The route is the dtype, stated here and nowhere else:
   float32's 1e-5.  With the final state asked for it also updates the
   state after the last chunk and writes it.
 
+:func:`ssd_scan_bwd` is K6's gradient, kernels of their own in
+``csrc/ssd_scan_bwd.cu`` (the Pallas kernel has none: the reference trains
+through ``jax.grad`` of ``ssd_chunked``).  From x, B, C, dt, A, D and the
+upstream gradient dy of y it writes (dx, dB, dC, ddt, dA, dD), each in its
+operand's dtype, deterministically, in four passes on both dtypes
+(``route_launches`` counts each): ``"bwd_states"`` (the cumsums, the
+recomputed chunk states and each chunk's share of the state gradient),
+``"bwd_state_passing"``, ``"bwd_chunk"`` (every gradient of a chunk, per 4
+heads) and ``"bwd_reduce"`` (dB, dC over head blocks, dA, dD over chunks).
+:class:`SSDScanFunction` ties the two together for autograd: its forward
+launches :func:`ssd_scan` and saves the operands, its backward launches
+:func:`ssd_scan_bwd`.  Both are looked up in this module when called, so a
+caller may swap either for another version.  The final state is not
+differentiated: no training path asks for it.
+
 The wrapper takes CUDA tensors only — the device policy in
 :mod:`repro_torch.kernels.dispatch` sends CPU tensors to
 :func:`repro_torch.kernels.ref.ssd_scan_plain` — checks device, dtype,
 shape, strides and the kernels' limits (P ≤ 64, N ≤ 128, shared memory),
 launches on the current stream and raises if a launch was refused; nothing
-falls back.  ``launches["ssd_scan"]`` counts calls of K6;
+falls back.  ``launches["ssd_scan"]`` counts calls of K6 and
+``launches["ssd_scan_bwd"]`` calls of its backward;
 ``route_launches`` counts each route's calls and each pass's launches.  A
 call reports :func:`repro_torch.perf.roofline.ssd_scan_terms` for its shape
-to an open ``repro_torch.perf.counts`` counter, once for all its passes.
+to an open ``repro_torch.perf.counts`` counter, once for all its passes
+(the backward :func:`~repro_torch.perf.roofline.ssd_scan_bwd_terms`).
 """
 
 from __future__ import annotations
@@ -47,17 +64,19 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.perf import counts, roofline
 
-__all__ = ["KERNELS", "ROUTES", "PASSES", "MAX_P", "MAX_N", "SMEM_LIMIT",
-           "launches", "route_launches", "reset_launches", "route",
-           "smem_bytes", "ssd_scan"]
+__all__ = ["KERNELS", "ROUTES", "PASSES", "BWD_PASSES", "MAX_P", "MAX_N",
+           "SMEM_LIMIT", "launches", "route_launches", "reset_launches",
+           "route", "smem_bytes", "bwd_smem_bytes", "ssd_scan",
+           "ssd_scan_bwd", "SSDScanFunction"]
 
-KERNELS = ("ssd_scan",)
+KERNELS = ("ssd_scan", "ssd_scan_bwd")
 ROUTES = ("tensor_cores", "cuda_cores_f32")
 PASSES = ("chunk_states", "state_passing", "output")
+BWD_PASSES = ("bwd_states", "bwd_state_passing", "bwd_chunk", "bwd_reduce")
 MAX_P, MAX_N = 64, 128
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may use
 launches = {name: 0 for name in KERNELS}
-route_launches = {name: 0 for name in (*ROUTES, *PASSES)}
+route_launches = {name: 0 for name in (*ROUTES, *PASSES, *BWD_PASSES)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -65,7 +84,12 @@ _ENTRIES = {"cuda_cores_f32": "ssd_scan_f32_launch",
             "chunk_states": "ssd_scan_states_launch",
             "state_passing": "ssd_scan_pass_launch",
             "output": "ssd_scan_output_launch"}
+_BWD_ENTRIES = {"bwd_states": "ssd_bwd_states_launch",
+                "bwd_state_passing": "ssd_bwd_pass_launch",
+                "bwd_chunk": "ssd_bwd_chunk_launch",
+                "bwd_reduce": "ssd_bwd_reduce_launch"}
 _bound: ctypes.CDLL | None = None
+_bound_bwd: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
@@ -87,6 +111,20 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _bound_bwd
+    if _bound_bwd is None:
+        lib = build.load("ssd_scan_bwd")
+        for entry in _BWD_ENTRIES.values():
+            fn = getattr(lib, entry)
+            fn.argtypes = [_P] * 20 + [_I] * 20 + [_P]
+            fn.restype = ctypes.c_int
+        lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+        _bound_bwd = lib
+    return _bound_bwd
 
 
 def route(dtype: torch.dtype) -> str:
@@ -210,3 +248,127 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         counts.report_kernel("ssd_scan", roofline.ssd_scan_terms(
             b, L, H, P, N, Q, x.dtype))
     return (y, fs) if final_state else y
+
+
+# csrc/ssd_scan_bwd.cu's tiles: 32 rows in pass 1, 64 rows and 4 heads a
+# CTA in pass 3
+BWD_T1, BWD_T, BWD_HB = 32, 64, 4
+
+
+def bwd_smem_bytes(N: int, P: int, Q: int) -> dict[str, int]:
+    """Shared memory one CTA of the backward's passes 1 and 3 takes for
+    (N, P, Q), in bytes, by the layouts of ``csrc/ssd_scan_bwd.cu``: pass 1
+    the (Q,) cumsums and its scan's 8 warp sums in float64, two (Q,) rows
+    and B, C (pitch N + 1), x, dy (pitch P + 1) tiles of 32 rows in
+    float32; pass 3 three (4, Q) rows in float64 (the cumsums, the row and
+    column sums that cancel in dcum), then C, B, x, dy tiles of 64 rows,
+    four (64, 65) tiles (the staged states overlay them), three (4, Q)
+    rows and a few floats for its reductions.  Passes 2 and 4 take
+    none."""
+    T, T1, HB = BWD_T, BWD_T1, BWD_HB
+    return {"bwd_states": 8 * (Q + 8) + 4 * (2 * Q + 2 * T1 * (N + 1)
+                                             + 2 * T1 * (P + 1)),
+            "bwd_chunk": 8 * 3 * HB * Q + 4 * (2 * T * (N + 1)
+                                               + 2 * T * (P + 1)
+                                               + 4 * T * (T + 1) + 3 * HB * Q
+                                               + 8 + 2 * HB)}
+
+
+def ssd_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                 dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                 dy: torch.Tensor, chunk: int):
+    """K6's backward: the operands of :func:`ssd_scan` and dy (b, L, H, P)
+    in x's dtype (P contiguous, any other strides) → (dx, dB, dC, ddt, dA,
+    dD): dx contiguous in x's dtype, dB and dC contiguous (b, L, N) in B's,
+    ddt (b, L, H), dA and dD (H,) float32 — the gradient of y, as
+    :func:`repro_torch.kernels.ref.ssd_scan_bwd_plain` writes it.
+    Deterministic: a repeat launch is bitwise identical."""
+    b, L, H, P, N, Q = ref.check_ssd_operands(x, B, C, dt, A, D, chunk)
+    dev = x.device
+    for name, t in (("x", x), ("B", B), ("C", C), ("dt", dt), ("A", A),
+                    ("D", D), ("dy", dy)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor (the plain "
+                             f"version serves CPU tensors), got device "
+                             f"{t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x, B, C must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("dt", dt), ("A", A), ("D", D)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(dy.shape) != (b, L, H, P) or dy.dtype != x.dtype:
+        raise ValueError(f"dy ({tuple(dy.shape)}, {dy.dtype}) must be y's "
+                         f"shape {(b, L, H, P)} and x's dtype {x.dtype}")
+    if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1 \
+            or dy.stride(-1) != 1:
+        raise ValueError(f"x and dy need a contiguous head dim and B, C a "
+                         f"contiguous state dim; got strides {x.stride()}, "
+                         f"{dy.stride()}, {B.stride()}, {C.stride()}")
+    if P > MAX_P or N > MAX_N:
+        raise ValueError(f"head dim {P} / state {N} above the kernel's "
+                         f"{MAX_P} / {MAX_N}")
+    for k, need in bwd_smem_bytes(N, P, Q).items():
+        if need > SMEM_LIMIT:
+            raise ValueError(f"chunk {Q} needs {need} bytes of shared "
+                             f"memory in {k}, above {SMEM_LIMIT}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, L, H, P), dtype=x.dtype, device=dev)
+    dB = torch.empty((b, L, N), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, L, N), dtype=C.dtype, device=dev)
+    ddt = torch.empty((b, L, H), **f32)
+    dA, dD = torch.empty(H, **f32), torch.empty(H, **f32)
+    if dx.numel() == 0:
+        return (dx, dB.zero_(), dC.zero_(), ddt.zero_(), dA.zero_(),
+                dD.zero_())
+    n, nhb = -(-L // Q), -(-H // BWD_HB)
+    dBp = torch.zeros((b, L, nhb, N), **f32)
+    dCp = torch.zeros((b, L, nhb, N), **f32)
+    dAp, dDp = torch.empty((b, n, H), **f32), torch.empty((b, n, H), **f32)
+    cum = torch.empty((b, n, H, Q), dtype=torch.float64, device=dev)
+    s = torch.empty((b, n, H, N, P), **f32)
+    ds = torch.empty((b, n, H, N, P), **f32)
+    A, D = A.contiguous(), D.contiguous()
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):     # launch on the operands' card
+        args = (x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+                dAp.data_ptr(), dDp.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                dA.data_ptr(), dD.data_ptr(), cum.data_ptr(), s.data_ptr(),
+                ds.data_ptr(), b, L, H, P, N, Q,
+                int(x.dtype == torch.bfloat16), *x.stride()[:3],
+                *B.stride()[:2], *C.stride()[:2], *dt.stride(),
+                *dy.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)
+        for p in BWD_PASSES:
+            rc = getattr(lib, _BWD_ENTRIES[p])(*args)
+            if rc != 0:
+                raise RuntimeError(
+                    f"ssd_scan backward {p} launch failed: "
+                    f"{lib.ssd_bwd_error_string(rc).decode()}")
+            route_launches[p] += 1
+    launches["ssd_scan_bwd"] += 1
+    if counts.ACTIVE:
+        counts.report_kernel("ssd_scan_bwd", roofline.ssd_scan_bwd_terms(
+            b, L, H, P, N, Q, x.dtype))
+    return dx, dB, dC, ddt, dA, dD
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """K6 with its gradient: forward :func:`ssd_scan` (the operands saved,
+    nothing else kept), backward :func:`ssd_scan_bwd` on the upstream
+    gradient (its head dim made contiguous where it is not)."""
+
+    @staticmethod
+    def forward(ctx, x, B, C, dt, A, D, chunk):
+        ctx.save_for_backward(x, B, C, dt, A, D)
+        ctx.chunk = chunk
+        return ssd_scan(x, B, C, dt, A, D, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, B, C, dt, A, D = ctx.saved_tensors
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        return (*ssd_scan_bwd(x, B, C, dt, A, D, dy, ctx.chunk), None)

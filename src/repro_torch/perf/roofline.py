@@ -4,7 +4,7 @@ through (``repro_torch.serve.admission``), the single-tile edge-latency
 kernels' bounds (:func:`edge_latency_single_tile_terms`,
 :func:`edge_latency_structured_single_tile_terms`) and the LM kernels'
 (:func:`flash_attention_terms`, :func:`ssd_scan_terms`,
-:func:`rmsnorm_terms`, :func:`rmsnorm_bwd_terms`).
+:func:`ssd_scan_bwd_terms`, :func:`rmsnorm_terms`, :func:`rmsnorm_bwd_terms`).
 
   compute_s = FLOPs / peak (FP32 by default)
   memory_s  = bytes / HBM_BW
@@ -47,7 +47,8 @@ __all__ = ["RooflineTerms", "compute_terms", "edge_latency_dense_terms",
            "edge_latency_single_tile_terms",
            "edge_latency_structured_single_tile_terms",
            "flash_attention_terms",
-           "ssd_scan_terms", "rmsnorm_terms", "rmsnorm_bwd_terms",
+           "ssd_scan_terms", "ssd_scan_bwd_terms", "rmsnorm_terms",
+           "rmsnorm_bwd_terms",
            "PEAK_FLOPS", "PEAK_BF16_TC",
            "PEAK_TF32_TC", "HBM_BW", "NVLINK_BW", "step_terms"]
 
@@ -222,6 +223,33 @@ def ssd_scan_terms(b: int, L: int, H: int, P: int, N: int, chunk: int,
     flops = b * n * per_chunk
     bytes_ = b * L * (2.0 * H * P * width + 2.0 * N * width + 4.0 * H) \
         + 8.0 * H
+    return compute_terms(flops, bytes_, peak=peak)
+
+
+def ssd_scan_bwd_terms(b: int, L: int, H: int, P: int, N: int, chunk: int,
+                       dtype) -> RooflineTerms:
+    """The least time for the gradient of the SSD chunked scan (K6's
+    backward) on the operands of :func:`ssd_scan_terms` and dy of x's
+    shape and ``dtype``.
+
+    Operations, per (row, chunk) of Q = min(chunk, L) rows: ``2Q²N``
+    (C·Bᵀ again, shared by the heads) + ``2Q(Q+1)·H·P`` (the
+    lower-triangular dy·xᵀ and the dx it weights) + ``2Q(Q+1)·N`` (dG,
+    summed over the heads, into dB and dC) + ``10QNHP`` (five state
+    products: the chunk states recomputed, their gradients, and the state
+    terms of dx, dB and dC), over ⌈L/Q⌉ chunks.  Bytes: x, dy, B, C and dt
+    read once and dx, dB, dC and ddt written once (A, D read and dA, dD
+    written).  The peak is the bf16 tensor-core rate for bf16 operands and
+    the FP32 rate for float32 ones.  ``.bound_by`` says which limit
+    binds."""
+    width, peak = _operands(dtype, "SSD-scan")
+    Q = max(min(chunk, L), 1)
+    n = -(-L // Q)
+    per_chunk = (2.0 * Q * Q * N + 2.0 * Q * (Q + 1.0) * H * P
+                 + 2.0 * Q * (Q + 1.0) * N + 10.0 * Q * N * H * P)
+    flops = b * n * per_chunk
+    bytes_ = b * L * (3.0 * H * P * width + 4.0 * N * width + 8.0 * H) \
+        + 16.0 * H
     return compute_terms(flops, bytes_, peak=peak)
 
 

@@ -12,7 +12,8 @@ counterpart: the microbatches run as a Python loop.
 
 Training takes ``attention_impl="reference"``, as the reference must (its
 own gradient through the Pallas flash kernel fails): K5 has no backward
-(ROADMAP B2), so a "pallas" config is refused here.
+(ROADMAP B2 decided against one), so a "pallas" config is refused here.
+K6 and K7 train through their backward kernels on the card.
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving roots:
 prefill writes the cache and returns the last position's logits (its batch
@@ -58,7 +59,8 @@ def require_trainable(cfg: ModelConfig) -> None:
     if cfg.attention_impl != "reference":
         raise ValueError(
             f"training takes attention_impl='reference', got "
-            f"{cfg.attention_impl!r}: K5 has no backward (ROADMAP B2), and "
+            f"{cfg.attention_impl!r}: K5 has no backward (ROADMAP B2, decided "
+            f"against), and "
             f"the reference cannot differentiate its own Pallas flash "
             f"kernel either")
 

@@ -976,8 +976,9 @@ def test_rmsnorm_backward_is_deterministic_on_the_card(card):
 
 @pytest.mark.cuda
 def test_routes_without_a_backward_raise_under_grad_on_the_card(card):
-    """K1, K2, K4a, K4b, K5 and K6 raise under grad on the card instead of
-    returning a tensor without a ``grad_fn``; K7 differentiates."""
+    """K1, K2, K4a, K4b and K5 raise under grad on the card instead of
+    returning a tensor without a ``grad_fn``; K7 and K6 differentiate, each
+    through one launch of its backward."""
     from repro_torch.kernels import dispatch
     x = torch.rand(2, 3, 8, device=card, requires_grad=True)
     com = torch.rand(1, 8, 8, device=card)
@@ -992,13 +993,17 @@ def test_routes_without_a_backward_raise_under_grad_on_the_card(card):
                  lambda: dispatch.edge_latency_single_tile(x, x, com),
                  lambda: dispatch.edge_latency_structured_single_tile(
                      x, x, mass, a, corr),
-                 lambda: dispatch.flash_attention(q, q, q),
-                 lambda: dispatch.ssd_scan(q, B, B,
-                                           torch.rand(1, 64, 2, device=card),
-                                           -torch.rand(2, device=card),
-                                           torch.rand(2, device=card), 64)):
+                 lambda: dispatch.flash_attention(q, q, q)):
         with pytest.raises(RuntimeError, match="no backward"):
             call()
+    y6 = dispatch.ssd_scan(q, B, B, torch.rand(1, 64, 2, device=card),
+                           -torch.rand(2, device=card),
+                           torch.rand(2, device=card), 64)
+    assert y6.grad_fn is not None
+    before = sk.launches["ssd_scan_bwd"]
+    y6.sum().backward()
+    assert sk.launches["ssd_scan_bwd"] == before + 1 and q.grad is not None
+    q.grad = None
     w = torch.ones(64, device=card, requires_grad=True)
     y = dispatch.rmsnorm(q, w)
     assert y.grad_fn is not None
@@ -1031,6 +1036,82 @@ def test_train_step_on_the_card_matches_the_cpu_route(card):
         after = chip_smoke.lm_launches()
         out[name] = met, {k: after[k] - before[k] for k in after}
     want = chip_smoke.expected_launches(cfg, "train")
+    assert {k: out["card"][1][k] for k in want} == want
+    for k in ("loss", "grad_norm"):
+        assert abs(float(out["card"][0][k]) - float(out["cpu"][0][k])) <= \
+            1e-5 * abs(float(out["cpu"][0][k]))
+    for (n, p), q in zip(model.named_parameters(), host.parameters()):
+        rel = (p.detach().cpu() - q.detach()).abs().max() / q.abs().max()
+        assert float(rel) <= 1e-4, n
+
+
+def _norm_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_matches_plain_on_the_card(card, dtype):
+    """K6 under grad on the card: ``dispatch.ssd_scan`` returns a tensor
+    with a ``grad_fn`` whose backward launches ``ssd_scan_bwd`` once; the
+    gradients against ``ssd_scan_bwd_plain`` norm-wise (float32 against the
+    float64 plain version ≤1e-5, bfloat16 against the plain version in
+    float32 math ≤1e-2), at a ragged L over chunks of 256, at L < chunk and
+    at the smoke widths; the wrapper bitwise on repeat."""
+    from repro_torch.kernels import dispatch
+    rng = np.random.default_rng(28)
+    bar = 1e-5 if dtype == "float32" else 1e-2
+    for b, L, H, P, N, Q in ((2, 300, 6, 64, 128, 256),
+                             (1, 100, 5, 64, 64, 256),
+                             (2, 20, 4, 8, 16, 8)):
+        ops = _ssd_operands(card, rng, b, L, H, P, N, dtype)
+        leaves = [t.detach().clone().requires_grad_() for t in ops]
+        y = dispatch.ssd_scan(*leaves, Q)
+        assert y.grad_fn is not None
+        dy = torch.from_numpy(rng.standard_normal(y.shape).astype(
+            np.float32)).to(card).to(y.dtype)
+        before = sk.launches["ssd_scan_bwd"]
+        got = torch.autograd.grad(y, leaves, dy)
+        assert sk.launches["ssd_scan_bwd"] == before + 1
+        if dtype == "float32":
+            want = ref.ssd_scan_bwd_plain(*(t.double() for t in ops),
+                                          dy.double(), Q)
+        else:
+            want = ref.ssd_scan_bwd_plain(*ops, dy, Q)
+        for g, w, t in zip(got, want, ops):
+            assert g.dtype == t.dtype and g.shape == t.shape
+            assert _norm_rel(g, w) <= bar
+        again = sk.ssd_scan_bwd(*ops, dy, Q)
+        assert all(torch.equal(a, g) for a, g in zip(
+            again, sk.ssd_scan_bwd(*ops, dy, Q)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "zamba2_1_2b"])
+def test_ssm_train_step_on_the_card_matches_the_cpu_route(card, arch):
+    """One training step of the Mamba2 (and Zamba2 hybrid) smoke model
+    (float32 activations, full remat) on the card against the CPU route
+    from the same weights and batch: loss and gradient norm ≤1e-5, every
+    parameter after the step ≤1e-4 (as the granite step); K6, its backward
+    and K7 launched as ``expected_launches(mode="train")``."""
+    from repro_torch.train import optim, steps
+    cfg = get_smoke_config(arch)
+    host, model = _card_and_host(card, cfg)
+    rng = np.random.default_rng(65)
+    t = rng.integers(0, cfg.vocab, (4, 33), dtype=np.int32)
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:],
+             "loss_mask": (rng.random((4, 32)) > 0.3).astype(np.float32)}
+    out = {}
+    for name, m in (("cpu", host), ("card", model)):
+        ocfg = optim.AdamWConfig()
+        state = optim.adamw_init(dict(m.named_parameters()), ocfg)
+        before = chip_smoke.lm_launches()
+        _, met = steps.make_train_step(m, cfg, ocfg)(state, batch)
+        after = chip_smoke.lm_launches()
+        out[name] = met, {k: after[k] - before[k] for k in after}
+    want = chip_smoke.expected_launches(cfg, "train")
+    assert want["ssd_scan_bwd"] == cfg.n_layers
     assert {k: out["card"][1][k] for k in want} == want
     for k in ("loss", "grad_norm"):
         assert abs(float(out["card"][0][k]) - float(out["cpu"][0][k])) <= \

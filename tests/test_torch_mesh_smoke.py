@@ -8,8 +8,8 @@ gradients, prefill and decode logits, a scoring forward on K5's route,
 each ≤1e-5) and their launches equal; the test checks what it returns.
 The families of the mesh planner's second half (``chip_smoke.
 MESH_FAMILIES``: Mamba2, Grok's MoE, Zamba2, the VLM, Whisper) rehearse
-the same way at their smoke widths with bf16 activations, K6 counted too,
-each part the chip runs held bitwise.
+the same way at their smoke widths with bf16 activations, K6 and its
+backward counted too, each part the chip runs held bitwise.
 
 The process group lives in a child process (this file as a script, killed
 past ``TIMEOUT``), never in the pytest worker.  No JAX is imported.
@@ -60,12 +60,16 @@ def _rehearse(out: Path, which: str) -> None:
         return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state,
                                   state_out)
 
+    def scan_bwd(x, B, C, dt, A, D, dy, chunk):
+        sk.launches["ssd_scan_bwd"] += 1
+        return ref.ssd_scan_bwd_plain(x, B, C, dt, A, D, dy, chunk)
+
     real = dispatch._plan
     card = ("rmsnorm", "flash_attention", "ssd_scan")
     dispatch._plan = lambda kind, what, ts: (
         "cuda" if kind in card else real(kind, what, ts))
     rk.rmsnorm, rk.rmsnorm_bwd, fa.flash_attention = fwd, bwd, flash
-    sk.ssd_scan = scan
+    sk.ssd_scan, sk.ssd_scan_bwd = scan, scan_bwd
     if which == "families":
         got = {}
         for arch, _, parts in cs.MESH_FAMILIES:
@@ -84,6 +88,7 @@ def _rehearse(out: Path, which: str) -> None:
                 got[arch]["train"] = {k: {"launches": v["launches"],
                                           "losses": v["losses"]}
                                       for k, v in r["train"].items()}
+                got[arch]["want_step"] = cs.expected_launches(cfg, "train")
         out.write_text(json.dumps(got))
         return
     cfg = get_smoke_config("granite_8b").replace(n_layers=3,
@@ -134,7 +139,11 @@ def test_chip_smoke_lm_mesh_families_rehearse_on_the_cpu(tmp_path):
             assert launches["grad"]["rmsnorm_bwd"] == 2 * L + 1
         if "train" in r["parts"]:                     # its AdamW steps
             assert r["train"]["sharded"] == r["train"]["unsharded"]
-            assert launches["step"]["rmsnorm_bwd"] == 2 * L + 1
+            assert {k: launches["step"][k] for k in r["want_step"]} \
+                == r["want_step"], arch
+            if arch.startswith(("mamba2", "zamba2")):  # K6 and its backward
+                assert launches["step"]["ssd_scan_bwd"] == L, arch
+                assert launches["step"]["ssd_scan"] == 2 * L, arch
     assert set(got) == {"mamba2_1_3b", "grok_1_314b", "zamba2_1_2b",
                         "llama_3_2_vision_11b", "whisper_large_v3"}
     assert so.count("lm_mesh") >= len(got)

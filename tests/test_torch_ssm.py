@@ -245,7 +245,7 @@ def test_routes_send_cpu_tensors_to_the_plain_versions(monkeypatch):
         reg.enabled = was
     assert torch.equal(y, ref.ssd_scan_plain(*args, chunk=4))
     assert torch.equal(n, ref.rmsnorm_plain(x, w))
-    assert sk.launches == {"ssd_scan": 0}
+    assert sk.launches == {"ssd_scan": 0, "ssd_scan_bwd": 0}
     assert rk.launches == {"rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
@@ -272,17 +272,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert sk.smem_bytes(128, 64, 1024)["cuda_cores_f32"] > sk.SMEM_LIMIT
     assert sk.smem_bytes(128, 64, 1024)["output"] <= sk.SMEM_LIMIT
     assert sk.smem_bytes(128, 64, 16_384)["output"] > sk.SMEM_LIMIT
-    assert sk.launches == {"ssd_scan": 0} and \
+    assert sk.launches == {"ssd_scan": 0, "ssd_scan_bwd": 0} and \
         rk.launches == {"rmsnorm": 0, "rmsnorm_bwd": 0}
     assert not any(sk.route_launches.values())
 
 
 def test_ssd_route_is_the_dtype():
     """bfloat16 operands take the tensor-core passes, float32 the CUDA
-    cores; every route and pass has a counter."""
+    cores; every route and pass has a counter, the backward's four passes
+    too."""
     assert sk.route(torch.bfloat16) == "tensor_cores"
     assert sk.route(torch.float32) == "cuda_cores_f32"
-    assert set(sk.route_launches) == {*sk.ROUTES, *sk.PASSES}
+    assert set(sk.route_launches) == {*sk.ROUTES, *sk.PASSES,
+                                      *sk.BWD_PASSES}
 
 
 def test_roofline_terms_of_the_serving_shapes():

@@ -39,6 +39,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import dispatch, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rk  # noqa: E402
+from repro_torch.kernels import ssd_scan as sk  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import build_model, layers  # noqa: E402
 from repro_torch.models.api import ModelConfig  # noqa: E402
@@ -468,12 +469,13 @@ def test_training_refuses_the_flash_route():
 
 
 def test_card_routes_without_a_backward_raise_under_grad(monkeypatch):
-    """Every card route but K7's raises under grad instead of returning a
-    tensor without a ``grad_fn``: the plan says "cuda" for these CPU
-    tensors, and the wrappers are never reached."""
+    """Every card route but K7's and K6's raises under grad instead of
+    returning a tensor without a ``grad_fn``: the plan says "cuda" for these
+    CPU tensors, and the wrappers are never reached.  K5's refusal states
+    its decision (no backward, as the reference's Pallas kernel has none);
+    K6 under grad goes on to its wrapper (its autograd function)."""
     from repro_torch.kernels import edge_latency as ek
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as sk
 
     def never(*a, **k):
         raise AssertionError("a kernel wrapper was reached under grad")
@@ -498,14 +500,15 @@ def test_card_routes_without_a_backward_raise_under_grad(monkeypatch):
         "K4a": lambda: dispatch.edge_latency_single_tile(x, x, com),
         "K4b": lambda: dispatch.edge_latency_structured_single_tile(
             x, x, mass, a, corr),
-        "K5": lambda: dispatch.flash_attention(q, q, q),
-        "K6": lambda: dispatch.ssd_scan(sx, B, B, torch.rand(1, 8, 2),
-                                        -torch.rand(2), torch.rand(2), 4)}
+        "K5": lambda: dispatch.flash_attention(q, q, q)}
     for k, call in calls.items():
         with pytest.raises(RuntimeError, match="no backward.*ROADMAP"):
             call()
-    with pytest.raises(RuntimeError, match="B2"):
+    with pytest.raises(RuntimeError, match="B2, decided against"):
         calls["K5"]()
+    with pytest.raises(AssertionError, match="reached"):
+        dispatch.ssd_scan(sx, B, B, torch.rand(1, 8, 2), -torch.rand(2),
+                          torch.rand(2), 4)
     with torch.no_grad():       # without grad the route is taken as before
         with pytest.raises(AssertionError, match="reached"):
             calls["K5"]()
@@ -593,12 +596,23 @@ def test_chip_smoke_lm_train_phase_rehearses_on_the_cpu(monkeypatch,
         rk.launches["rmsnorm_bwd"] += 1
         return ref.rmsnorm_bwd_plain(x, w, g, eps)
 
+    def scan(x, B, C, dt, A, D, chunk, final_state=False, state_out=None):
+        sk.launches["ssd_scan"] += 1
+        return ref.ssd_scan_plain(x, B, C, dt, A, D, chunk, final_state,
+                                  state_out)
+
+    def scan_bwd(x, B, C, dt, A, D, dy, chunk):
+        sk.launches["ssd_scan_bwd"] += 1
+        return ref.ssd_scan_bwd_plain(x, B, C, dt, A, D, dy, chunk)
+
     real_plan = dispatch._plan
     card = ("rmsnorm", "flash_attention", "ssd_scan")
     monkeypatch.setattr(dispatch, "_plan", lambda kind, what, ts: (
         "cuda" if kind in card else real_plan(kind, what, ts)))
     monkeypatch.setattr(rk, "rmsnorm", fwd)
     monkeypatch.setattr(rk, "rmsnorm_bwd", bwd)
+    monkeypatch.setattr(sk, "ssd_scan", scan)
+    monkeypatch.setattr(sk, "ssd_scan_bwd", scan_bwd)
     monkeypatch.setattr(cs, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "device_profile", lambda *a, **k: "not measured")
     cfg = get_smoke_config("granite_8b").replace(n_layers=3,
@@ -616,7 +630,7 @@ def test_chip_smoke_lm_train_phase_rehearses_on_the_cpu(monkeypatch,
                                for h in out["held"].values())
     assert out["planted_fails"]
     assert out["masked"] > 0
-    assert len(out["refused"]) == 3
+    assert len(out["refused"]) == 2 and out["k6_grad"]
 
 
 @pytest.mark.parametrize("raised, passes", [
