@@ -124,8 +124,13 @@ bitwise equal.
    2048, 64 heads of 64, N 128 / 64, chunk 256), a ragged L, one chunk and
    the smoke widths, on both routes; bitwise on repeat, one launch of each
    of its four passes a call, a planted fault (dy one row late) failing;
-   ms, the device alone, the forward's ms, plain ms and the bound at the
-   training shapes (no single PyTorch call computes it);
+   ms, the device alone and each pass's device ms, the forward's ms, plain
+   ms and the bound at the training shapes (no single PyTorch call
+   computes it); the library's registers, spill bytes and HGMMA per kernel,
+   failing where the bf16 states or chunk kernel spills or has no HGMMA;
+   the bf16 route's six roundings emulated on the card (bf16, hi + lo and
+   TF32 candidates); the float32 route timed per pass at the training
+   shape beside the bf16 route's passes;
 8. lm_score_mamba2: the job of phase 6 with Mamba2-1.3B at its published
    widths (48 layers, d 2048, d_inner 4096, 64 SSM heads of 64, state 128,
    chunk 256, vocab 50432 padded; seeded random weights made on the card)
@@ -969,6 +974,24 @@ def older_state_share(torch, plain, args) -> float:
     return float((y - y2).abs().max() / y.abs().max())
 
 
+def operand_rounding(torch, operand, ct):
+    """The rounding of a tensor-core operand that is not an input, in
+    ``ct``: None keeps it, "bf16" rounds it to bfloat16 once, "bf16_hilo"
+    splits it into bf16 hi + lo (two products), "tf32" rounds it to TF32
+    (``cvt.rna``: half an ulp up, the low 13 bits off)."""
+    def rnd(t):
+        if operand is None:
+            return t
+        if operand == "tf32":
+            b = t.float().contiguous().view(torch.int32)
+            return ((b + 0x1000) & ~0x1FFF).view(torch.float32).to(ct)
+        hi = t.to(torch.bfloat16).to(ct)
+        if operand == "bf16":
+            return hi
+        return hi + (t - hi).to(torch.bfloat16).to(ct)
+    return rnd
+
+
 def ssd_three_pass(torch, x, B, C, dt, A, D, chunk, operand=None):
     """K6's tensor-core route in torch: chunk states s_c = Bᵀ(w ⊙ x), state
     passing S_{c+1} = exp(total_c)·S_c + s_c, output M·x + exp(cum_i)·C·S_c
@@ -978,18 +1001,7 @@ def ssd_three_pass(torch, x, B, C, dt, A, D, chunk, operand=None):
     lo, two products) or "tf32"; None keeps them exact.  Returns y in x's
     dtype."""
     dtype, ct = x.dtype, torch.promote_types(x.dtype, torch.float32)
-
-    def rnd(t):
-        if operand is None:
-            return t
-        if operand == "tf32":     # cvt.rna: half an ulp up, low 13 bits off
-            b = t.float().contiguous().view(torch.int32)
-            return ((b + 0x1000) & ~0x1FFF).view(torch.float32).to(ct)
-        hi = t.to(torch.bfloat16).to(ct)
-        if operand == "bf16":
-            return hi
-        return hi + (t - hi).to(torch.bfloat16).to(ct)
-
+    rnd = operand_rounding(torch, operand, ct)
     F = torch.nn.functional
     b, L, H, P = x.shape
     N = B.shape[-1]
@@ -1025,6 +1037,102 @@ def ssd_three_pass(torch, x, B, C, dt, A, D, chunk, operand=None):
             "biN,bhNp->bihp", Cs[:, c], rnd(S[:, c]))
         ys.append(y + D[:, None] * xs[:, c])
     return torch.cat(ys, 1)[:, :L].to(dtype)
+
+
+# the six operands of the backward's bf16 route that are not inputs
+SSD_BWD_ROUNDED = ("w*x", "e*dy", "M", "dG", "S", "dS")
+
+
+def ssd_bwd_passes(torch, x, B, C, dt, A, D, dy, chunk, operand=None,
+                   rounded=SSD_BWD_ROUNDED):
+    """K6's backward as its tensor-core route computes it, in torch:
+    the cumsums in float64; chunk states s_c = Bᵀ(w ⊙ x) and ds_c =
+    Cᵀ(e ⊙ dy) (w_j = exp(total − cum_j)·dt_j, e_i = exp(cum_i)); state
+    passing S_c, dS_{c+1} and ⟨S_c, dS_{c+1}⟩; per chunk Gᵀ = B Cᵀ, Dᵀ =
+    x dyᵀ, M = G ⊙ L ⊙ dt_j (the forward's), dx = Mᵀ dy + w_j B_j·dS +
+    D dy, dG summed over each chunk CTA's block of heads
+    (``ssd_scan.BWD_TC_HB``) and rounded once, dB = dGᵀ C
+    + Σ_h w_j x_j dSᵀ, dC = dG B + Σ_h e_i dy_i Sᵀ, dw = x · (B dS), the
+    row sums of T = G ⊙ L ⊙ dt_j ⊙ (dy·x) and column sums of G ⊙ L ⊙
+    (dy·x) in float64, then dcum's reverse cumsum, ddt, dA, dD.  ``operand`` rounds the operands named in
+    ``rounded`` (of ``SSD_BWD_ROUNDED``) as :func:`operand_rounding` does;
+    None keeps every product exact.  Computes in x's promoted dtype
+    (float32 for bf16) and returns (dx, dB, dC, ddt, dA, dD) in the
+    operands' dtypes, as ``ref.ssd_scan_bwd_plain`` does."""
+    from repro_torch.kernels.ssd_scan import BWD_TC_HB
+    F = torch.nn.functional
+    ct = torch.promote_types(x.dtype, torch.float32)
+    f64 = torch.float64
+    keep = operand_rounding(torch, None, ct)
+    rnd = {k: operand_rounding(torch, operand, ct) if k in rounded else keep
+           for k in SSD_BWD_ROUNDED}
+    dtypes = (x.dtype, B.dtype, C.dtype, dt.dtype, A.dtype, D.dtype)
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    n = -(-L // Q)
+    pad = n * Q - L
+    HB = BWD_TC_HB
+    nhb = -(-H // HB)
+    x, B, C, dt, dy = (F.pad(t.to(ct), (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, B, C, dt, dy))
+    xs, ys = x.view(b, n, Q, H, P), dy.view(b, n, Q, H, P)
+    Bs, Cs, dts = B.view(b, n, Q, N), C.view(b, n, Q, N), dt.view(b, n, Q, H)
+    cum = torch.cumsum(dts.to(f64) * A.to(f64), 2)              # (b, n, Q, H)
+    total = cum[:, :, -1]                                        # (b, n, H)
+    dec = torch.exp((total[:, :, None] - cum).to(ct))
+    w, e = dec * dts, torch.exp(cum.to(ct))
+    # pass 1: the chunk states and their gradients' chunk shares
+    s = torch.einsum("bcjN,bcjhp->bchNp", Bs, rnd["w*x"](w[..., None] * xs))
+    ds = torch.einsum("bciN,bcihp->bchNp", Cs, rnd["e*dy"](e[..., None] * ys))
+    # pass 2: S_c and dS_{c+1} (index c), and <S_c, dS_{c+1}> unrounded
+    tot = torch.exp(total.to(ct))[..., None, None]
+    S, dS = torch.zeros_like(s), torch.zeros_like(ds)
+    for c in range(1, n):
+        S[:, c] = tot[:, c - 1] * S[:, c - 1] + s[:, c - 1]
+    for c in range(n - 2, -1, -1):
+        dS[:, c] = tot[:, c + 1] * dS[:, c + 1] + ds[:, c + 1]
+    del s, ds
+    hss = (S * dS).sum((-2, -1))                                 # (b, n, H)
+    S, dS = rnd["S"](S), rnd["dS"](dS)
+    # pass 3: every gradient of a chunk
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (b,n,i,j,H)
+    Lm = torch.exp(diff.masked_fill(~mask[:, :, None], float("-inf"))
+                   .to(ct))
+    del diff
+    G = torch.einsum("bciN,bcjN->bcij", Cs, Bs)
+    Dd = torch.einsum("bcihp,bcjhp->bcijh", ys, xs)
+    R = G[..., None] * Lm
+    M = R * dts[:, :, None]
+    RD = (R * Dd).to(f64)
+    dcr = (RD * dts[:, :, None].to(f64)).sum(3)                  # (b,n,i,H)
+    dcc = RD.sum(2)                                              # (b,n,j,H)
+    del R, RD
+    U = torch.einsum("bcjN,bchNp->bcjhp", Bs, dS)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", rnd["M"](M), ys) \
+        + w[..., None] * U + D.to(ct)[:, None] * ys
+    del M
+    dGh = F.pad(Lm * dts[:, :, None] * Dd, (0, nhb * HB - H))
+    dG = rnd["dG"](dGh.view(b, n, Q, Q, nhb, HB).sum(-1))
+    del Lm, Dd, dGh
+    dB = torch.einsum("bcijk,bciN->bcjN", dG, Cs) + torch.einsum(
+        "bcjh,bcjhp,bchNp->bcjN", w, xs, dS)
+    dC = torch.einsum("bcijk,bcjN->bciN", dG, Bs) + torch.einsum(
+        "bcih,bcihp,bchNp->bciN", e, ys, S)
+    dws = (xs * U).sum(-1)                                       # (b,n,j,H)
+    dcs = e * (ys * torch.einsum("bciN,bchNp->bcihp", Cs, S)).sum(-1)
+    dtot = torch.exp(total.to(ct)).to(f64) * hss.to(f64) \
+        + (w * dws).to(f64).sum(2)
+    dcum = dcr - dts.to(f64) * dcc + dcs.to(f64) - (w * dws).to(f64)
+    dcum[:, :, -1] += dtot
+    da = dcum.flip(2).cumsum(2).flip(2)
+    ddt = dcc + (dec * dws).to(f64) + A.to(f64) * da
+    dA = (dts.to(f64) * da).sum((0, 1, 2))
+    dD = (xs * ys).sum((0, 1, 2, 4))
+    return tuple(t.reshape(b, n * Q, *t.shape[3:])[:, :L].to(d)
+                 if t.dim() > 1 else t.to(d)
+                 for t, d in zip((dx, dB, dC, ddt, dA, dD), dtypes))
 
 
 def ssd_design_bytes(b, L, H, P, N, Q) -> float:
@@ -3071,8 +3179,66 @@ def norm_rel(got, want) -> float:
     return float((got - want).norm() / max(float(want.norm()), 1e-30))
 
 
-def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES,
-                  timed=SSD_BWD_TIMED) -> dict:
+# the bf16 route's kernels that run wgmma (csrc/ssd_scan_bwd.cu, namespace
+# tc; <1> and <0>: with and without 16-byte loads), and the substrings of
+# each pass's kernel names in a profile
+SSD_BWD_TC_KERNELS = ("ssd_bwd_tc_states_kernel", "ssd_bwd_tc_chunk_kernel")
+SSD_BWD_PASS_KEYS = {"bwd_states": "states_kernel", "bwd_state_passing":
+                     "pass_kernel", "bwd_chunk": "chunk_kernel",
+                     "bwd_reduce": "reduce_kernel"}
+# the emulated candidates' shape: b 1, L 2048 (8 chunks of 256), 8 heads of
+# 64, N 128, under fast and slow decay
+SSD_BWD_EMULATED = (1, 2048, 8, 64, 128, 256)
+# the float32 route timed per pass at Mamba2-1.3B's training shape: its
+# state passing is the first version's (a thread an element), beside the
+# bf16 route's
+SSD_BWD_PASS_PROBE = (4, 2048, 64, 64, 128, 256)
+
+
+def ssd_bwd_resources(resources: dict) -> str:
+    """The resource line of the backward's library (``kernel_resources``
+    of ``ssd_scan_bwd``): each kernel's registers, spill bytes and HGMMA
+    count; the bf16 route's states and chunk kernels must contain HGMMA
+    and spill nothing."""
+    for name in SSD_BWD_TC_KERNELS:
+        hits = {k: v for k, v in resources.items() if k.startswith(name)}
+        check(bool(hits), f"ssd_scan_bwd: no {name} in the library")
+        for k, v in hits.items():
+            check(v["HGMMA"] > 0, f"ssd_scan_bwd {k}: no HGMMA in its SASS")
+            check(v["spill_bytes"] == 0,
+                  f"ssd_scan_bwd {k}: {v['spill_bytes']} spill bytes")
+    return "; ".join(f"{k} {v['registers']} registers, {v['spill_bytes']} "
+                     f"spill bytes, HGMMA {v['HGMMA']}"
+                     for k, v in sorted(resources.items()))
+
+
+def ssd_bwd_candidates(torch, dev, shape=SSD_BWD_EMULATED) -> str:
+    """The bf16 route's roundings emulated on the card
+    (:func:`ssd_bwd_passes`, each candidate of ``SSD_CANDIDATES`` for its
+    six rounded operands) against the plain version in float32 math on the
+    same bf16 inputs: the worst norm-wise gradient of each, fast and slow
+    decay."""
+    from repro_torch.kernels import ref
+    b, L, H, P, N, Q = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    out = []
+    for slow in (False, True):
+        ops = ssd_operands(torch, gen, dev, b, L, H, P, N, torch.bfloat16,
+                           slow=slow)
+        dy = torch.randn((b, L, H, P), generator=gen, device=dev).bfloat16()
+        want = ref.ssd_scan_bwd_plain(*ops, dy, Q)
+        worst = {op: max(norm_rel(g, w) for g, w in zip(
+            ssd_bwd_passes(torch, *ops, dy, Q, op), want))
+                 for op in SSD_CANDIDATES}
+        out.append(f"{'slow' if slow else 'fast'} decay " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    return "; ".join(out)
+
+
+def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES, timed=SSD_BWD_TIMED,
+                  resources: dict | None = None,
+                  emulated=SSD_BWD_EMULATED,
+                  pass_probe=SSD_BWD_PASS_PROBE) -> dict:
     """K6's backward (``ssd_scan_bwd``) against its plain version
     (``ref.ssd_scan_bwd_plain``) on the model's operands (x, B and C views
     of one conv output, Mamba2's decays) and a standard normal dy: float32
@@ -3082,13 +3248,24 @@ def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES,
     gradient finite, bitwise on repeat, one launch of each pass a call.  A
     planted fault — dy read one row late (rolled by a row) — must fail the
     bar.  At the ``timed`` cases: ms (median of single calls between CUDA
-    events), the device time of its kernels alone, the forward's ms, the
-    plain version's ms and the bound (``roofline.ssd_scan_bwd_terms``).
+    events), the device time of its kernels alone and of each pass, the
+    forward's ms, the plain version's ms and the bound
+    (``roofline.ssd_scan_bwd_terms``).  With ``resources`` (the library's
+    :func:`kernel_resources`) it prints and checks
+    :func:`ssd_bwd_resources`; with ``emulated`` (a shape) it prints
+    :func:`ssd_bwd_candidates`; with ``pass_probe`` (a shape) it times the
+    float32 route per pass there, beside the first timed case's bf16 passes.
     Returns the kernel line's record for the first case (Mamba2-1.3B's
     training shape)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.perf.roofline import ssd_scan_bwd_terms
+    if resources is not None:
+        print(f"ssd_scan_bwd kernels: {ssd_bwd_resources(resources)}")
+    if emulated is not None:
+        print(f"ssd_scan_bwd bf16 route's roundings emulated at "
+              f"{emulated}, worst norm-wise gradient: "
+              f"{ssd_bwd_candidates(torch, dev, emulated)}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 28)
     names = ("dx", "dB", "dC", "ddt", "dA", "dD")
     record = None
@@ -3130,8 +3307,8 @@ def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES,
                              f"passes ({planted:.3e} <= {bar})")
         abs_err = max(float((g.double() - w.double()).abs().max())
                       for g, w in zip(got, want))
-        line = (f"{what}: " + ", ".join(f"{n} {v:.2e}" for n, v in
-                                         rels.items())
+        line = (f"{what} ({sk.route(dtype)}): " + ", ".join(
+            f"{n} {v:.2e}" for n, v in rels.items())
                 + f" (norm-wise, bar {bar:g}; max abs {abs_err:.3e}); "
                 f"bitwise on repeat; planted fault {planted:.3e}")
         if i in timed:
@@ -3139,24 +3316,62 @@ def ssd_bwd_phase(torch, dev, cases=SSD_BWD_CASES,
                 return sk.ssd_scan_bwd(*ops, dy, Q)
             ms = time_ms(call, 10)
             alone = kernel_device_ms(torch, call, 10, "ssd_bwd")
+            per_pass = ssd_bwd_pass_ms(torch, call, 10)
             fwd_ms = time_ms(lambda: sk.ssd_scan(*ops, Q), 10)
             plain_ms = time_ms(lambda: ref.ssd_scan_bwd_plain(*ops, dy, Q),
                                3)
             terms = ssd_scan_bwd_terms(b, L, H, P, N, Q, dtype)
-            line += (f"; {ms:.4f} ms (the device alone {alone:.4f}; the "
-                     f"forward {fwd_ms:.4f}), plain {plain_ms:.3f} ms, bound "
-                     f"{terms.step_time_s * 1e3:.4f} ms by {terms.bound_by} "
-                     f"({terms.flops:.3e} operations, {terms.bytes:.3e} "
-                     f"bytes), {terms.step_time_s * 1e3 / ms:.2%} of it")
+            line += (f"; {ms:.4f} ms (the device alone {alone:.4f}: "
+                     + ", ".join(f"{p} {v:.4f}" for p, v in per_pass.items())
+                     + f"; the forward {fwd_ms:.4f}), plain {plain_ms:.3f} "
+                     f"ms, bound {terms.step_time_s * 1e3:.4f} ms by "
+                     f"{terms.bound_by} ({terms.flops:.3e} operations, "
+                     f"{terms.bytes:.3e} bytes), "
+                     f"{terms.step_time_s * 1e3 / ms:.2%} of it")
             if record is None:
                 record = {"max_abs_err": abs_err, "ms": ms,
-                          "device_ms": alone, "plain_ms": plain_ms,
+                          "device_ms": alone, "pass_ms": per_pass,
+                          "plain_ms": plain_ms,
                           "bound_ms": terms.step_time_s * 1e3,
                           "bound_by": terms.bound_by, "library_ms": None,
                           "rel": worst}
         print(line)
         del ops, dy, got, again, want
+    if pass_probe is not None:
+        b, L, H, P, N, Q = pass_probe
+        ops = ssd_operands(torch, gen, dev, b, L, H, P, N, torch.float32,
+                           model_like=True)
+        dy = torch.randn((b, L, H, P), generator=gen, device=dev)
+        per = ssd_bwd_pass_ms(torch, lambda: sk.ssd_scan_bwd(*ops, dy, Q), 3)
+        print(f"ssd_scan_bwd at {pass_probe}, the device ms of each pass: "
+              f"float32 route " + ", ".join(
+                  f"{p} {v:.4f}" for p, v in per.items())
+              + "; bf16 route " + ", ".join(
+                  f"{p} {v:.4f}" for p, v in (record or {}).get(
+                      "pass_ms", {}).items()))
+        del ops, dy
     return {"ssd_scan_bwd": record}
+
+
+def ssd_bwd_pass_ms(torch, fn, reps: int) -> dict[str, float]:
+    """Device ms per call of each of the backward's passes
+    (``SSD_BWD_PASS_KEYS`` in its kernels' names), from one profiled run of
+    ``reps`` calls after a warm-up; a run that recorded fewer than ``reps``
+    launches of a pass is taken again."""
+    fn()
+    for _ in range(PROFILE_ATTEMPTS):
+        _, per_name = device_events(torch,
+                                    lambda: [fn() for _ in range(reps)])
+        out, full = {}, True
+        for p, key in SSD_BWD_PASS_KEYS.items():
+            hits = [(t, c) for name, (t, c) in per_name.items()
+                    if "ssd_bwd" in name and key in name]
+            full = full and sum(c for _, c in hits) >= reps
+            out[p] = sum(t for t, _ in hits) / reps
+        if full:
+            return out
+    check(False, f"the profiler recorded fewer than {reps} launches of a "
+                 f"backward pass in {PROFILE_ATTEMPTS} runs")
 
 
 def pg_problems(np, graph, per_region: int):
@@ -3926,7 +4141,9 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
                 torch, lambda: train_step(opt_state, data[n_steps]),
                 {"K7": ("rmsnorm_kernel", "rmsnorm_rows"),
                  "K7 backward": ("rmsnorm_bwd", "rmsnorm_dw"),
-                 "K6 backward": ("ssd_bwd",),
+                 "K6 backward chunk pass": ("ssd_bwd_tc_chunk",
+                                            "ssd_bwd_chunk"),
+                 "K6 backward other passes": ("ssd_bwd",),
                  "K6": ("ssd_scan_states", "ssd_scan_pass",
                         "ssd_scan_output", "ssd_scan_f32"),
                  "f32 GEMM": F32_GEMM, "bf16 GEMM": GEMM,
@@ -4807,11 +5024,13 @@ def main() -> int:
           + ", ".join(f"{r.path.name} (nvcc {r.seconds:.1f} s)"
                       for r in built))
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    resources = {}
     for r in built:
         sass = subprocess.run([str(cuobjdump), "-sass", str(r.path)],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        for k, use in kernel_resources(r.log, sass).items():
+        resources[r.name] = kernel_resources(r.log, sass)
+        for k, use in resources[r.name].items():
             tc = ", ".join(f"{op} {n}" for op, n in use.items()
                            if op != "remarks" and op.isupper() and n)
             print(f"  ptxas[{r.name}] {k}: {use['registers']} registers, "
@@ -5140,7 +5359,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     report.update(ssm_kernels_phase(torch, dev, shard, LM_SEQ, ssm_cfg))
     torch.cuda.empty_cache()
-    report.update(ssd_bwd_phase(torch, dev))        # 7b. K6's backward
+    report.update(ssd_bwd_phase(                     # 7b. K6's backward
+        torch, dev, resources=resources["ssd_scan_bwd"]))
     torch.cuda.empty_cache()
     ssm_dims = (ssm_cfg.ssm_heads, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
     ssd_final_state_phase(torch, dev, [(shard, LM_SEQ, *ssm_dims),

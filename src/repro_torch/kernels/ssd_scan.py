@@ -31,11 +31,14 @@ The route is the dtype, stated here and nowhere else:
 ``csrc/ssd_scan_bwd.cu`` (the Pallas kernel has none: the reference trains
 through ``jax.grad`` of ``ssd_chunked``).  From x, B, C, dt, A, D and the
 upstream gradient dy of y it writes (dx, dB, dC, ddt, dA, dD), each in its
-operand's dtype, deterministically, in four passes on both dtypes
+operand's dtype, deterministically, in four passes on either route
 (``route_launches`` counts each): ``"bwd_states"`` (the cumsums, the
 recomputed chunk states and each chunk's share of the state gradient),
-``"bwd_state_passing"``, ``"bwd_chunk"`` (every gradient of a chunk, per 4
-heads) and ``"bwd_reduce"`` (dB, dC over head blocks, dA, dD over chunks).
+``"bwd_state_passing"``, ``"bwd_chunk"`` (every gradient of a chunk) and
+``"bwd_reduce"`` (dB, dC over head blocks, dA, dD over chunks).  The route
+is the dtype again: bfloat16 operands take the tensor cores (a chunk CTA
+per 2 heads, ``BWD_TC_HB``), float32 the CUDA cores (per 4 heads,
+``BWD_HB``).
 :class:`SSDScanFunction` ties the two together for autograd: its forward
 launches :func:`ssd_scan` and saves the operands, its backward launches
 :func:`ssd_scan_bwd`.  Both are looked up in this module when called, so a
@@ -66,8 +69,8 @@ from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "ROUTES", "PASSES", "BWD_PASSES", "MAX_P", "MAX_N",
            "SMEM_LIMIT", "launches", "route_launches", "reset_launches",
-           "route", "smem_bytes", "bwd_smem_bytes", "ssd_scan",
-           "ssd_scan_bwd", "SSDScanFunction"]
+           "route", "smem_bytes", "bwd_smem_bytes", "bwd_ssp_count",
+           "ssd_scan", "ssd_scan_bwd", "SSDScanFunction"]
 
 KERNELS = ("ssd_scan", "ssd_scan_bwd")
 ROUTES = ("tensor_cores", "cuda_cores_f32")
@@ -119,7 +122,7 @@ def _bwd_lib() -> ctypes.CDLL:
         lib = build.load("ssd_scan_bwd")
         for entry in _BWD_ENTRIES.values():
             fn = getattr(lib, entry)
-            fn.argtypes = [_P] * 20 + [_I] * 20 + [_P]
+            fn.argtypes = [_P] * 23 + [_I] * 20 + [_P]
             fn.restype = ctypes.c_int
         lib.ssd_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_bwd_error_string.restype = ctypes.c_char_p
@@ -250,28 +253,62 @@ def ssd_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return (y, fs) if final_state else y
 
 
-# csrc/ssd_scan_bwd.cu's tiles: 32 rows in pass 1, 64 rows and 4 heads a
-# CTA in pass 3
+# csrc/ssd_scan_bwd.cu's tiles: the float32 route 32 rows in pass 1, 64
+# rows and 4 heads a CTA in pass 3; the bfloat16 route 2 heads a pass-3 CTA
 BWD_T1, BWD_T, BWD_HB = 32, 64, 4
+BWD_TC_HB = 2
 
 
-def bwd_smem_bytes(N: int, P: int, Q: int) -> dict[str, int]:
+def bwd_ssp_count(N: int, P: int) -> int:
+    """The bfloat16 route's partial sums of ⟨S_c, dS_{c+1}⟩ a (batch,
+    chunk, head): one a warp of its state-passing pass, whose threads take
+    4 columns of a state row (1 where P % 4 != 0) of N rounded up to 16."""
+    return (-(-N // 16) * 16) * (64 // (4 if P % 4 == 0 else 1)) // 32
+
+
+def bwd_smem_bytes(N: int, P: int, Q: int) -> dict[str, dict[str, int]]:
     """Shared memory one CTA of the backward's passes 1 and 3 takes for
-    (N, P, Q), in bytes, by the layouts of ``csrc/ssd_scan_bwd.cu``: pass 1
-    the (Q,) cumsums and its scan's 8 warp sums in float64, two (Q,) rows
-    and B, C (pitch N + 1), x, dy (pitch P + 1) tiles of 32 rows in
-    float32; pass 3 three (4, Q) rows in float64 (the cumsums, the row and
-    column sums that cancel in dcum), then C, B, x, dy tiles of 64 rows,
-    four (64, 65) tiles (the staged states overlay them), three (4, Q)
-    rows and a few floats for its reductions.  Passes 2 and 4 take
-    none."""
+    (N, P, Q), in bytes, per route, by the layouts of
+    ``csrc/ssd_scan_bwd.cu``.  ``"cuda_cores_f32"``: pass 1 the (Q,)
+    cumsums and its scan's 8 warp sums in float64, two (Q,) rows and B, C
+    (pitch N + 1), x, dy (pitch P + 1) tiles of 32 rows in float32; pass 3
+    three (4, Q) rows in float64 (the cumsums, the row and column sums that
+    cancel in dcum), then C, B, x, dy tiles of 64 rows, four (64, 65) tiles
+    (the staged states overlay them), three (4, Q) rows and a few floats
+    for its reductions.  ``"tensor_cores"`` (bf16 tiles of 64 rows × 64
+    columns, 8 KB, in the 128-byte swizzle, N in two of them; Q rounded up
+    to 64 as Qp): pass 1 two stages of a B or C tile and an x or dy tile,
+    the (Qp,) cumsums in float64 and row weights in float32; pass 3 B_jt
+    and two heads' x_jt, two stages of C_it and two heads' dy_it, the
+    second of which with the bytes after it holds two heads' S_c and
+    dS_{c+1} while the state terms are formed, and else the row sums of T
+    a (warp, row group) and column for each head (a pitch of 65 float64),
+    to the next 1 KB; the dG tile; dB's float32 accumulator and a share of
+    the other head's dx (a 64 × 64 fragment each a warpgroup); per head two
+    (Qp,) rows in float64 (the cumsums, the row sums of T) and three in
+    float32, the column sums of R (x . dy) per warpgroup and head in
+    float64, the column decays, a few floats and each thread's x · dy;
+    each plus 1 KB to align the swizzle atoms.
+    Passes 2 and 4 take none."""
     T, T1, HB = BWD_T, BWD_T1, BWD_HB
-    return {"bwd_states": 8 * (Q + 8) + 4 * (2 * Q + 2 * T1 * (N + 1)
+    tile, nblk, hb, qp = 64 * 128, MAX_N // 64, BWD_TC_HB, -(-Q // 64) * 64
+    return {
+        "cuda_cores_f32": {
+            "bwd_states": 8 * (Q + 8) + 4 * (2 * Q + 2 * T1 * (N + 1)
                                              + 2 * T1 * (P + 1)),
             "bwd_chunk": 8 * 3 * HB * Q + 4 * (2 * T * (N + 1)
                                                + 2 * T * (P + 1)
                                                + 4 * T * (T + 1) + 3 * HB * Q
-                                               + 8 + 2 * HB)}
+                                               + 8 + 2 * HB)},
+        "tensor_cores": {
+            "bwd_states": 1024 + 2 * (nblk + 1) * tile + 12 * qp,
+            "bwd_chunk": 1024 + 2 * (nblk + hb) * tile
+                         + -(-max(hb * 2 * nblk * tile,
+                                  (nblk + hb) * tile + hb * 32 * 65 * 8)
+                             // 1024) * 1024
+                         + tile + 2 * hb * 32 * 128 * 4 + hb * qp * 28
+                         + hb * hb * qp * 8 + hb * 256 + 64
+                         + 128 * hb * 4}}
 
 
 def ssd_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -309,7 +346,8 @@ def ssd_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if P > MAX_P or N > MAX_N:
         raise ValueError(f"head dim {P} / state {N} above the kernel's "
                          f"{MAX_P} / {MAX_N}")
-    for k, need in bwd_smem_bytes(N, P, Q).items():
+    way = route(x.dtype)
+    for k, need in bwd_smem_bytes(N, P, Q)[way].items():
         if need > SMEM_LIMIT:
             raise ValueError(f"chunk {Q} needs {need} bytes of shared "
                              f"memory in {k}, above {SMEM_LIMIT}")
@@ -322,13 +360,27 @@ def ssd_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if dx.numel() == 0:
         return (dx, dB.zero_(), dC.zero_(), ddt.zero_(), dA.zero_(),
                 dD.zero_())
-    n, nhb = -(-L // Q), -(-H // BWD_HB)
-    dBp = torch.zeros((b, L, nhb, N), **f32)
-    dCp = torch.zeros((b, L, nhb, N), **f32)
+    n = -(-L // Q)
+    tc = way == "tensor_cores"
+    nhb = -(-H // (BWD_TC_HB if tc else BWD_HB))
+    # the float32 route adds into its partials; the bf16 route writes each
+    # element before it adds to it, in rows of N rounded up to even
+    part = torch.empty if tc else torch.zeros
+    width = N + N % 2 if tc else N
+    dBp = part((b, L, nhb, width), **f32)
+    dCp = part((b, L, nhb, width), **f32)
     dAp, dDp = torch.empty((b, n, H), **f32), torch.empty((b, n, H), **f32)
     cum = torch.empty((b, n, H, Q), dtype=torch.float64, device=dev)
     s = torch.empty((b, n, H, N, P), **f32)
     ds = torch.empty((b, n, H, N, P), **f32)
+    if tc:
+        npad = -(-N // 16) * 16
+        Sb = torch.empty((b, n, H, npad, 64), dtype=torch.bfloat16,
+                         device=dev)
+        dSb = torch.empty_like(Sb)
+        ssp = torch.empty((b, n, H, bwd_ssp_count(N, P)), **f32)
+    else:                            # the float32 route takes no more
+        Sb = dSb = ssp = s
     A, D = A.contiguous(), D.contiguous()
     lib = _bwd_lib()
     with torch.cuda.device(dev):     # launch on the operands' card
@@ -337,7 +389,8 @@ def ssd_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                 ddt.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
                 dAp.data_ptr(), dDp.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                 dA.data_ptr(), dD.data_ptr(), cum.data_ptr(), s.data_ptr(),
-                ds.data_ptr(), b, L, H, P, N, Q,
+                ds.data_ptr(), Sb.data_ptr(), dSb.data_ptr(), ssp.data_ptr(),
+                b, L, H, P, N, Q,
                 int(x.dtype == torch.bfloat16), *x.stride()[:3],
                 *B.stride()[:2], *C.stride()[:2], *dt.stride(),
                 *dy.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)

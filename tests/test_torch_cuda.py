@@ -1057,14 +1057,17 @@ def test_ssd_backward_matches_plain_on_the_card(card, dtype):
     with a ``grad_fn`` whose backward launches ``ssd_scan_bwd`` once; the
     gradients against ``ssd_scan_bwd_plain`` norm-wise (float32 against the
     float64 plain version ≤1e-5, bfloat16 against the plain version in
-    float32 math ≤1e-2), at a ragged L over chunks of 256, at L < chunk and
-    at the smoke widths; the wrapper bitwise on repeat."""
+    float32 math ≤1e-2), at a ragged L over chunks of 256, at L < chunk,
+    at the smoke widths and at head counts that are not multiples of a
+    chunk CTA's heads (5 and 3: 2 heads a CTA on the bf16 route, 4 on the
+    float32 one); the wrapper bitwise on repeat."""
     from repro_torch.kernels import dispatch
     rng = np.random.default_rng(28)
     bar = 1e-5 if dtype == "float32" else 1e-2
     for b, L, H, P, N, Q in ((2, 300, 6, 64, 128, 256),
                              (1, 100, 5, 64, 64, 256),
-                             (2, 20, 4, 8, 16, 8)):
+                             (2, 20, 4, 8, 16, 8),
+                             (1, 700, 3, 64, 128, 256)):
         ops = _ssd_operands(card, rng, b, L, H, P, N, dtype)
         leaves = [t.detach().clone().requires_grad_() for t in ops]
         y = dispatch.ssd_scan(*leaves, Q)
@@ -1085,6 +1088,41 @@ def test_ssd_backward_matches_plain_on_the_card(card, dtype):
         again = sk.ssd_scan_bwd(*ops, dy, Q)
         assert all(torch.equal(a, g) for a, g in zip(
             again, sk.ssd_scan_bwd(*ops, dy, Q)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_takes_strided_views_on_the_card(card, dtype):
+    """K6's backward on x, B, C as views of one conv output (the model's
+    operands) and dy as a view with a padded head stride, at H 3 (not a
+    multiple of a chunk CTA's heads): bitwise the same gradients as on
+    contiguous copies, and within the bar of the plain version."""
+    rng = np.random.default_rng(29)
+    b, L, H, P, N, Q = 2, 600, 3, 64, 128, 256
+    t = getattr(torch, dtype)
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, L, H * P + 2 * N)).astype(np.float32)).to(card).to(t)
+    x = conv[..., :H * P].reshape(b, L, H, P)
+    B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, L, H)).astype(np.float32)).to(card) - 2.0)
+    A = -torch.linspace(1.0, 16.0, H, device=card)
+    D = torch.from_numpy(rng.standard_normal(H).astype(np.float32)).to(card)
+    wide = torch.from_numpy(rng.standard_normal(
+        (b, L, H, P + 16)).astype(np.float32)).to(card).to(t)
+    dy = wide[..., :P]
+    assert not dy.is_contiguous() and not x.is_contiguous()
+    got = sk.ssd_scan_bwd(x, B, C, dt, A, D, dy, Q)
+    flat = sk.ssd_scan_bwd(x.contiguous(), B.contiguous(), C.contiguous(),
+                           dt, A, D, dy.contiguous(), Q)
+    assert all(torch.equal(g, f) for g, f in zip(got, flat))
+    if dtype == "float32":
+        want = ref.ssd_scan_bwd_plain(
+            *(a.double() for a in (x, B, C, dt, A, D, dy)), Q)
+    else:
+        want = ref.ssd_scan_bwd_plain(x, B, C, dt, A, D, dy, Q)
+    bar = 1e-5 if dtype == "float32" else 1e-2
+    assert max(_norm_rel(g, w) for g, w in zip(got, want)) <= bar
 
 
 @pytest.mark.cuda

@@ -33,6 +33,17 @@ float64 oracle:
   and of the Pallas kernel in interpret mode.  The three candidates (bf16
   once, bf16 hi + lo, TF32) are reported at a serving-like shape.
 
+* K6's backward on bf16 operands (``csrc/ssd_scan_bwd.cu``, namespace tc)
+  runs its products on the tensor cores and rounds the six operands that
+  are not inputs (w ⊙ x, e ⊙ dy, M, dG summed over a CTA's heads, S_c,
+  dS_{c+1}) to bf16 once each.  ``chip_smoke.ssd_bwd_passes`` emulates its
+  passes: in float64 with nothing rounded it must equal
+  ``ssd_scan_bwd_plain`` within 1e-12 (ragged L, one chunk, H not a
+  multiple of a CTA's heads); with the kernel's rounding at a
+  training-like shape each gradient must stay within 5e-3 norm-wise of
+  the plain version in float32 math (the candidates printed), and at
+  chunk 16 within 1e-2 of ``jax.grad`` of ``ssd_chunked``.
+
 * K7 (RMSNorm) gives one warp to a row: lane l sums f·f with fmaf over the
   16-byte vectors l, l + 32, … of the row (8 bf16 or 4 float32 values;
   single values where D or the pointers do not allow 16-byte loads), in
@@ -355,6 +366,93 @@ def test_k6_numerics_candidates_at_a_serving_like_shape(slow):
                                      for k, v in rounded.items()))
     assert max(rounded.values()) <= BF16_REL
     assert errs["bf16_hilo"] <= errs["bf16"] and errs["tf32"] <= errs["bf16"]
+
+
+# -- K6's backward: the bf16 route's passes and their rounded operands ---------
+
+def _ssd_bwd_args(b, L, H, P, N, seed, slow, dtype=torch.float32):
+    """:func:`_ssd_args` and an upstream gradient dy (standard normal, in
+    ``dtype``), from numpy."""
+    args = _ssd_args(b, L, H, P, N, seed, slow, dtype)
+    dy = np.random.default_rng(seed + 1).standard_normal((b, L, H, P))
+    return args, torch.from_numpy(dy.astype(np.float32)).to(dtype)
+
+
+def _norm_rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+@pytest.mark.parametrize("slow", [False, True])
+@pytest.mark.parametrize("b,L,H,P,N,chunk", [
+    (2, 128, 3, 8, 16, 16), (1, 250, 2, 16, 32, 32), (1, 100, 2, 8, 8, 256),
+    (2, 20, 5, 8, 16, 8)])
+def test_k6_backward_passes_equal_the_plain_version(b, L, H, P, N, chunk,
+                                                    slow):
+    """The bf16 route's passes (cumsums, chunk states, state passing, the
+    chunk's gradients over a CTA's block of heads) in float64
+    with nothing rounded give ``ssd_scan_bwd_plain``'s six gradients within
+    1e-12 (ragged L = 250, 20; one chunk at L = 100; H 3 and 5, not
+    multiples of a CTA's heads)."""
+    args, dy = _ssd_bwd_args(b, L, H, P, N, L + H, slow)
+    args, dy = [a.double() for a in args], dy.double()
+    got = chip_smoke.ssd_bwd_passes(torch, *args, dy, chunk)
+    want = ref.ssd_scan_bwd_plain(*args, dy, chunk)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float64 and g.shape == w.shape
+        assert _rel(g, w) <= 1e-12
+
+
+@pytest.mark.parametrize("slow", [False, True])
+def test_k6_backward_numerics_candidates_at_a_training_like_shape(slow):
+    """b 1, L 2048 (8 chunks of 256), 8 heads of 64, N 128, x/B/C/dy in
+    bf16: each candidate for the six rounded operands (w ⊙ x, e ⊙ dy, M,
+    dG, S_c, dS_{c+1}) against the plain version in float32 math, worst
+    gradient norm-wise.  The kernel's choice, bf16 once, stays within
+    5e-3 (half the 1e-2 bar); hi + lo and TF32 are never worse.  The
+    numbers are printed (csrc/ssd_scan_bwd.cu's header quotes them)."""
+    args, dy = _ssd_bwd_args(1, 2048, 8, 64, 128, 3, slow, torch.bfloat16)
+    want = ref.ssd_scan_bwd_plain(*args, dy, 256)
+    worst = {}
+    for op in chip_smoke.SSD_CANDIDATES:
+        got = chip_smoke.ssd_bwd_passes(torch, *args, dy, 256, op)
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        worst[op] = max(_norm_rel(g, w) for g, w in zip(got, want))
+    alone = {k: max(_norm_rel(g, w) for g, w in zip(
+        chip_smoke.ssd_bwd_passes(torch, *args, dy, 256, "bf16", (k,)),
+        want)) for k in chip_smoke.SSD_BWD_ROUNDED}
+    print(f"K6 backward candidates ({'slow' if slow else 'fast'} decay), "
+          f"worst norm-wise gradient: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + "; bf16 on one operand alone: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in alone.items()))
+    assert worst["bf16"] <= 5e-3
+    assert worst["bf16_hilo"] <= worst["bf16"]
+    assert worst["tf32"] <= worst["bf16"]
+    assert max(alone.values()) <= worst["bf16"]
+
+
+def test_k6_backward_rounded_operands_match_jax_grad_at_chunk_16():
+    """bf16 inputs, chunk 16 (where the reference's gradient is finite):
+    the bf16 route's rounding of all six operands within 1e-2 (BF16_REL,
+    max |err| / max |want|) of ``jax.grad`` of
+    ``repro.models.mamba2.ssd_chunked`` on the same bf16 values."""
+    import jax
+    from repro.models.mamba2 import ssd_chunked
+    args, dy = _ssd_bwd_args(1, 128, 4, 16, 16, 11, False, torch.bfloat16)
+    got = chip_smoke.ssd_bwd_passes(torch, *args, dy, 16, "bf16")
+    f32 = [a.float().numpy() for a in args]
+    g32 = dy.float().numpy()
+
+    def loss(*a):
+        y, _ = ssd_chunked(*a, 16)
+        return jnp.sum(y * g32)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, f32))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.isfinite(w).all()
+        assert _rel(g.float().numpy(), w) <= BF16_REL
 
 
 # -- K7: the lane order of the sum of squares -----------------------------------

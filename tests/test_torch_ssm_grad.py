@@ -280,11 +280,19 @@ def test_k6_backward_wrapper_refuses_what_the_kernel_does_not_take():
         sk.ssd_scan_bwd(*t, torch.tensor(dy), 8)
     assert sk.launches == before
     smem = sk.bwd_smem_bytes(128, 64, 256)
-    assert smem == {"bwd_states": 8 * 264 + 4 * (2 * 256 + 2 * 32 * 129
-                                                 + 2 * 32 * 65),
-                    "bwd_chunk": 202_816}
-    assert max(smem.values()) <= sk.SMEM_LIMIT
-    assert sk.bwd_smem_bytes(128, 64, 1024)["bwd_chunk"] > sk.SMEM_LIMIT
+    assert smem == {
+        "cuda_cores_f32": {"bwd_states": 8 * 264 + 4 * (2 * 256 + 2 * 32 * 129
+                                                        + 2 * 32 * 65),
+                           "bwd_chunk": 202_816},
+        "tensor_cores": {"bwd_states": 1024 + 6 * 8192 + 12 * 256,
+                         "bwd_chunk": 230_976}}
+    for way in smem.values():
+        assert max(way.values()) <= sk.SMEM_LIMIT
+    for way in sk.bwd_smem_bytes(128, 64, 1024).values():
+        assert way["bwd_chunk"] > sk.SMEM_LIMIT
+    # the bf16 route's partials of <S_c, dS_{c+1}>: one a warp of pass 2
+    assert sk.bwd_ssp_count(128, 64) == 64 and sk.bwd_ssp_count(16, 8) == 8
+    assert sk.bwd_ssp_count(4, 6) == 32
     terms = roofline.ssd_scan_bwd_terms(4, 2048, 64, 64, 128, 256,
                                         torch.bfloat16)
     assert terms.bytes == 4 * 2048 * (3 * 4096 * 2 + 4 * 128 * 2 + 8 * 64) \
@@ -353,15 +361,22 @@ def test_chip_smoke_ssd_bwd_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "time_ms", lambda fn, reps: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "kernel_device_ms",
                         lambda torch, fn, reps, key: (fn(), 0.5)[1])
+    monkeypatch.setattr(cs, "ssd_bwd_pass_ms", lambda torch, fn, reps: (
+        fn(), {p: 0.125 for p in sk.BWD_PASSES})[1])
     cases = [(2, 40, 5, 8, 16, 16, "bfloat16"), (1, 20, 3, 8, 4, 8,
                                                  "float32"),
              (2, 12, 2, 4, 8, 16, "float32")]
-    out = cs.ssd_bwd_phase(torch, torch.device("cpu"), cases, timed=(0,))
+    out = cs.ssd_bwd_phase(torch, torch.device("cpu"), cases, timed=(0,),
+                           emulated=(1, 64, 3, 8, 16, 16),
+                           pass_probe=(1, 40, 3, 8, 16, 16))
     rec = out["ssd_scan_bwd"]
     assert rec["ms"] == 1.0 and rec["device_ms"] == 0.5
+    assert rec["pass_ms"] == {p: 0.125 for p in sk.BWD_PASSES}
     assert rec["bound_by"] in ("bytes", "operations") and rec["bound_ms"] > 0
     assert rec["library_ms"] is None and rec["rel"] <= cs.LM_REF_REL
-    assert capsys.readouterr().out.count("planted fault") == len(cases)
+    printed = capsys.readouterr().out
+    assert printed.count("planted fault") == len(cases)
+    assert "float32 route bwd_states 0.1250" in printed
 
 
 @pytest.mark.parametrize("arch", ["mamba2_1_3b", "zamba2_1_2b"])
@@ -388,3 +403,30 @@ def test_chip_smoke_lm_train_phase_rehearses_the_ssm_families(
     assert out["planted_fails"] and out["k6_grad"]
     assert set(out["full"]["faults"]) == {"dw x 2", "dB x 2"}
     assert len(out["refused"]) == 2 and np.isfinite(out["losses"]).all()
+
+
+def test_chip_smoke_ssd_bwd_resources_holds_the_tensor_core_kernels():
+    """``chip_smoke.ssd_bwd_resources`` passes a library whose bf16 states
+    and chunk kernels (both load variants) contain HGMMA and spill nothing,
+    and fails one that spills, one without HGMMA and one without the
+    kernels; the mangled names of the library label as those kernels."""
+    cs = _chip_smoke()
+    ok = {"registers": 200, "spill_bytes": 0, "HGMMA": 9}
+    good = {f"{k}<{v}>": dict(ok) for k in cs.SSD_BWD_TC_KERNELS
+            for v in (0, 1)}
+    good["ssd_bwd_chunk_kernel"] = {"registers": 254, "spill_bytes": 0,
+                                    "HGMMA": 0}
+    line = cs.ssd_bwd_resources(good)
+    assert "ssd_bwd_tc_chunk_kernel<1> 200 registers, 0 spill bytes, " \
+           "HGMMA 9" in line
+    for bad in ({"spill_bytes": 24}, {"HGMMA": 0}):
+        fault = {k: dict(v) for k, v in good.items()}
+        fault["ssd_bwd_tc_chunk_kernel<1>"].update(bad)
+        with pytest.raises(AssertionError):
+            cs.ssd_bwd_resources(fault)
+    with pytest.raises(AssertionError, match="no ssd_bwd_tc_states_kernel"):
+        cs.ssd_bwd_resources({k: v for k, v in good.items()
+                              if "states" not in k})
+    sym = ("_ZN48_GLOBAL__N__59688088_15_ssd_scan_bwd_cu_c9db1c942tc23"
+           "ssd_bwd_tc_chunk_kernelILb1EEEvNS_4ArgsE")
+    assert cs.kernel_label(sym) == "ssd_bwd_tc_chunk_kernel<1>"
