@@ -47,6 +47,22 @@ that its kernel launched; the structured phase also checks that two
    at the largest V (K4b also with a
    per-batch scenario, and at its largest V for R 8), each timed case
    bitwise equal to the blocked kernel;
+2c. block_policy: the block policy (``repro_torch.kernels.autotune``) at
+   serve_dense's K1 shape (B 1024, E 21, V 4096, shared com), the
+   controller's (B 65, E 2, V 4096) and serve_structured's K2 shape (B 256,
+   E 21, V 131 072, R 8): every candidate config's launch bitwise equal to
+   the default config's, its launcher's tile count equal to
+   ``block_geometry``'s, its predicted and measured ms; the default ≤1e-5
+   of the float64 plain version; the race of the top three through
+   ``get_config(timer=)`` (CUDA events, timed interleaved in 3 rounds of
+   a b c c b a), the analytic pick within 5 % of
+   the race's winner at the two serving shapes, and the decision table —
+   which the serving phases then read.  Every candidate of K1 (K2) also
+   bitwise equal to K4a (K4b) at the single_tile phase's shapes;
+2d. quality: ``quality_scores_torch`` (ROADMAP A11) on a 65 536 × 256 int64
+   window (stuck, fully missing, half missing and long-run rows planted) on
+   the card, ≤1e-6 of its CPU route and ≤1e-5 of the numpy
+   ``quality_scores``, with its ms;
 3b. serve_multi_dense: the serve_dense instance registered with all five
    §3.1 objectives (``ObjectiveSet.of(*OBJECTIVES)``, unit weights) and
    per-scenario speeds; four queries (score; rank by ε-constraint,
@@ -395,6 +411,19 @@ TILE_B, TILE_E, TILE_V, TILE_R = 2, 5, 64, 4
 TILE_ES, TILE_VS = (1, 33), (1, 37, 128)       # + the largest V accepted
 TILE_TIMED = (4, 1024)          # (B, E) of the timed calls: 4096 edge rows
 TILE_R8 = 8                     # K4b also timed at its largest V for R = 8
+# the block policy's shapes: (label, kind, B, E, V, R), one shared
+# scenario; the analytic pick is held within BLOCK_SLACK of the race's
+# winner at the serving shapes
+BLOCK_SHAPES = (("serve_dense", "dense", 1024, 21, 4096, None),
+                ("controller", "dense", 65, 2, 4096, None),
+                ("serve_structured", "structured", 256, 21, 131_072, 8))
+BLOCK_GATED = ("serve_dense", "serve_structured")
+# each raced config is timed in BLOCK_ROUNDS rounds of the order a b c c b
+# a (a median of BLOCK_REPS single calls each), so the card's drift over
+# the race falls on every config alike
+BLOCK_REPS, BLOCK_ROUNDS, BLOCK_SLACK = 10, 3, 0.05
+QUALITY_SHAPE = (65_536, 256)
+QUALITY_CPU_TOL, QUALITY_NUMPY_TOL = 1e-6, 1e-5
 SOURCES = {"edge_latency_dense": "src/repro_torch/kernels/csrc/edge_latency.cu",
            "edge_latency_structured":
                "src/repro_torch/kernels/csrc/edge_latency.cu",
@@ -532,8 +561,10 @@ PERF_SAMPLES = 11
 MAX_DISABLED_OVERHEAD = 0.05
 # the gate's hot loop: K7 dispatches at a decode step's shape (8 rows of
 # d 2048, bf16), where the host's cost per call is the step's (lm_serve's
-# decode profile reads the card idle 78-89 % of a step)
-HOOK_CALLS, HOOK_SAMPLES = 500, 20
+# decode profile reads the card idle 78-89 % of a step); 60 pairs, since
+# the ratio of the medians of 20 has read 1.0068 and 1.0544 on the H100's
+# shared host, where the disarmed sites cost 0.45 µs of a 24 µs call
+HOOK_CALLS, HOOK_SAMPLES = 500, 60
 HYBRID_ARCH = "zamba2_1_2b"
 # the twelfth slice: the MoE decoder scored at its published widths with
 # Arctic-480B cut to 2 of its 35 layers (26.8 GB of bf16 experts a layer;
@@ -1362,6 +1393,25 @@ def ssm_kernels_phase(torch, dev, shard_rows: int, seq: int, cfg) -> dict:
     return out
 
 
+def tile_cases(operands, vmax: dict) -> list[tuple]:
+    """The single_tile phase's cases, (kind, what, operands): B 2, E 5,
+    V 64, R 4 and E ∈ TILE_ES, V ∈ TILE_VS and the largest V each kernel
+    accepts, shared and per-batch, ``operands(kind, B, E, V, shared)``
+    drawing them."""
+    cases = []
+    for kind in ("dense", "structured"):
+        shapes = [(TILE_E, TILE_V)] + [(E, TILE_V) for E in TILE_ES] \
+            + [(TILE_E, V) for V in (*TILE_VS, vmax[kind])]
+        for shared in (True, False):
+            for E, V in shapes:
+                what = (f"B={TILE_B} E={E} V={V}"
+                        + ("" if kind == "dense" else f" R={TILE_R}")
+                        + f" shared={shared}")
+                cases.append((kind, what,
+                              operands(kind, TILE_B, E, V, shared)))
+    return cases
+
+
 def single_tile_phase(torch, dev) -> dict:
     """K4a/K4b through their dispatch routes at every case shape (the
     phase's main path, launches counted from 0), then held against K1/K2
@@ -1401,17 +1451,7 @@ def single_tile_phase(torch, dev) -> dict:
         return (randn(B, E, V), randn(B, E, V), randn(B, E, R),
                 randn(bc, R, V), randn(bc, 1, V))
 
-    cases = []
-    for kind in ("dense", "structured"):
-        shapes = [(TILE_E, TILE_V)] + [(E, TILE_V) for E in TILE_ES] \
-            + [(TILE_E, V) for V in (*TILE_VS, vmax[kind])]
-        for shared in (True, False):
-            for E, V in shapes:
-                what = (f"B={TILE_B} E={E} V={V}"
-                        + ("" if kind == "dense" else f" R={TILE_R}")
-                        + f" shared={shared}")
-                cases.append((kind, what,
-                              operands(kind, TILE_B, E, V, shared)))
+    cases = tile_cases(operands, vmax)
     sync(torch, dev)
     kernels.reset_launches()
     outs = [route[kind](*args) for kind, _, args in cases]
@@ -1497,6 +1537,210 @@ def single_tile_phase(torch, dev) -> dict:
             report[name] = r
         del args, out
     return {"report": report, "launches": launched}
+
+
+def interleaved_ms(fns, rounds: int, reps: int) -> list[float]:
+    """Each of ``fns`` timed by :func:`time_ms` in ``rounds`` rounds of the
+    order 0 … n-1, n-1 … 0 (parent, change, change, parent): the median of
+    its 2·rounds readings, so a drift of the card's clock over the
+    measurement weighs on every function alike."""
+    readings = [[] for _ in fns]
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    for _ in range(rounds):
+        for i in order:
+            readings[i].append(time_ms(fns[i], reps))
+    return [statistics.median(r) for r in readings]
+
+
+def config_pair(kind: str, cfg) -> tuple[int, int]:
+    """The fields of a block-policy config that ``kind`` reads."""
+    return (cfg.stages, cfg.group) if kind == "dense" \
+        else (cfg.rows, cfg.unroll)
+
+
+def block_policy_phase(torch, dev, card: str = "") -> dict:
+    """The block policy (K3) on the card at :data:`BLOCK_SHAPES`: each
+    candidate config held bitwise against the default and its launcher's
+    tiles against ``block_geometry``; the default against the float64 plain
+    version; each candidate's predicted and measured ms; the race of the
+    top three through ``get_config(timer=)``, whose decisions stay in the
+    table for the serving phases; the analytic pick within
+    :data:`BLOCK_SLACK` of the race's winner at :data:`BLOCK_GATED`; every
+    candidate bitwise K4a / K4b at the single_tile shapes.  Returns the
+    per-shape summary and the table's rows."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import edge_latency as kernels
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def operands(kind, B, E, V, shared, R=TILE_R):
+        bc = 1 if shared else B
+        if kind == "dense":
+            return randn(B, E, V), randn(B, E, V), randn(bc, V, V)
+        return (randn(B, E, V), randn(B, E, V), randn(B, E, R),
+                randn(bc, R, V), randn(bc, 1, V))
+
+    names = {"dense": "edge_latency_dense",
+             "structured": "edge_latency_structured"}
+    blocked = {"dense": kernels.edge_latency_dense,
+               "structured": kernels.edge_latency_structured}
+    plain = {"dense": ref.edge_latency_dense_plain,
+             "structured": ref.edge_latency_structured_plain}
+    autotune.clear_table()
+    summary = {}
+    for label, kind, B, E, V, R in BLOCK_SHAPES:
+        t0 = time.perf_counter()
+        name, run = names[kind], blocked[kind]
+        args = operands(kind, B, E, V, True, R)
+        bucket = autotune.ShapeKey.of("cuda", kind, B, E, V, R).b_bucket
+        ranked = autotune.rank(kind, bucket, E, V, R)
+        default = run(*args)
+        sync(torch, dev)
+        geometry = kernels.block_geometry(kind, E, V, R, None, B=B)
+        check(kernels.last_launch[name]["tiles"] == geometry.tiles,
+              f"block_policy {label}: the launcher's "
+              f"{kernels.last_launch[name]} tiles, block_geometry's "
+              f"{geometry.tiles}")
+        rel, _ = rel_err(default, plain[kind](*(a.double() for a in args)))
+        check(rel <= REL, f"block_policy {label}: the default config's rel "
+                          f"err {rel:.3e} > {REL}")
+        rows = []
+        for cfg in ranked:
+            out = run(*args, config=cfg)
+            sync(torch, dev)
+            pair = config_pair(kind, cfg)
+            g = kernels.block_geometry(kind, E, V, R, cfg, B=B)
+            got = kernels.last_launch[name]
+            check(got["tiles"] == g.tiles,
+                  f"block_policy {label} {pair}: the launcher's tiles "
+                  f"{got['tiles']}, block_geometry's {g.tiles}")
+            check(torch.equal(out, default),
+                  f"block_policy {label} {pair}: differs from the default "
+                  f"config")
+            rows.append({"config": pair, "ctas": got["ctas"],
+                         "predicted_ms": 1e3 * autotune.predict_seconds(
+                             kind, bucket, E, V, R, cfg),
+                         "ms": time_ms(lambda: run(*args, config=cfg),
+                                       BLOCK_REPS)})
+        # the race: the top three timed interleaved, then handed to
+        # get_config through its timer, which records the order it asks
+        top = [config_pair(kind, c)
+               for c in ranked[:autotune.EMPIRICAL_TOP_K]]
+        race_ms = dict(zip(top, interleaved_ms(
+            [lambda c=c: run(*args, config=c)
+             for c in ranked[:autotune.EMPIRICAL_TOP_K]],
+            BLOCK_ROUNDS, BLOCK_REPS)))
+        raced = {}
+
+        def timer(cfg):
+            raced[config_pair(kind, cfg)] = race_ms[config_pair(kind, cfg)]
+            return raced[config_pair(kind, cfg)] / 1e3
+
+        chosen = autotune.get_config(kind, B, E, V, R, backend="cuda",
+                                     timer=timer)
+        check(list(raced) == top, f"block_policy {label}: raced "
+                                  f"{list(raced)}, the top three {top}")
+        pick, winner = top[0], min(raced, key=raced.get)
+        check(config_pair(kind, chosen) == winner,
+              f"block_policy {label}: get_config chose "
+              f"{config_pair(kind, chosen)}, the race {winner}")
+        gap = raced[pick] / raced[winner] - 1.0
+        if label in BLOCK_GATED:
+            check(gap <= BLOCK_SLACK,
+                  f"block_policy {label}: the analytic pick {pick} "
+                  f"{raced[pick]:.4f} ms is {gap:.1%} over the race's "
+                  f"winner {winner} {raced[winner]:.4f} ms "
+                  f"(slack {BLOCK_SLACK:.0%})")
+        wall = time.perf_counter() - t0
+        fields = "(stages, group)" if kind == "dense" else "(rows, unroll)"
+        print(f"block_policy {label} [{kind} B={B} E={E} V={V}"
+              + ("" if R is None else f" R={R}")
+              + f" shared; {card}]: {fields} candidates, best predicted "
+              f"first: " + "; ".join(
+                  f"{r['config']} {r['ms']:.4f} ms (predicted "
+                  f"{r['predicted_ms']:.4f}, {r['ctas']} CTAs)"
+                  for r in rows)
+              + f"; raced {', '.join(f'{p} {t:.4f}' for p, t in raced.items())}"
+              f" ms; analytic pick {pick}, race winner {winner} (pick "
+              f"{gap:+.1%}); all bitwise the default, tiles == "
+              f"block_geometry's; default rel err {rel:.3e}; {wall:.1f} s")
+        summary[label] = {"kind": kind, "candidates": rows, "raced": raced,
+                          "pick": pick, "winner": winner, "gap": gap}
+        del args, default, out
+        torch.cuda.empty_cache()
+
+    # every candidate against the single-tile kernels
+    vmax = {"dense": kernels.single_tile_max_v(),
+            "structured": kernels.single_tile_max_v(TILE_R)}
+    single = {"dense": kernels.edge_latency_dense_single_tile,
+              "structured": kernels.edge_latency_structured_single_tile}
+    cases = tile_cases(operands, vmax)
+    n = 0
+    every = {kind: [autotune.KernelConfig(**dict(zip(
+        ("stages", "group") if kind == "dense" else ("rows", "unroll"),
+        pair))) for pair in pairs] for kind, pairs in (
+        ("dense", kernels.DENSE_CONFIGS),
+        ("structured", kernels.STRUCTURED_CONFIGS))}
+    for kind, what, args in cases:
+        want = single[kind](*args)
+        for cfg in every[kind]:
+            check(torch.equal(blocked[kind](*args, config=cfg), want),
+                  f"block_policy: {names[kind]} {config_pair(kind, cfg)} "
+                  f"{what} differs from the single-tile kernel")
+            n += 1
+    sync(torch, dev)
+    rows = autotune.table_rows()
+    print(f"block_policy: {n} (case, config) pairs bitwise K4a / K4b at the "
+          f"single_tile shapes; decision table {json.dumps(rows)}")
+    return {"summary": summary, "table": rows}
+
+
+def quality_phase(torch, np, dev) -> dict:
+    """``quality_scores_torch`` (A11) on the card at :data:`QUALITY_SHAPE`
+    against its CPU route and the numpy ``quality_scores``."""
+    import warnings
+
+    from repro_torch.streaming.quality import (quality_scores,
+                                               quality_scores_torch)
+    rng = np.random.default_rng(SEED + 6)
+    B, S = QUALITY_SHAPE
+    toks = rng.integers(-1, 30, (B, S))
+    toks[0] = 7                      # a stuck sensor
+    toks[1] = -1                     # a fully missing row
+    toks[2, ::2] = -1                # half missing
+    toks[3, 10:200] = 5              # one long run
+    on_card = torch.as_tensor(toks, device=dev)
+    got = quality_scores_torch(on_card)
+    sync(torch, dev)
+    check(got.device.type == dev.type and got.dtype == torch.float32
+          and got.shape == (B,), f"quality: {got.dtype} {tuple(got.shape)} "
+                                 f"on {got.device}")
+    check(bool(torch.isfinite(got).all()), "quality: non-finite scores")
+    ms = time_ms(lambda: quality_scores_torch(on_card), 10)
+    cpu = quality_scores_torch(toks, device="cpu")
+    with warnings.catch_warnings():  # the fully missing row's empty means
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = quality_scores(toks)
+    got = got.cpu()
+    err_cpu = float((got - cpu).abs().max())
+    err_np = float(np.abs(got.numpy().astype(np.float64) - want).max())
+    check(err_cpu <= QUALITY_CPU_TOL, f"quality: {err_cpu:.3e} from the CPU "
+                                      f"route > {QUALITY_CPU_TOL}")
+    check(err_np <= QUALITY_NUMPY_TOL, f"quality: {err_np:.3e} from numpy's "
+                                       f"quality_scores > "
+                                       f"{QUALITY_NUMPY_TOL}")
+    check(float(got[1]) == 0.0 and float(got[0]) < float(got.median()),
+          "quality: the missing row does not score 0 or the stuck row does "
+          "not score low")
+    mb = toks.nbytes / 2 ** 20
+    print(f"quality: quality_scores_torch on {B} x {S} int64 ({mb:.0f} MiB) "
+          f"on the card {ms:.4f} ms; max |card - CPU route| {err_cpu:.3e} "
+          f"(bar {QUALITY_CPU_TOL}), max |card - numpy| {err_np:.3e} (bar "
+          f"{QUALITY_NUMPY_TOL})")
+    return {"ms": ms, "err_cpu": err_cpu, "err_numpy": err_np}
 
 
 def serve_multi_phase(torch, np, dev, phase: str, graph, pack, xs,
@@ -4764,9 +5008,9 @@ def perf_dispatch_phase(torch, np, dev, ev, packed, pack, dq, beta) -> dict:
     shapes = []
     kernel = el.edge_latency_dense
 
-    def recorded(x_i, x_j, com):
+    def recorded(x_i, x_j, com, config=None):
         shapes.append((tuple(x_i.shape), tuple(com.shape)))
-        return kernel(x_i, x_j, com)
+        return kernel(x_i, x_j, com, config=config)
 
     def fn():
         return ev.score_grid(packed, pack, dq=dq, beta=beta)
@@ -5210,6 +5454,11 @@ def main() -> int:
     report.update(tile["report"])
     torch.cuda.empty_cache()
 
+    # -- 2c./2d. the block policy and the quality twin -------------------------
+    block_policy_phase(torch, dev, card=smi)
+    quality_phase(torch, np, dev)
+    torch.cuda.empty_cache()
+
     # -- 3./4. the serving phases ---------------------------------------------
     def serve(phase, pack, xs, rows, kernel, oracle_fleet, same_rows):
         svc = WhatIfService(graph, device=dev,
@@ -5519,6 +5768,9 @@ def main() -> int:
                 "ssd_scan_bwd":
                     ssm_train[SSM_ARCH]["launches"]["ssd_scan_bwd"],
                 **tile["launches"]}
+    from repro_torch.kernels import autotune
+    print(f"block policy: the run's decisions "
+          f"{json.dumps(autotune.table_rows())}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],

@@ -85,10 +85,12 @@ def _eliminate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.clone(), b.clone()
     n = a.shape[0]
     for k in range(n):
-        p = k + int(torch.argmax(a[k:, k].abs()))
-        if p != k:
-            a[[k, p]] = a[[p, k]]
-            b[[k, p]] = b[[p, k]]
+        # the pivot row stays on the device: rows (k, p) swap by index, a
+        # no-op when p == k, so no iteration waits for the host
+        p = k + torch.argmax(a[k:, k].abs())
+        rows = torch.stack((torch.full_like(p, k), p))
+        a[rows] = a[rows.flip(0)]
+        b[rows] = b[rows.flip(0)]
         a[k + 1:, k] = a[k + 1:, k] / a[k, k]
         a[k + 1:, k + 1:] = a[k + 1:, k + 1:] \
             - a[k + 1:, k:k + 1] * a[k:k + 1, k + 1:]

@@ -135,7 +135,8 @@ def _finish_latency_f(raw, dq, beta):
     the serving layer's host finish divide by."""
     dq = torch.as_tensor(dq, device=raw.device).to(torch.float32)
     beta = float(np.float32(beta))
-    denom = (dq.to(torch.float64) * beta + 1.0).to(raw.dtype)
+    # float64 on purpose: 1 + β·dq rounded once, as dq_denominator does
+    denom = (dq.to(torch.float64) * beta + 1.0).to(raw.dtype)  # repro: ignore[dtype-discipline]
     return raw / denom
 
 
@@ -161,11 +162,11 @@ def _make_dense_movement(weighted: bool):
         w = _f32(_edge_movement_weights(graph), device)
 
         def f(x, com, speed):
+            require_fp32_matmul(x, "the movement objectives")
             if not weighted:
                 return _pair_mass(x, src, dst) @ w
             # price each OPERATOR's inbound transfer once (n·V² instead of
             # E·V²), then gather per edge
-            require_fp32_matmul(x, "the movement objectives")
             op_t = torch.matmul(x, com.T)                    # (P, n_ops, V)
             diag = torch.diagonal(com)
             x_i = x[:, src]                                  # (P, E, V)
@@ -188,13 +189,13 @@ def _make_structured_movement(weighted: bool):
         onehot = region_onehot(region_ix, n_regions)
 
         def f(x, inter, degrade, speed):
+            require_fp32_matmul(x, "the movement objectives")
             if not weighted:
                 return _pair_mass(x, src, dst) @ w
             # Σ_{u≠v} d_u·d_v·inter[r_u,r_v]·x_iu·x_jv as a degrade-weighted
             # region-mass quadratic form minus the u == v diagonal, with the
             # (P, n_ops, R) masses formed ONCE per placement batch; the
             # quadratic form is a cuBLAS float32 product too
-            require_fp32_matmul(x, "the movement objectives")
             mass = region_mass(x, degrade[None], onehot)     # (P, n_ops, R)
             quad = torch.einsum("per,rq,peq->pe", mass[:, src], inter,
                                 mass[:, dst])

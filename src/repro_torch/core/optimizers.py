@@ -203,7 +203,8 @@ def _adam_step(p, m, v, g, t: int, lr: float):
     v = 0.999 * v + 0.001 * g * g
     mhat = m / (1 - 0.9 ** t)
     vhat = v / (1 - 0.999 ** t)
-    root = torch.sqrt(vhat.double()).to(vhat.dtype)
+    # float64 on purpose: XLA's correctly rounded float32 root
+    root = torch.sqrt(vhat.double()).to(vhat.dtype)  # repro: ignore[dtype-discipline]
     return p - lr * mhat / (root + 1e-8), m, v
 
 

@@ -283,6 +283,7 @@ def make_latency_fn(graph: OpGraph, fleet: ExplicitFleet | RegionFleet,
             fleet.n_regions)
 
         def com_times(x_j):
+            require_fp32_matmul(x_j, "the smoothed model's transfer times")
             mass = region_mass(x_j, d_row, onehot)          # (E, R)
             return torch.matmul(mass, inter_dev_t) + corr * x_j
     else:

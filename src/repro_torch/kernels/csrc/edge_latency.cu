@@ -91,6 +91,19 @@
 //   can differ between the two kernels.
 //   Size: (R + 1)*V + 8*R floats within 227 KB (V <= 6449 at R = 8).
 //
+// Block policy (repro_torch.kernels.autotune, the counterpart of
+// repro.kernels.autotune): K1's ring depth (STAGES) and raster group
+// (GROUP) and K2's rows per CTA (ROWS) and u columns per thread per step
+// (UNROLL) are template parameters, instantiated for the configs listed in
+// K1_CONFIGS and K2_CONFIGS below; the launchers take the config and refuse
+// any other.  None of them changes the order in which an output element is
+// summed: K1 adds its 32-deep v stages in ascending v whatever the ring
+// depth, and the raster group only decides which CTA computes which tile;
+// K2's per-row fmaf chain over r is the same for every row block and
+// unroll, and the maxima are exact.  So every config of K1 is bitwise equal
+// to every other and to K4a, and every config of K2 to every other and to
+// K4b.  K1_STAGES, K1_GROUP, S_ROWS and S_UNROLL are the default config.
+//
 // Summation order is fixed by the tiling, so a repeat launch on the same
 // inputs is bitwise identical.  Each entry point takes raw pointers, element
 // strides and the CUDA stream, launches on that stream and returns
@@ -210,7 +223,7 @@ __device__ __forceinline__ void ldmatrix_x4(float (&r)[4], uint32_t a) {
 // once per launch into hi and lo copies (edge_latency_dense_split_kernel,
 // into the caller's scratch); x_j is split in registers.  A CTA is two
 // consumer warpgroups: a 128-row x 128-u tile, 64 rows each.  A ring of
-// K1_STAGES 32-deep v stages holds the x_j tile and the com_hi and com_lo
+// STAGES 32-deep v stages holds the x_j tile and the com_hi and com_lo
 // tiles in wgmma's 128-byte-swizzled K-major layout (a 32-float row is one
 // swizzle row: 16-byte chunk c of row r at chunk c ^ (r % 8)), filled with
 // cp.async (16 bytes a copy when V is a multiple of 4, else 4).  Per stage
@@ -218,7 +231,7 @@ __device__ __forceinline__ void ldmatrix_x4(float (&r)[4], uint32_t a) {
 // wgmma m64n128k8 TF32 products per k8 step (lo*hi, hi*lo, hi*hi) into a
 // fresh accumulator, which it adds into its running sums after the stage.
 // The kernel is persistent: gridDim.x CTAs walk the (batch, row tile,
-// u tile) tiles in a grouped order (K1_GROUP row tiles share each u tile,
+// u tile) tiles in a grouped order (GROUP row tiles share each u tile,
 // so a com tile is read by neighbouring CTAs together and a group's x_j
 // rows stay in L2 while its u tiles pass).  A row's 128 columns sit in the
 // 4 lanes of one warp, so each tile's partial max over its u columns needs
@@ -228,12 +241,18 @@ __device__ __forceinline__ void ldmatrix_x4(float (&r)[4], uint32_t a) {
 // compared as 0, and v >= V loads read as 0.
 
 constexpr int K1_BM = 128, K1_BN = 128, K1_THREADS = 256;
-constexpr int K1_STAGES = 4;
-constexpr int K1_GROUP = 8;
+constexpr int K1_STAGES = 4;    // the default ring depth
+constexpr int K1_GROUP = 8;     // the default raster group
 constexpr uint32_t K1_TILE = 128 * 128;           // 128 rows x 32 floats
 constexpr uint32_t K1_STAGE = 3 * K1_TILE;        // x_j, com_hi, com_lo
-constexpr size_t K1_SMEM = K1_STAGES * K1_STAGE + 1024;   // + atom alignment
+// a CTA's dynamic shared memory: the ring, + atom alignment
+constexpr size_t k1_smem(int stages) { return stages * K1_STAGE + 1024; }
 static_assert(K1_BM == K1_BN, "x_j and com tiles must have equal rows");
+static_assert(k1_smem(K1_STAGES) <= 232448, "the ring must fit 227 KB");
+
+// K1's instantiations, (STAGES, GROUP); the default first.  A ring of 5
+// stages (241 KB) would not fit the 227 KB a CTA can use.
+#define K1_CONFIGS(X) X(4, 8) X(4, 16) X(4, 4) X(3, 8) X(3, 16) X(2, 8)
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
   // K-major, 128-byte swizzle: 8-row atoms 1024 bytes apart
@@ -299,8 +318,8 @@ __global__ void edge_latency_dense_split_kernel(const float* __restrict__ x,
 
 // Each 32-deep v stage accumulates in a fresh accumulator (acc) that is
 // added to the running sum on the CUDA cores.  VEC: 16-byte copies
-// (V % 4 == 0).
-template <bool VEC>
+// (V % 4 == 0); STAGES: the ring's depth; GROUP: the raster group.
+template <bool VEC, int STAGES, int GROUP>
 __global__ void __launch_bounds__(K1_THREADS, 1)
 edge_latency_dense_kernel(const float* __restrict__ xi,
                           const float* __restrict__ xj,
@@ -329,11 +348,11 @@ edge_latency_dense_kernel(const float* __restrict__ xi,
   for (int64_t tile = blockIdx.x; tile < n_batch * per_b;
        tile += gridDim.x) {
     const int64_t b = tile / per_b, rem = tile % per_b;
-    const int64_t grp = rem / (K1_GROUP * n_ut);
-    const int64_t in = rem % (K1_GROUP * n_ut);
-    const int64_t gsz = n_rt - grp * K1_GROUP < K1_GROUP
-                            ? n_rt - grp * K1_GROUP : K1_GROUP;
-    const int64_t row0 = (grp * K1_GROUP + in % gsz) * K1_BM;
+    const int64_t grp = rem / (GROUP * n_ut);
+    const int64_t in = rem % (GROUP * n_ut);
+    const int64_t gsz = n_rt - grp * GROUP < GROUP ? n_rt - grp * GROUP
+                                                   : GROUP;
+    const int64_t row0 = (grp * GROUP + in % gsz) * K1_BM;
     const int64_t ut = in / gsz, u0 = ut * K1_BN;
     const float* a_src = xj + b * x_bs;
     const float* h_src = com_hi + b * com_bs;
@@ -383,19 +402,19 @@ edge_latency_dense_kernel(const float* __restrict__ xi,
     for (int i = 0; i < 64; ++i) sum[i] = acc[i] = 0.f;
 
 #pragma unroll
-    for (int s = 0; s < K1_STAGES - 1; ++s) {
+    for (int s = 0; s < STAGES - 1; ++s) {
       if (s < nk) load_stage(s, s);
       cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<K1_STAGES - 2>();
+      cp_async_wait<STAGES - 2>();
       fence_proxy_async();    // the copies are visible to wgmma's reads
       __syncthreads();        // stage kt landed; slot (kt - 1) is free
-      if (kt + K1_STAGES - 1 < nk)
-        load_stage((kt + K1_STAGES - 1) % K1_STAGES, kt + K1_STAGES - 1);
+      if (kt + STAGES - 1 < nk)
+        load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
       cp_async_commit();
 
-      const uint32_t st = ring + (kt % K1_STAGES) * K1_STAGE;
+      const uint32_t st = ring + (kt % STAGES) * K1_STAGE;
       uint32_t ahi[STAGE_V / 8][4], alo[STAGE_V / 8][4];
 #pragma unroll
       for (int kk = 0; kk < STAGE_V / 8; ++kk) {
@@ -460,11 +479,20 @@ __global__ void edge_latency_dense_finish_kernel(
 
 // -- K2: structured (region-factored) ----------------------------------------
 
-constexpr int S_ROWS = 8;       // edge rows per CTA
+constexpr int S_ROWS = 8;       // the default edge rows per CTA
 constexpr int S_THREADS = 256;
-constexpr int S_UNROLL = 4;     // u columns per thread per step, S_THREADS apart
+constexpr int S_UNROLL = 4;     // the default u columns per thread per step,
+                                // S_THREADS apart
 
-// two CTAs per SM (≤128 registers, no spills) keep more loads in flight
+// K2's instantiations, (ROWS, UNROLL); the default first.  A CTA's shared
+// memory is ROWS * R floats of mass (dynamic) and its (8, ROWS) partial
+// maxima (static), so a large R leaves only the small row blocks.  16 rows
+// a CTA spilled at the 128 registers the launch bound allows and ran ~45 %
+// slower at the serving shape: not instantiated.
+#define K2_CONFIGS(X) X(8, 4) X(8, 2) X(8, 8) X(4, 4) X(4, 8)
+
+// two CTAs per SM (≤128 registers) keep more loads in flight
+template <int ROWS, int UNROLL>
 __global__ void __launch_bounds__(S_THREADS, 2)
 edge_latency_structured_kernel(const float* __restrict__ xi,
                                const float* __restrict__ xj,
@@ -477,37 +505,37 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
                                int64_t mass_bs, int64_t mass_rs,
                                int64_t a_bs, int64_t a_rs,
                                int64_t corr_bs, int64_t out_bs) {
-  extern __shared__ float smass[];                  // [S_ROWS][R]
-  __shared__ float red[S_THREADS / 32][S_ROWS];
+  extern __shared__ float smass[];                  // [ROWS][R]
+  __shared__ float red[S_THREADS / 32][ROWS];
 
   const int tid = threadIdx.x;
   const int64_t b = blockIdx.y;
-  const int64_t row0 = (int64_t)blockIdx.x * S_ROWS;
-  const int nrows = rows - row0 < S_ROWS ? (int)(rows - row0) : S_ROWS;
+  const int64_t row0 = (int64_t)blockIdx.x * ROWS;
+  const int nrows = rows - row0 < ROWS ? (int)(rows - row0) : ROWS;
   const float* xi_b = xi + b * x_bs + row0 * x_rs;
   const float* xj_b = xj + b * x_bs + row0 * x_rs;
   const float* mass_b = mass + b * mass_bs + row0 * mass_rs;
   const float* a_b = a + b * a_bs;
   const float* corr_b = corr + b * corr_bs;
 
-  for (int64_t idx = tid; idx < S_ROWS * R; idx += S_THREADS) {
+  for (int64_t idx = tid; idx < ROWS * R; idx += S_THREADS) {
     const int64_t i = idx / R, r = idx % R;
     smass[idx] = i < nrows ? mass_b[i * mass_rs + r] : 0.f;
   }
   __syncthreads();
 
-  float m[S_ROWS];
+  float m[ROWS];
 #pragma unroll
-  for (int i = 0; i < S_ROWS; ++i) m[i] = neg_inf();
+  for (int i = 0; i < ROWS; ++i) m[i] = neg_inf();
 
-  for (int64_t ub = 0; ub < V; ub += (int64_t)S_THREADS * S_UNROLL) {
+  for (int64_t ub = 0; ub < V; ub += (int64_t)S_THREADS * UNROLL) {
 #pragma unroll
-    for (int s = 0; s < S_UNROLL; ++s) {
+    for (int s = 0; s < UNROLL; ++s) {
       const int64_t u = ub + (int64_t)s * S_THREADS + tid;
       if (u >= V) break;
-      float x_i[S_ROWS], x_j[S_ROWS], t[S_ROWS];
+      float x_i[ROWS], x_j[ROWS], t[ROWS];
 #pragma unroll
-      for (int i = 0; i < S_ROWS; ++i) {
+      for (int i = 0; i < ROWS; ++i) {
         x_i[i] = i < nrows ? xi_b[i * x_rs + u] : 0.f;
         x_j[i] = i < nrows ? xj_b[i * x_rs + u] : 0.f;
         t[i] = 0.f;
@@ -516,10 +544,10 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
       for (int64_t r = 0; r < R; ++r) {
         const float av = __ldg(a_b + r * a_rs + u);
 #pragma unroll
-        for (int i = 0; i < S_ROWS; ++i) t[i] = fmaf(smass[i * R + r], av, t[i]);
+        for (int i = 0; i < ROWS; ++i) t[i] = fmaf(smass[i * R + r], av, t[i]);
       }
 #pragma unroll
-      for (int i = 0; i < S_ROWS; ++i)
+      for (int i = 0; i < ROWS; ++i)
         if (i < nrows)
           m[i] = fmaxf(m[i], structured_term(x_i[i], t[i], c, x_j[i]));
     }
@@ -527,7 +555,7 @@ edge_latency_structured_kernel(const float* __restrict__ xi,
 
   const int lane = tid % 32, warp = tid / 32;
 #pragma unroll
-  for (int i = 0; i < S_ROWS; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
@@ -802,6 +830,88 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// -- the launches of one K1 / K2 config ---------------------------------------
+
+// K1 at one (STAGES, GROUP): the split of com, the persistent grid, the
+// finish.  info[0] receives the tiles, info[1] the CTAs launched.
+template <int STAGES, int GROUP>
+cudaError_t dense_launch(const float* xi, const float* xj, const float* com,
+                         float* com_hi, float* com_lo, float* partial,
+                         float* out, int64_t n_batch, int64_t rows, int64_t V,
+                         int64_t x_bs, int64_t x_rs, int64_t com_bs,
+                         int64_t com_rs, int64_t out_bs, int64_t n_com,
+                         bool vec, int64_t* info, cudaStream_t s) {
+  constexpr size_t smem = k1_smem(STAGES);
+  const auto kern = vec ? edge_latency_dense_kernel<true, STAGES, GROUP>
+                        : edge_latency_dense_kernel<false, STAGES, GROUP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t n_ut = (V + K1_BN - 1) / K1_BN;
+  const int64_t tiles = n_batch * ((rows + K1_BM - 1) / K1_BM) * n_ut;
+  unsigned grid = 0;
+  int sms = 0;
+  if ((err = persistent_grid(kern, K1_THREADS, smem, tiles, &grid, &sms)) !=
+      cudaSuccess)
+    return err;
+  edge_latency_dense_split_kernel<<<sms * 8, 256, 0, s>>>(com, com_hi, com_lo,
+                                                          n_com);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kern<<<grid, K1_THREADS, smem, s>>>(xi, xj, com_hi, com_lo, partial,
+                                      n_batch, rows, V, x_bs, x_rs, com_bs,
+                                      com_rs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t n = n_batch * rows;
+  edge_latency_dense_finish_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                                     s>>>(partial, out, n_batch, rows, n_ut,
+                                          out_bs);
+  info[0] = tiles;
+  info[1] = grid;
+  return cudaGetLastError();
+}
+
+// K2 at one (ROWS, UNROLL): a CTA per ROWS edge rows of each batch.
+// info[0] receives the tiles (CTAs), info[1] the CTAs launched.
+template <int ROWS, int UNROLL>
+cudaError_t structured_launch(const float* xi, const float* xj,
+                              const float* mass, const float* a,
+                              const float* corr, float* out, int64_t n_batch,
+                              int64_t rows, int64_t V, int64_t R,
+                              int64_t x_bs, int64_t x_rs, int64_t mass_bs,
+                              int64_t mass_rs, int64_t a_bs, int64_t a_rs,
+                              int64_t corr_bs, int64_t out_bs, int64_t* info,
+                              cudaStream_t s) {
+  const int64_t blocks = (rows + ROWS - 1) / ROWS;
+  if (n_batch > 65535 || blocks > 0x7fffffff)
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)ROWS * (size_t)R * sizeof(float);
+  const auto kern = edge_latency_structured_kernel<ROWS, UNROLL>;
+  const cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)blocks, (unsigned)n_batch);
+  kern<<<grid, S_THREADS, smem, s>>>(xi, xj, mass, a, corr, out, rows, V, R,
+                                     x_bs, x_rs, mass_bs, mass_rs, a_bs, a_rs,
+                                     corr_bs, out_bs);
+  info[0] = blocks * n_batch;
+  info[1] = blocks * n_batch;
+  return cudaGetLastError();
+}
+
+// CTAs of `kernel` that fit on one SM at `threads` threads and `smem` bytes
+// of dynamic shared memory (the occupancy calculator; registers included)
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem,
+                      int64_t* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int n = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &n, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  *out = n;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -811,51 +921,40 @@ extern "C" {
 // gives com_hi and com_lo, scratch of com's n_com floats, and partial, a
 // (n_batch, ceil(V / 128), rows) float32 scratch.  Three launches: the
 // split of com, a persistent grid of (CTAs per SM) x (SMs) over the tiles,
-// and the finish.
+// and the finish.  (stages, group) must be one of K1_CONFIGS; any other is
+// refused with cudaErrorInvalidValue before anything runs.  info (2
+// int64s) receives the tiles and the CTAs launched.
 int edge_latency_dense_launch(const float* xi, const float* xj,
                               const float* com, float* com_hi, float* com_lo,
                               float* partial, float* out,
                               int64_t n_batch, int64_t rows, int64_t V,
                               int64_t x_bs, int64_t x_rs,
                               int64_t com_bs, int64_t com_rs,
-                              int64_t out_bs, int64_t n_com,
-                              void* stream) {
+                              int64_t out_bs, int64_t n_com, int64_t stages,
+                              int64_t group, int64_t* info, void* stream) {
   if (n_batch < 1 || rows < 1 || V < 1 || n_com < 1)
     return (int)cudaErrorInvalidConfiguration;
   const bool vec = V % 4 == 0 && x_rs % 4 == 0 && x_bs % 4 == 0 &&
                    com_rs % 4 == 0 && com_bs % 4 == 0 &&
                    (uintptr_t)xj % 16 == 0 && (uintptr_t)com_hi % 16 == 0 &&
                    (uintptr_t)com_lo % 16 == 0;
-  const auto kern = vec ? edge_latency_dense_kernel<true>
-                        : edge_latency_dense_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K1_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n_ut = (V + K1_BN - 1) / K1_BN;
-  const int64_t tiles = n_batch * ((rows + K1_BM - 1) / K1_BM) * n_ut;
-  unsigned grid = 0;
-  int sms = 0;
-  if ((err = persistent_grid(kern, K1_THREADS, K1_SMEM, tiles, &grid,
-                             &sms)) != cudaSuccess)
-    return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
-  edge_latency_dense_split_kernel<<<sms * 8, 256, 0, s>>>(com, com_hi, com_lo,
-                                                          n_com);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  kern<<<grid, K1_THREADS, K1_SMEM, s>>>(
-      xi, xj, com_hi, com_lo, partial, n_batch, rows, V, x_bs, x_rs, com_bs,
-      com_rs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t n = n_batch * rows;
-  edge_latency_dense_finish_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                                     s>>>(partial, out, n_batch, rows, n_ut,
-                                          out_bs);
-  return (int)cudaGetLastError();
+#define K1_LAUNCH(ST_, GR_)                                                   \
+  if (stages == ST_ && group == GR_)                                          \
+    return (int)dense_launch<ST_, GR_>(xi, xj, com, com_hi, com_lo, partial,  \
+                                       out, n_batch, rows, V, x_bs, x_rs,     \
+                                       com_bs, com_rs, out_bs, n_com, vec,    \
+                                       info, s);
+  K1_CONFIGS(K1_LAUNCH)
+#undef K1_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-// K2.  a_bs = corr_bs = 0 shares one scenario across batches.  The (8, R)
-// mass tile lives in dynamic shared memory, so R is bounded by the 227 KB a
-// CTA can use (R <= ~7200); a larger R fails cudaFuncSetAttribute.
+// K2.  a_bs = corr_bs = 0 shares one scenario across batches.  The (ROWS,
+// R) mass tile lives in dynamic shared memory, so R is bounded by the
+// 227 KB a CTA can use (R <= ~7200 at ROWS 8); a larger R fails
+// cudaFuncSetAttribute.  (rows_per_cta, unroll) must be one of K2_CONFIGS;
+// any other is refused with cudaErrorInvalidValue.  info as K1's.
 int edge_latency_structured_launch(const float* xi, const float* xj,
                                    const float* mass, const float* a,
                                    const float* corr, float* out,
@@ -864,20 +963,41 @@ int edge_latency_structured_launch(const float* xi, const float* xj,
                                    int64_t mass_bs, int64_t mass_rs,
                                    int64_t a_bs, int64_t a_rs,
                                    int64_t corr_bs, int64_t out_bs,
-                                   void* stream) {
-  const int64_t blocks = (rows + S_ROWS - 1) / S_ROWS;
-  if (n_batch < 1 || n_batch > 65535 || blocks < 1 || blocks > 0x7fffffff ||
-      R < 1)
+                                   int64_t rows_per_cta, int64_t unroll,
+                                   int64_t* info, void* stream) {
+  if (n_batch < 1 || rows < 1 || R < 1)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)S_ROWS * (size_t)R * sizeof(float);
-  const cudaError_t err = allow_smem(edge_latency_structured_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)blocks, (unsigned)n_batch);
-  edge_latency_structured_kernel<<<grid, S_THREADS, smem,
-                                   (cudaStream_t)stream>>>(
-      xi, xj, mass, a, corr, out, rows, V, R, x_bs, x_rs, mass_bs, mass_rs,
-      a_bs, a_rs, corr_bs, out_bs);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define K2_LAUNCH(RW_, UN_)                                                   \
+  if (rows_per_cta == RW_ && unroll == UN_)                                   \
+    return (int)structured_launch<RW_, UN_>(                                  \
+        xi, xj, mass, a, corr, out, n_batch, rows, V, R, x_bs, x_rs,         \
+        mass_bs, mass_rs, a_bs, a_rs, corr_bs, out_bs, info, s);
+  K2_CONFIGS(K2_LAUNCH)
+#undef K2_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs per SM of one instantiation on the current device: kind 0 is K1
+// (a = STAGES, b = GROUP, its ring's shared memory), kind 1 is K2 (a =
+// ROWS, b = UNROLL, ROWS * R floats of shared memory).  An instantiation
+// that does not exist is refused with cudaErrorInvalidValue.
+int edge_latency_ctas_per_sm(int64_t kind, int64_t a, int64_t b, int64_t R,
+                             int64_t* out) {
+#define K1_OCC(ST_, GR_)                                                      \
+  if (kind == 0 && a == ST_ && b == GR_)                                      \
+    return (int)occupancy(&edge_latency_dense_kernel<true, ST_, GR_>,         \
+                          K1_THREADS, k1_smem(ST_), out);
+  K1_CONFIGS(K1_OCC)
+#undef K1_OCC
+#define K2_OCC(RW_, UN_)                                                      \
+  if (kind == 1 && a == RW_ && b == UN_)                                      \
+    return (int)occupancy(&edge_latency_structured_kernel<RW_, UN_>,          \
+                          S_THREADS, (size_t)RW_ * (size_t)R * sizeof(float), \
+                          out);
+  K2_CONFIGS(K2_OCC)
+#undef K2_OCC
+  return (int)cudaErrorInvalidValue;
 }
 
 // K4a.  Grid (ceil(E / 8), n_batch); com_bs = 0 shares one com across

@@ -19,8 +19,13 @@ differentiated, and asking for it under grad raises); every other card
 route raises in that case instead of returning a tensor without a
 ``grad_fn``, giving the reason (:data:`NO_BACKWARD`).  The plain routes on
 the CPU are ordinary autograd, as the reference trains through its plain
-functions.  Block sizes are fixed constants of the
-kernel sources.  Every decision is counted as
+functions.  K1's and K2's launch config on the card comes from the block
+policy (:func:`edge_config`: :func:`repro_torch.kernels.autotune.get_config`
+unless the caller pins one with ``config=``, as the reference's
+``plan_edge_kernel`` consults its autotuner unless the caller pins
+blocks); the plain routes take none, and a pinned config that K1 / K2 were
+not built for raises on either route.  The other kernels' block sizes are
+constants of their sources.  Every decision is counted as
 ``kernels.dispatch.plans{kind, impl}`` in :mod:`repro_torch.obs` when the
 registry is enabled (kind ``dense``,
 ``structured``, ``dense_single_tile``, ``structured_single_tile``,
@@ -58,6 +63,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.perf.counts import kernel_scope
+from repro_torch.kernels import autotune
 from repro_torch.kernels import edge_latency as kernels
 from repro_torch.kernels import flash_attention as attention_kernel
 from repro_torch.kernels import ref
@@ -65,7 +71,7 @@ from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import ssd_scan as ssd_kernel
 
 __all__ = ["resolve_device", "plan_edge_kernel", "plan_attention_kernel",
-           "edge_latency", "edge_latency_structured",
+           "edge_config", "edge_latency", "edge_latency_structured",
            "edge_latency_single_tile", "edge_latency_structured_single_tile",
            "flash_attention", "rmsnorm", "ssd_scan"]
 
@@ -145,20 +151,56 @@ def plan_attention_kernel(*tensors: torch.Tensor) -> str:
     return impl
 
 
-def edge_latency(x_i, x_j, com) -> torch.Tensor:
-    """Dense edge-latency max: (B, E, V) rows × (B|1, V, V) com → (B, E)."""
+def edge_config(kind: str, B: int, E: int, V: int, R: int | None = None,
+                com_batch: int = 1, config=None):
+    """K1's (``kind="dense"``) or K2's launch config on the card: ``config``
+    when the caller pins one, else the block policy's choice for the shape
+    (:func:`repro_torch.kernels.autotune.get_config`, keyed ``"cuda"``).  A
+    pinned config that was not instantiated, or whose shared memory does
+    not fit at this R, raises ValueError — it is never replaced by
+    another."""
+    if config is not None:
+        check = kernels.dense_config if kind == "dense" \
+            else kernels.structured_config
+        check(config)
+        if E > 0:                    # K2's mass tile must fit at this R
+            kernels.block_geometry(kind, E, V, R, config, B=B,
+                                   com_batch=com_batch)
+        return config
+    if E == 0:                       # nothing to launch
+        return autotune.DEFAULT_CONFIG
+    return autotune.get_config(kind, B, E, V, R, com_batch=com_batch,
+                               backend="cuda")
+
+
+def edge_latency(x_i, x_j, com, *, config=None) -> torch.Tensor:
+    """Dense edge-latency max: (B, E, V) rows × (B|1, V, V) com → (B, E);
+    on the card at the block policy's config, or ``config`` if pinned."""
     with kernel_scope("edge_latency_dense"):
+        B, E, V = x_i.shape
         if plan_edge_kernel("dense", x_i, x_j, com) == "cuda":
-            return kernels.edge_latency_dense(x_i, x_j, com)
+            cfg = edge_config("dense", B, E, V, com_batch=com.shape[0],
+                              config=config)
+            return kernels.edge_latency_dense(x_i, x_j, com, config=cfg)
+        if config is not None:
+            kernels.dense_config(config)
         return ref.edge_latency_dense_plain(x_i, x_j, com)
 
 
-def edge_latency_structured(x_i, x_j, mass, a, corr) -> torch.Tensor:
+def edge_latency_structured(x_i, x_j, mass, a, corr, *,
+                            config=None) -> torch.Tensor:
     """Structured (RegionFleet) edge-latency max:
-    ``max_u x_i·(mass @ a + corr·x_j)`` → (B, E)."""
+    ``max_u x_i·(mass @ a + corr·x_j)`` → (B, E); on the card at the block
+    policy's config, or ``config`` if pinned."""
     with kernel_scope("edge_latency_structured"):
+        B, E, V = x_i.shape
         if plan_edge_kernel("structured", x_i, x_j, mass, a, corr) == "cuda":
-            return kernels.edge_latency_structured(x_i, x_j, mass, a, corr)
+            cfg = edge_config("structured", B, E, V, mass.shape[-1],
+                              com_batch=a.shape[0], config=config)
+            return kernels.edge_latency_structured(x_i, x_j, mass, a, corr,
+                                                   config=cfg)
+        if config is not None:
+            kernels.structured_config(config)
         return ref.edge_latency_structured_plain(x_i, x_j, mass, a, corr)
 
 

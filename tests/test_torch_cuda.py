@@ -390,6 +390,73 @@ def test_k4b_scalar_path_equals_k2_on_the_card(card, V, R, offset, shared):
                  / want.abs().max()) <= 1e-5
 
 
+def _every_config(kind):
+    from repro_torch.kernels.autotune import KernelConfig
+    fields = ("stages", "group") if kind == "dense" else ("rows", "unroll")
+    pairs = ek.DENSE_CONFIGS if kind == "dense" else ek.STRUCTURED_CONFIGS
+    return [KernelConfig(**dict(zip(fields, p))) for p in pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("V,E", [(64, 5), (7, 33), (237, 130), (129, 1)])
+def test_every_k1_config_equals_the_default_and_k4a_on_the_card(card, V, E,
+                                                                shared):
+    """Every instantiation of K1 (ring depth, raster group) is bitwise the
+    default config's launch and K4a's, and its launcher's tiles are
+    ``block_geometry``'s (the single-tile shapes: V up to 237)."""
+    rng = np.random.default_rng(V + E)
+    B, bc = 3, 1 if shared else 3
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(card)
+
+    d = (arr(B, E, V), arr(B, E, V), arr(bc, V, V))
+    want = ek.edge_latency_dense(*d)
+    assert torch.equal(want, ek.edge_latency_dense_single_tile(*d))
+    for cfg in _every_config("dense"):
+        assert torch.equal(ek.edge_latency_dense(*d, config=cfg), want), cfg
+        g = ek.block_geometry("dense", E, V, None, cfg, B=B, com_batch=bc)
+        assert ek.last_launch["edge_latency_dense"]["tiles"] == g.tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("V,E,R", [(64, 5, 4), (1237, 70, 8), (6449, 3, 8),
+                                   (300, 130, 1)])
+def test_every_k2_config_equals_the_default_and_k4b_on_the_card(card, V, E,
+                                                                R, shared):
+    """Every instantiation of K2 (rows a CTA, unroll) is bitwise the
+    default config's launch and K4b's, with its launcher's tiles
+    ``block_geometry``'s; a config with no instantiation raises before a
+    launch."""
+    from repro_torch.kernels.autotune import KernelConfig
+    st = _structured_operands(card, V + E + R, 3, E, V, R, shared)
+    want = ek.edge_latency_structured(*st)
+    assert torch.equal(want, ek.edge_latency_structured_single_tile(*st))
+    for cfg in _every_config("structured"):
+        got = ek.edge_latency_structured(*st, config=cfg)
+        assert torch.equal(got, want), cfg
+        g = ek.block_geometry("structured", E, V, R, cfg, B=3,
+                              com_batch=st[3].shape[0])
+        assert ek.last_launch["edge_latency_structured"]["tiles"] == g.tiles
+    before = ek.launches["edge_latency_structured"]
+    with pytest.raises(ValueError, match="no instantiation"):
+        ek.edge_latency_structured(*st, config=KernelConfig(rows=32))
+    assert ek.launches["edge_latency_structured"] == before
+
+
+@pytest.mark.cuda
+def test_occupancy_comes_from_the_card(card):
+    """The block policy reads each instantiation's CTAs per SM from the
+    card: at least the kernels' launch bounds (K1 1, K2 2)."""
+    for cfg in _every_config("dense"):
+        assert ek.ctas_per_sm("dense", cfg) >= 1
+    for cfg in _every_config("structured"):
+        assert ek.ctas_per_sm("structured", cfg, 8) >= 2
+
+
 @pytest.mark.cuda
 def test_single_tile_size_refusal_on_the_card(card):
     V = ek.single_tile_max_v() + 1

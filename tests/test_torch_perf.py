@@ -554,8 +554,11 @@ def _card_kernels(monkeypatch):
         return roofline.rmsnorm_terms(x.numel() // x.shape[-1], x.shape[-1],
                                       x.dtype)
 
-    def k1_terms(x_i, x_j, com):
+    def k1_terms(x_i, x_j, com, config=None):
         return roofline.edge_latency_dense_terms(*x_i.shape, com.shape[0])
+
+    def k1_plain(x_i, x_j, com, config=None):   # every config: one function
+        return ref.edge_latency_dense_plain(x_i, x_j, com)
 
     for mod in (el, fa, sk, rk):
         monkeypatch.setattr(mod, "launches", dict.fromkeys(mod.launches, 0))
@@ -566,7 +569,7 @@ def _card_kernels(monkeypatch):
     monkeypatch.setattr(rk, "rmsnorm", _opaque(
         rk, "rmsnorm", ref.rmsnorm_plain, rms_terms))
     monkeypatch.setattr(el, "edge_latency_dense", _opaque(
-        el, "edge_latency_dense", ref.edge_latency_dense_plain, k1_terms))
+        el, "edge_latency_dense", k1_plain, k1_terms))
     from torch._subclasses.fake_tensor import FakeTensor
     monkeypatch.setattr(dispatch, "_plan", lambda kind, what, t: "plain"
                         if isinstance(t[0], FakeTensor) else "cuda")

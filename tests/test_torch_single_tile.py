@@ -171,7 +171,7 @@ def test_chip_smoke_single_tile_phase_rehearses_on_the_cpu(monkeypatch,
         sys.path.remove(str(ROOT))
 
     def counted(name, fn, R_of=None):
-        def run(*args):
+        def run(*args, config=None):     # every config: one function
             if R_of is not None:
                 kernels.check_single_tile(args[0].shape[-1], R_of(args))
             kernels.launches[name] += 1
