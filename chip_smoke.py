@@ -15,7 +15,8 @@ Phases, each raising on a failed check:
    ``rmsnorm.cu``) compiled with
    ``nvcc`` for ``sm_90a``, all in parallel; per kernel its ptxas
    registers and spills and, from ``cuobjdump -sass``, its tensor-core
-   instructions and warpgroup syncs;
+   instructions and warpgroup syncs; it fails if a kernel of K7's
+   backward spills;
 2. kernels: each CUDA kernel against its plain PyTorch version computed in
    float64 on the card, ≤1e-5 relative (max |err| / max |want|), bitwise
    equal on a repeat launch — at the serving shapes, at V ∈ {7, 129, 300}
@@ -295,8 +296,10 @@ bitwise equal.
    3e-4): step 1's gradient finite and non-zero for every parameter; K7's
    backward held on the operands the step hands it (f32 dx ≤1e-5 to the
    float64 plain version, bf16 dx one bf16 ulp of the plain version, dw
-   ≤1e-4, bitwise on repeat) and timed beside ``F.rms_norm``'s backward
-   and its bound; step 1's loss, global and per-parameter gradient norms
+   ≤1e-4, bitwise on repeat, its dw sum in a launch of its own bitwise
+   the fused one) and timed beside ``F.rms_norm``'s backward and its
+   bound, with its route, the device's time alone, the host's share and
+   each kernel's device time with the dw sum apart; step 1's loss, global and per-parameter gradient norms
    against the plain K6/K7 route over 2 layers and the cut depth (≤1e-2
    or the plain route's own bf16 error), a planted backward fault (dw × 2)
    failing both; every step's launches (K7 2L+1 + 2L recomputed, its
@@ -677,7 +680,9 @@ def kernel_resources(log: str, sass: str) -> dict[str, dict]:
     the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) and the
     warpgroup syncs (WARPGROUP.ARRIVE before a wgmma batch reads
     registers, WARPGROUP.DEPBAR where a thread waits for wgmmas), and any
-    ptxas remark on wgmma (serialized wgmmas are reported so)."""
+    ptxas remark on wgmma (serialized wgmmas are reported so).  Template
+    instantiations that share a label (they differ only in a type) keep
+    the most registers and spill bytes of any of them."""
     out: dict[str, dict] = {}
 
     def entry(sym):
@@ -693,9 +698,10 @@ def kernel_resources(log: str, sass: str) -> dict[str, dict]:
             cur = entry(m.group(1))
         elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                              r"loads", line)) and cur is not None:
-            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            cur["spill_bytes"] = max(cur["spill_bytes"] or 0,
+                                     int(m.group(1)) + int(m.group(2)))
         elif (m := re.search(r"Used (\d+) registers", line)) and cur:
-            cur["registers"] = int(m.group(1))
+            cur["registers"] = max(cur["registers"] or 0, int(m.group(1)))
         if "wgmma" in line:
             sym = re.search(r"'(_Z\w+)'", line)
             (entry(sym.group(1)) if sym else cur or entry("?"))[
@@ -4081,6 +4087,28 @@ def recorded_rmsnorm_bwd(seen: dict):
         rk.rmsnorm_bwd = saved
 
 
+# K7's backward kernels in the rmsnorm library: the rows through the ring
+# (16-byte vectors), the scalar rows, and the dw sum as a launch of its own
+RMS_BWD_KERNELS = ("rmsnorm_bwd_ring_kernel", "rmsnorm_bwd_scalar_kernel",
+                   "rmsnorm_bwd_dw_kernel")
+
+
+def rmsnorm_bwd_resources(resources: dict) -> str:
+    """The resource line of K7's backward (``kernel_resources`` of the
+    ``rmsnorm`` library): every kernel of ``RMS_BWD_KERNELS`` must be there
+    and spill nothing."""
+    hits = {k: v for k, v in resources.items()
+            if k.startswith("rmsnorm_bwd")}
+    for name in RMS_BWD_KERNELS:
+        check(any(k.startswith(name) for k in hits),
+              f"rmsnorm: no {name} in the library")
+    for k, v in hits.items():
+        check(v["spill_bytes"] == 0,
+              f"rmsnorm {k}: {v['spill_bytes']} spill bytes")
+    return "; ".join(f"{k} {v['registers']} registers, {v['spill_bytes']} "
+                     f"spill bytes" for k, v in sorted(hits.items()))
+
+
 def hold_rmsnorm_bwd(torch, dev, phase: str, seen: dict) -> dict:
     """K7's backward on recorded operands (:func:`recorded_rmsnorm_bwd`)
     against its plain version (autograd through ``ref.rmsnorm_plain``):
@@ -4092,7 +4120,11 @@ def hold_rmsnorm_bwd(torch, dev, phase: str, seen: dict) -> dict:
     on repeat.  Timed: the kernel's, the plain version's and the bound's
     ms, and ``F.rms_norm``'s autograd backward on the same operands
     (timed as a yardstick only; bf16 x with a bf16 weight, the dtype its
-    fused kernel takes)."""
+    fused kernel takes).  On the card also: the launch's route
+    (``rmsnorm.last_bwd_route``), the device's time alone and the host's
+    share (the single call less the device alone), and the same call with
+    the dw sum in a launch of its own (``fuse=False``: bitwise the fused
+    one), each kernel's device time apart."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -4135,13 +4167,37 @@ def hold_rmsnorm_bwd(torch, dev, phase: str, seen: dict) -> dict:
         y = F.rms_norm(xl, (D,), weight=wl, eps=eps)
         r["library_ms"] = time_ms(lambda: torch.autograd.grad(
             y, (xl, wl), g, retain_graph=True), 10)
+        split = ""
         if dev.type == "cuda":   # the device's time alone, no host
+            rk.rmsnorm_bwd(x, w, g, eps)
+            r["route"] = rk.last_bwd_route()
             r["device_ms"] = kernel_device_ms(
                 torch, lambda: rk.rmsnorm_bwd(x, w, g, eps), 20,
-                "rmsnorm_")       # both kernels: rows and the dw sum
+                "rmsnorm_bwd")    # every backward kernel, no forward one
+            r["host_ms"] = r["ms"] - r["device_ms"]
             r["library_device_ms"] = device_ms_per_call(
                 torch, lambda: torch.autograd.grad(
                     y, (xl, wl), g, retain_graph=True), 20)
+            one = rk.rmsnorm_bwd(x, w, g, eps, fuse=False)
+            two = rk.rmsnorm_bwd(x, w, g, eps)
+            check(torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]),
+                  f"{what}: the dw sum in a launch of its own differs from "
+                  f"the fused one")
+            del one, two
+            r["split_ms"] = time_ms(
+                lambda: rk.rmsnorm_bwd(x, w, g, eps, fuse=False), 10)
+            _, per = device_events(torch, lambda: [
+                rk.rmsnorm_bwd(x, w, g, eps, fuse=False) for _ in range(20)])
+            r["split_rows_ms"] = sum(t for k, (t, _) in per.items()
+                                     if "rmsnorm_bwd" in k
+                                     and "rmsnorm_bwd_dw" not in k) / 20
+            r["split_dw_ms"] = sum(t for k, (t, _) in per.items()
+                                   if "rmsnorm_bwd_dw" in k) / 20
+            split = (f"; route {r['route']}, the host's share "
+                     f"{r['host_ms']:.4f} ms; with the dw sum apart "
+                     f"{r['split_ms']:.4f} ms (the device: rows "
+                     f"{r['split_rows_ms']:.4f}, dw sum "
+                     f"{r['split_dw_ms']:.4f})")
         del xl, wl, y
         out[key] = r
         print(f"{what}: dx rel err {rel_dx:.3e} (bar {bar:.0e}; the plain "
@@ -4151,7 +4207,7 @@ def hold_rmsnorm_bwd(torch, dev, phase: str, seen: dict) -> dict:
               f"{r['plain_ms']:.4f} ms, F.rms_norm backward "
               f"{r['library_ms']:.4f} ms (the device alone "
               f"{r.get('library_device_ms', float('nan')):.4f}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){split}")
     return out
 
 
@@ -4384,7 +4440,7 @@ def lm_train_phase(torch, np, dev, cfg, batch: int = TRAIN_BATCH,
             prof = device_profile(
                 torch, lambda: train_step(opt_state, data[n_steps]),
                 {"K7": ("rmsnorm_kernel", "rmsnorm_rows"),
-                 "K7 backward": ("rmsnorm_bwd", "rmsnorm_dw"),
+                 "K7 backward": ("rmsnorm_bwd",),
                  "K6 backward chunk pass": ("ssd_bwd_tc_chunk",
                                             "ssd_bwd_chunk"),
                  "K6 backward other passes": ("ssd_bwd",),
@@ -5281,6 +5337,8 @@ def main() -> int:
                   f"{use['spill_bytes']} spill bytes"
                   + (f"; SASS {tc}" if tc else "")
                   + "".join(f"; {m}" for m in use["remarks"]))
+    print(f"rmsnorm backward kernels: "
+          f"{rmsnorm_bwd_resources(resources['rmsnorm'])}")
     print("kernels: " + "; ".join(
         f"{k} (cuda, {SOURCES[k]}, replaces {REPLACES[k]})"
         for k in SOURCES))

@@ -64,20 +64,47 @@
 // Bound on this card: bytes.  It reads x and g and writes dx (w and dw are
 // one row): at 8 192 x 4 096 bf16 201 MB, 0.060 ms at 3.35 TB/s.
 //
-// rmsnorm_bwd_kernel: a CTA of BT threads (32 <= BT <= 256, enough for one
-// row) takes a contiguous run of rows, one row at a time.  Thread t holds
-// the loads k = t, t + BT, ... of a row -- 16-byte vectors where D and the
-// pointers allow, else single elements -- and keeps its columns of w and
-// of the CTA's dw partial in registers for the whole run.  Per row the two
-// sums (x*x and x*g*w) meet in a xor butterfly per warp, then the warps'
-// partials in shared memory are added in warp order by every thread; the
-// next row's x and g are loaded before the current one is reduced (where
-// the registers allow).  Each CTA writes its dw partial to one row of a
-// (grid, D) float32 scratch.  rmsnorm_dw_kernel sums that scratch over
-// the CTAs in a fixed order.  No atomics: a repeat launch is bitwise
-// identical, and the grid is a function of rows and D alone
-// (rmsnorm_bwd_partials), so the order is the same on any card.
+// The grid is a function of rows and D alone (bwd_grid): a CTA for every 8
+// rows, at most 264 (two on each of the H100's 132 SMs) for rows of 2048
+// elements or more, up to 8 times as many for narrower rows.  CTA b of G
+// takes the rows b, b + G, b + 2G, ... (the grid sweeps x, g and dx
+// together, as the forward's warps do; a contiguous run of rows a CTA is
+// slower on the H100: tools/k7_bwd_probe.py, variant "runs"); a CTA has
+// BT threads (32 <= BT <= 256, enough for one row), thread t the loads k
+// = t, t + BT, ... of a row.  Per row the two sums (x*x and x*g*w) meet in a xor
+// butterfly per warp, then the warps' partials in shared memory are added
+// in warp order by every thread: one barrier a row.  Where a thread holds
+// at most 16 values of a row (D <= 4096 bf16 or float32), it unpacks them
+// once and keeps g * w from the sums for dx.
+//
+// rmsnorm_bwd_ring_kernel, for rows of whole 16-byte vectors (up to 4 a
+// thread: D <= 8192 bf16, 4096 float32) with 16-byte aligned operands.
+// The CTA streams its rows through a ring of S stages in shared memory,
+// S - 1 rows ahead of the one it reduces (cp.async, 16 bytes a copy; 6, 4
+// or 2 stages for 1, 2 or 4 vectors a thread: a ring of at most 64 KB), so
+// the bytes in flight do not wait on the row's barrier.  A thread copies
+// and reads back only its own vectors, so the ring itself needs no
+// barrier: a stage is refilled by the thread that has just read it.  The
+// forward needs no ring (a TMA ring was no faster there): a warp holds its
+// row and the next in registers with no CTA barrier; the backward has two
+// input streams and a barrier a row, so registers alone would hold at
+// most one row ahead.  w is staged once per CTA as float4 planes (as the
+// forward's), the thread's dw columns are summed in registers.  At the
+// end each CTA writes its dw partial to one row of a (G, D) float32
+// scratch, and where the device holds the whole grid at once the launch
+// is cooperative: the CTAs meet at a grid barrier and sum the partials
+// into dw in the same launch.  Otherwise rmsnorm_bwd_dw_kernel sums them
+// in a launch of its own, in the same order: tiles of 16 columns, each
+// column's partials added over p = s, s + 16, ... for 16 slices s, the
+// slices then added in order.  No atomics in any sum: a repeat launch is
+// bitwise identical, and the order is the same on any card.
+//
+// rmsnorm_bwd_scalar_kernel, every other row (D not whole vectors, or an
+// operand not 16-byte aligned): one element a load, w and the thread's dw
+// columns in registers, the next row loaded before the current one is
+// reduced where the registers allow; the dw sum is its own launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -323,123 +350,354 @@ cudaError_t launch(const void* x, const void* w, void* y, int64_t rows,
 // -- the backward -------------------------------------------------------------
 
 constexpr int BWD_BT = 256;               // the most threads of a CTA
-constexpr int64_t BWD_MIN_ROWS = 8;       // rows a CTA takes at least
-constexpr int64_t BWD_PARTIAL = 1 << 21;  // the dw scratch's floats, at most
 constexpr int BWD_MAX_D = 8192;
-
-// V elements of TI from one load: a 16-byte vector (V = 16 / sizeof(TI))
-// or, below, a single element (V = 1)
-template <typename TI, int V>
-struct Chunk {
-  uint4 u;
-  __device__ __forceinline__ void load(const TI* p) {
-    u = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ float at(int i) const { return elem<TI>(u, i); }
-};
-template <typename TI>
-struct Chunk<TI, 1> {
-  float f;
-  __device__ __forceinline__ void load(const TI* p) { f = to_f(*p); }
-  __device__ __forceinline__ float at(int) const { return f; }
-};
-
-// a thread's loads k = t, t + bt, ... of one row of x and of g
-template <typename TI, int V, int NV>
-__device__ __forceinline__ void load_bwd_row(Chunk<TI, V> (&a)[NV],
-                                             Chunk<TI, V> (&b)[NV],
-                                             const TI* xr, const TI* gr,
-                                             int t, int bt, int nv) {
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int k = t + j * bt;
-    if (k < nv) {
-      a[j].load(xr + (int64_t)k * V);
-      b[j].load(gr + (int64_t)k * V);
-    }
-  }
-}
+// the grid: one CTA per BWD_MIN_ROWS rows, at most BWD_CTAS (two on each
+// of the H100's 132 SMs) for rows of BWD_WIDE_D or more elements, and up
+// to BWD_SPREAD times as many for narrower rows (their CTAs are narrower)
+constexpr int64_t BWD_MIN_ROWS = 8;
+constexpr int64_t BWD_CTAS = 264;
+constexpr int64_t BWD_WIDE_D = 2048;
+constexpr int64_t BWD_SPREAD = 8;
+// dw's sum over the P partials: min(P, DW_SLICES) slices; the dw kernel's
+// CTA takes DW_COLS columns
+constexpr int DW_COLS = 16, DW_SLICES = 16, DW_T = DW_COLS * DW_SLICES;
 
 // the CTAs of the backward's grid, and so the rows of its dw scratch
 inline int64_t bwd_grid(int64_t rows, int64_t D) {
+  int64_t spread = BWD_WIDE_D / D;
+  spread = spread < 1 ? 1 : spread > BWD_SPREAD ? BWD_SPREAD : spread;
   const int64_t by_rows = (rows + BWD_MIN_ROWS - 1) / BWD_MIN_ROWS;
-  const int64_t by_scratch = BWD_PARTIAL / D > 1 ? BWD_PARTIAL / D : 1;
-  return by_rows < by_scratch ? by_rows : by_scratch;
+  return by_rows < BWD_CTAS * spread ? by_rows : BWD_CTAS * spread;
 }
 
-template <typename TI, int V, int NV>
-__global__ void __launch_bounds__(BWD_BT) rmsnorm_bwd_kernel(
-    const TI* __restrict__ x, const float* __restrict__ w,
-    const TI* __restrict__ g, TI* __restrict__ dx,
-    float* __restrict__ partial, int64_t rows, int D, int64_t chunk,
-    float eps) {
-  constexpr bool PREFETCH = NV * (V > 1 ? 4 : 1) <= 16;
-  __shared__ float2 red[2][BWD_BT / 32];
-  const int t = threadIdx.x, BT = blockDim.x, nw = BT / 32;
-  const int nv = D / V;
-  const int64_t r0 = (int64_t)blockIdx.x * chunk;
-  const int64_t r1 = r0 + chunk < rows ? r0 + chunk : rows;
+// threads of a backward CTA for rows of nv loads: enough for one row, up
+// to BWD_BT, a whole number of warps
+inline int bwd_threads(int nv) {
+  return nv >= BWD_BT ? BWD_BT : (nv + 31) / 32 * 32;
+}
 
-  float wr[NV][V], acc[NV][V];
+// the rows of CTA b of G: b, b + G, b + 2G, ... (first + i * step for 0 <=
+// i < count), so that the grid sweeps x, g and dx together, as one stream
+struct RowRun {
+  int64_t first, step, count;
+  __device__ __forceinline__ int64_t row(int64_t i) const {
+    return first + i * step;
+  }
+};
+__device__ __forceinline__ RowRun bwd_rows(int64_t rows) {
+  const int64_t G = gridDim.x, b = blockIdx.x;
+  return {b, G, b < rows ? (rows - b + G - 1) / G : 0};
+}
+
+// the per-row sums of the threads (x*x and x*g*w) added across the CTA:
+// a xor butterfly per warp, then the warps' partials in warp order by
+// every thread.  One barrier a row: the slot alternates with the parity
+// of the CTA's row count i, and a warp writes a slot again only after
+// every warp has passed the barrier between.
+__device__ __forceinline__ float2 bwd_row_sums(float ss, float sg,
+                                               float2 (&red)[2][BWD_BT / 32],
+                                               int64_t i) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    ss += __shfl_xor_sync(FULL, ss, off);
+    sg += __shfl_xor_sync(FULL, sg, off);
+  }
+  float2* slot = red[i & 1];
+  if (threadIdx.x % 32 == 0) slot[threadIdx.x / 32] = make_float2(ss, sg);
+  __syncthreads();
+  ss = 0.f;
+  sg = 0.f;
+  for (int i = 0; i < (int)blockDim.x / 32; ++i) {
+    ss += slot[i].x;
+    sg += slot[i].y;
+  }
+  return make_float2(ss, sg);
+}
+
+// the slices of dw's sum over P partials
+__host__ __device__ __forceinline__ int dw_slices(int64_t P) {
+  return P < DW_SLICES ? (int)P : DW_SLICES;
+}
+
+// columns of dw a CTA of the fused launch sums: an even share of D over
+// the G CTAs, rounded up to a multiple of DW_COLS
+__host__ __device__ __forceinline__ int dw_share(int D, int64_t G) {
+  const int64_t share = (D + G - 1) / G;
+  return (int)((share + DW_COLS - 1) / DW_COLS * DW_COLS);
+}
+
+// dw[c] for the W columns c0 <= c < c0 + W: with SL = dw_slices(P), slice
+// s of column c adds partial[p, c] over p = s, s + SL, ... in order (into
+// s_[s * W + c - c0]), then the SL slices are added in order.  The CTA's
+// threads take the SL * W (slice, column) pairs in turn, so the order is
+// a function of P alone.  Loads through L2 (ld.cg): the partials may have
+// been written by other CTAs of the same launch.
+__device__ __forceinline__ void dw_sum(const float* __restrict__ partial,
+                                       float* __restrict__ dw, int64_t P,
+                                       int D, int c0, int W, float* s_) {
+  const int SL = dw_slices(P);
+  for (int v = threadIdx.x; v < SL * W; v += blockDim.x) {
+    const int c = c0 + v % W;
+    float a = 0.f;
+    if (c < D) {
+#pragma unroll 16
+      for (int64_t p = v / W; p < P; p += SL)
+        a += __ldcg(partial + p * D + c);
+    }
+    s_[v] = a;
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < W; col += blockDim.x) {
+    if (c0 + col >= D) break;
+    float total = 0.f;
+    for (int i = 0; i < SL; ++i) total += s_[i * W + col];
+    dw[c0 + col] = total;
+  }
+}
+
+// the dw sum as a launch of its own: DW_COLS columns a CTA
+__global__ void __launch_bounds__(DW_T) rmsnorm_bwd_dw_kernel(
+    const float* __restrict__ partial, float* __restrict__ dw, int64_t P,
+    int D) {
+  __shared__ float s_[DW_SLICES * DW_COLS];
+  dw_sum(partial, dw, P, D, blockIdx.x * DW_COLS, DW_COLS, s_);
+}
+
+// 16 bytes from device memory into shared memory, through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// the most dynamic shared memory a backward CTA asks for: the largest ring
+// (NV 4 bf16: 2 stages of x and g, w) is 96 KB, the fused sum's slices
+// (D + 16 * DW_SLICES floats at most) 33 KB
+constexpr int BWD_SMEM = 96 * 1024;
+
+// the ring's stages for NV 16-byte loads a thread: S - 1 rows in flight
+// behind the one being reduced, a ring of at most 64 KB at 256 threads
+__host__ __device__ constexpr int ring_stages(int NV) {
+  return NV == 1 ? 6 : NV == 2 ? 4 : 2;
+}
+
+// a thread's 16-byte vectors k = t, t + BT, ... of row `row` of x and of g
+// into stage `st` of the ring ([S][x, g][nv] vectors)
+template <typename TI, int NV>
+__device__ __forceinline__ void ring_fill(uint4* ring, int st, int nv,
+                                          const TI* x, const TI* g,
+                                          int64_t row, int D) {
+  const uint4* xs = reinterpret_cast<const uint4*>(x + row * D);
+  const uint4* gs = reinterpret_cast<const uint4*>(g + row * D);
+  uint4* dst = ring + (size_t)st * 2 * nv;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    const int k = t + j * BT;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      wr[j][i] = k < nv ? w[k * V + i] : 0.f;
-      acc[j][i] = 0.f;
+    const int k = threadIdx.x + j * blockDim.x;
+    if (k < nv) {
+      cp_async16(dst + k, xs + k);
+      cp_async16(dst + nv + k, gs + k);
     }
   }
-  Chunk<TI, V> cx[NV], cg[NV], nx[NV], ng[NV];
-  if (r0 < r1) load_bwd_row(cx, cg, x + r0 * D, g + r0 * D, t, BT, nv);
-  for (int64_t row = r0; row < r1; ++row) {
-    if (PREFETCH && row + 1 < r1)
-      load_bwd_row(nx, ng, x + (row + 1) * D, g + (row + 1) * D, t, BT, nv);
+}
+
+// the backward for rows of whole 16-byte vectors with 16-byte aligned
+// operands: a CTA streams its run of rows through a ring of S stages in
+// shared memory, S - 1 rows ahead (cp.async; a thread copies and reads
+// back only its own vectors, so the ring needs no barrier), w staged once
+// as float4 planes (as the forward's), its dw partial in registers, one
+// barrier a row.  With `fused` (a cooperative launch: every CTA resident)
+// the CTAs then meet at a grid barrier and sum the partials into dw.
+template <typename TI, int NV, int S>
+__global__ void __launch_bounds__(BWD_BT, 2) rmsnorm_bwd_ring_kernel(
+    const TI* __restrict__ x, const float* __restrict__ w,
+    const TI* __restrict__ g, TI* __restrict__ dx,
+    float* __restrict__ partial, float* __restrict__ dw, int64_t rows, int D,
+    float eps, int fused) {
+  constexpr int n = Vec<TI>::n;
+  constexpr int P = n / 4;                 // float4s of w per vector
+  // where the registers allow (16 values a thread), a row's values are
+  // unpacked once and g * w kept from the sums for dx; else unpacked again
+  // and w read again
+  constexpr bool KEEP = NV * n <= 16;
+  extern __shared__ uint4 ring[];          // [S][2][nv], then w [P][nv]
+  __shared__ float2 red[2][BWD_BT / 32];
+  const int t = threadIdx.x, BT = blockDim.x, nv = D / n;
+  float4* w_s = reinterpret_cast<float4*>(ring + (size_t)S * 2 * nv);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  for (int i = t; i < D / 4; i += BT) w_s[(i % P) * nv + i / P] = w4[i];
+  __syncthreads();
+
+  const RowRun run = bwd_rows(rows);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < run.count) ring_fill<TI, NV>(ring, s, nv, x, g, run.row(s), D);
+    cp_async_commit();
+  }
+  float acc[NV][n];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < n; ++i) acc[j][i] = 0.f;
+  int st = 0;                              // the stage of row i
+  for (int64_t i = 0; i < run.count; ++i) {
+    const int64_t row = run.row(i);
+    // the stage of the row before, read back by this thread already
+    if (i + S - 1 < run.count)
+      ring_fill<TI, NV>(ring, st == 0 ? S - 1 : st - 1, nv, x, g,
+                        run.row(i + S - 1), D);
+    cp_async_commit();
+    cp_async_wait<S - 1>();                // this row's group has landed
+    const uint4* xs = ring + (size_t)st * 2 * nv;
+    const uint4* gs = xs + nv;
+    uint4 cx[NV], cg[NV];
+    float xk[KEEP ? NV : 1][n], gk[KEEP ? NV : 1][n], gwk[KEEP ? NV : 1][n];
     float ss = 0.f, sg = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      if (t + j * BT >= nv) break;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float f = cx[j].at(i);
-        ss = fmaf(f, f, ss);
-        sg = fmaf(f, cg[j].at(i) * wr[j][i], sg);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      ss += __shfl_xor_sync(FULL, ss, off);
-      sg += __shfl_xor_sync(FULL, sg, off);
-    }
-    // one barrier a row: the slot alternates, and a warp writes a slot
-    // again only after every warp has passed the barrier between
-    float2* slot = red[row & 1];
-    if (t % 32 == 0) slot[t / 32] = make_float2(ss, sg);
-    __syncthreads();
-    ss = 0.f;
-    sg = 0.f;
-    for (int i = 0; i < nw; ++i) {
-      ss += slot[i].x;
-      sg += slot[i].y;
-    }
-    const float r = rsqrtf(ss / (float)D + eps);
-    const float c = (sg / (float)D) * r * r * r;
-    TI* dxr = dx + row * D;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int k = t + j * BT;
       if (k >= nv) break;
-      float o[V];
+      cx[j] = xs[k];
+      cg[j] = gs[k];
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const float f = cx[j].at(i), gv = cg[j].at(i);
-        o[i] = r * (gv * wr[j][i]) - f * c;
-        acc[j][i] = fmaf(gv, f * r, acc[j][i]);
+      for (int h = 0; h < P; ++h) {
+        const float4 wv = w_s[h * nv + k];
+        const float wh[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = 4 * h + q;
+          const float f = elem<TI>(cx[j], e), gv = elem<TI>(cg[j], e);
+          const float gw = gv * wh[q];
+          ss = fmaf(f, f, ss);
+          sg = fmaf(f, gw, sg);
+          if constexpr (KEEP) {
+            xk[j][e] = f;
+            gk[j][e] = gv;
+            gwk[j][e] = gw;
+          }
+        }
       }
-      if constexpr (V > 1)
-        *reinterpret_cast<uint4*>(dxr + (int64_t)k * V) = pack(o, TI());
-      else
-        put(dxr + k, o[0]);
+    }
+    const float2 sums = bwd_row_sums(ss, sg, red, i);
+    const float r = rsqrtf(sums.x / (float)D + eps);
+    const float c = (sums.y / (float)D) * r * r * r;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * D);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = t + j * BT;
+      if (k >= nv) break;
+      float o[n];
+#pragma unroll
+      for (int h = 0; h < P; ++h) {
+        float wh[4];
+        if constexpr (!KEEP) {
+          const float4 wv = w_s[h * nv + k];
+          wh[0] = wv.x;
+          wh[1] = wv.y;
+          wh[2] = wv.z;
+          wh[3] = wv.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int e = 4 * h + q;
+          float f, gv, gw;
+          if constexpr (KEEP) {
+            f = xk[j][e];
+            gv = gk[j][e];
+            gw = gwk[j][e];
+          } else {
+            f = elem<TI>(cx[j], e);
+            gv = elem<TI>(cg[j], e);
+            gw = gv * wh[q];
+          }
+          o[e] = r * gw - f * c;
+          acc[j][e] = fmaf(gv, f * r, acc[j][e]);
+        }
+      }
+      dxr[k] = pack(o, TI());
+    }
+    st = st + 1 == S ? 0 : st + 1;
+  }
+  float4* pr = reinterpret_cast<float4*>(partial + (int64_t)blockIdx.x * D);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = t + j * BT;
+    if (k >= nv) break;
+#pragma unroll
+    for (int h = 0; h < P; ++h)
+      pr[k * P + h] = make_float4(acc[j][4 * h], acc[j][4 * h + 1],
+                                  acc[j][4 * h + 2], acc[j][4 * h + 3]);
+  }
+  if (!fused) return;
+  // every CTA's partial written (and every copy of the ring landed): the
+  // ring's shared memory holds the slices of this CTA's share of dw
+  cooperative_groups::this_grid().sync();
+  const int W = dw_share(D, gridDim.x);
+  if ((int64_t)blockIdx.x * W < D)
+    dw_sum(partial, dw, gridDim.x, D, blockIdx.x * W, W,
+           reinterpret_cast<float*>(ring));
+}
+
+// the backward for every other row (D not whole vectors, or an operand
+// not 16-byte aligned): one element a load, thread t taking the columns
+// t, t + BT, ... (NV of them at most), w staged in shared memory, the dw
+// partial in registers, the next row loaded before the current one is
+// reduced where the registers allow; the dw sum is a launch of its own
+template <typename TI, int NV>
+__global__ void __launch_bounds__(BWD_BT) rmsnorm_bwd_scalar_kernel(
+    const TI* __restrict__ x, const float* __restrict__ w,
+    const TI* __restrict__ g, TI* __restrict__ dx,
+    float* __restrict__ partial, int64_t rows, int D, float eps) {
+  constexpr bool PREFETCH = NV <= 16;
+  __shared__ float2 red[2][BWD_BT / 32];
+  __shared__ float w_s[BWD_MAX_D];
+  const int t = threadIdx.x, BT = blockDim.x;
+  for (int k = t; k < D; k += BT) w_s[k] = w[k];
+  __syncthreads();
+  const RowRun run = bwd_rows(rows);
+
+  float acc[NV], cx[NV], cg[NV], nx[NV], ng[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) acc[j] = 0.f;
+  const auto load = [&](float (&a)[NV], float (&b)[NV], int64_t row) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = t + j * BT;
+      if (k < D) {
+        a[j] = to_f(x[row * D + k]);
+        b[j] = to_f(g[row * D + k]);
+      }
+    }
+  };
+  if (run.count > 0) load(cx, cg, run.row(0));
+  for (int64_t i = 0; i < run.count; ++i) {
+    const int64_t row = run.row(i);
+    if (PREFETCH && i + 1 < run.count) load(nx, ng, run.row(i + 1));
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = t + j * BT;
+      if (k >= D) break;
+      ss = fmaf(cx[j], cx[j], ss);
+      sg = fmaf(cx[j], cg[j] * w_s[k], sg);
+    }
+    const float2 sums = bwd_row_sums(ss, sg, red, i);
+    const float r = rsqrtf(sums.x / (float)D + eps);
+    const float c = (sums.y / (float)D) * r * r * r;
+    TI* dxr = dx + row * D;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = t + j * BT;
+      if (k >= D) break;
+      put(dxr + k, r * (cg[j] * w_s[k]) - cx[j] * c);
+      acc[j] = fmaf(cg[j], cx[j] * r, acc[j]);
     }
     if (PREFETCH) {
 #pragma unroll
@@ -447,74 +705,122 @@ __global__ void __launch_bounds__(BWD_BT) rmsnorm_bwd_kernel(
         cx[j] = nx[j];
         cg[j] = ng[j];
       }
-    } else if (row + 1 < r1) {
-      load_bwd_row(cx, cg, x + (row + 1) * D, g + (row + 1) * D, t, BT, nv);
+    } else if (i + 1 < run.count) {
+      load(cx, cg, run.row(i + 1));
     }
   }
   float* pr = partial + (int64_t)blockIdx.x * D;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int k = t + j * BT;
-    if (k >= nv) break;
-#pragma unroll
-    for (int i = 0; i < V; ++i) pr[(int64_t)k * V + i] = acc[j][i];
+    if (k >= D) break;
+    pr[k] = acc[j];
   }
 }
 
-// dw[c] = sum over p of partial[p, c]: 8 slices of a 32-column tile sum
-// p = s, s + 8, ... in order, then slice 0 adds the 8 slices in order
-constexpr int DW_COLS = 32, DW_SLICES = 8;
-
-__global__ void __launch_bounds__(DW_COLS * DW_SLICES) rmsnorm_dw_kernel(
-    const float* __restrict__ partial, float* __restrict__ dw, int64_t P,
-    int D) {
-  __shared__ float s[DW_SLICES][DW_COLS];
-  const int lane = threadIdx.x % DW_COLS, sl = threadIdx.x / DW_COLS;
-  const int c = blockIdx.x * DW_COLS + lane;
-  float a = 0.f;
-  if (c < D) {
-#pragma unroll 4
-    for (int64_t p = sl; p < P; p += DW_SLICES) a += partial[p * D + c];
-  }
-  s[sl][lane] = a;
-  __syncthreads();
-  if (sl == 0 && c < D) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < DW_SLICES; ++i) total += s[i][lane];
-    dw[c] = total;
-  }
-}
-
-// loads per thread of the backward: 16-byte vectors up to 4 (D <= 8192
-// bf16, 4096 float32), single elements up to 32 (D <= 8192)
+// loads per thread: 16-byte vectors up to 4 (D <= 8192 bf16, 4096
+// float32), single elements up to 32 (D <= 8192)
 constexpr int BWD_NV_VEC[] = {1, 2, 4};
 constexpr int BWD_NV_ONE[] = {1, 2, 4, 8, 16, 32};
 
-template <typename TI, int V, int I = 0>
-cudaError_t launch_bwd(const TI* x, const float* w, const TI* g, TI* dx,
-                       float* partial, int64_t rows, int D, float eps,
-                       cudaStream_t s) {
-  constexpr int N = V > 1 ? 3 : 6;
-  constexpr int NV = V > 1 ? BWD_NV_VEC[I < 3 ? I : 2] : BWD_NV_ONE[I];
-  const int nv = D / V;
-  const int bt = nv >= BWD_BT ? BWD_BT : (nv + 31) / 32 * 32;
-  if constexpr (I + 1 < N) {
-    if (nv > NV * bt)
-      return launch_bwd<TI, V, I + 1>(x, w, g, dx, partial, rows, D, eps, s);
-  }
-  if (nv > NV * bt) return cudaErrorInvalidValue;
-  const int64_t grid = bwd_grid(rows, D);
-  const int64_t chunk = (rows + grid - 1) / grid;
-  rmsnorm_bwd_kernel<TI, V, NV><<<(unsigned)grid, bt, 0, s>>>(
-      x, w, g, dx, partial, rows, D, chunk, eps);
+// how the last backward launched on this host thread ran: 0 scalar rows +
+// the dw sum, 1 the ring + the dw sum, 2 the ring with the dw sum fused
+thread_local int last_route = -1;
+
+cudaError_t launch_dw(const float* partial, float* dw, int64_t P, int D,
+                      cudaStream_t s) {
+  rmsnorm_bwd_dw_kernel<<<(unsigned)((D + DW_COLS - 1) / DW_COLS), DW_T, 0,
+                          s>>>(partial, dw, P, D);
   return cudaGetLastError();
+}
+
+template <typename TI, int I = 0>
+cudaError_t launch_ring(const TI* x, const float* w, const TI* g, TI* dx,
+                        float* partial, float* dw, int64_t rows, int D,
+                        float eps, bool fuse, cudaStream_t s) {
+  constexpr int NV = BWD_NV_VEC[I], S = ring_stages(NV);
+  constexpr int n = Vec<TI>::n;
+  const int nv = D / n, bt = bwd_threads(nv);
+  if constexpr (I + 1 < 3) {
+    if (nv > NV * bt)
+      return launch_ring<TI, I + 1>(x, w, g, dx, partial, dw, rows, D, eps,
+                                    fuse, s);
+  }
+  const auto kernel = rmsnorm_bwd_ring_kernel<TI, NV, S>;
+  const int64_t grid = bwd_grid(rows, D);
+  // the ring and w, or the fused sum's slices where they take more
+  const size_t ring_bytes = (size_t)(2 * S + n / 4) * nv * sizeof(uint4);
+  const size_t sum_bytes =
+      (size_t)dw_slices(grid) * dw_share(D, grid) * sizeof(float);
+  const size_t smem = ring_bytes > sum_bytes ? ring_bytes : sum_bytes;
+  // the largest ring of this instantiation, allowed once per device, and
+  // the CTAs the device holds at once at the last (threads, bytes) asked
+  thread_local uint64_t raised = 0;
+  thread_local int seen_dev = -1, seen_bt = 0;
+  thread_local size_t seen_smem = 0;
+  thread_local int64_t resident = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && !(raised >> dev & 1)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+    if (err != cudaSuccess) return err;
+    raised |= 1ull << dev;
+  }
+  if (fuse && (dev != seen_dev || bt != seen_bt || smem != seen_smem)) {
+    int n_sm = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, bt, smem)) != cudaSuccess)
+      return err;
+    seen_dev = dev;
+    seen_bt = bt;
+    seen_smem = smem;
+    resident = (int64_t)n_sm * per_sm;
+  }
+  // fused where the grid is the wide rows' (the narrow rows' larger grid
+  // leaves the sum few columns to share out) and the card holds it at once
+  if (fuse && grid <= BWD_CTAS && grid <= resident) {
+    int fused = 1;
+    void* args[] = {&x, &w, &g, &dx, &partial, &dw, &rows, &D, &eps, &fused};
+    last_route = 2;
+    return cudaLaunchCooperativeKernel((const void*)kernel, dim3((unsigned)grid),
+                                       dim3(bt), args, smem, s);
+  }
+  kernel<<<(unsigned)grid, bt, smem, s>>>(x, w, g, dx, partial, dw, rows, D,
+                                          eps, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  last_route = 1;
+  return launch_dw(partial, dw, grid, D, s);
+}
+
+template <typename TI, int I = 0>
+cudaError_t launch_scalar(const TI* x, const float* w, const TI* g, TI* dx,
+                          float* partial, float* dw, int64_t rows, int D,
+                          float eps, cudaStream_t s) {
+  constexpr int NV = BWD_NV_ONE[I];
+  const int bt = bwd_threads(D);
+  if constexpr (I + 1 < 6) {
+    if (D > NV * bt)
+      return launch_scalar<TI, I + 1>(x, w, g, dx, partial, dw, rows, D, eps,
+                                      s);
+  }
+  if (D > NV * bt) return cudaErrorInvalidValue;
+  const int64_t grid = bwd_grid(rows, D);
+  rmsnorm_bwd_scalar_kernel<TI, NV><<<(unsigned)grid, bt, 0, s>>>(
+      x, w, g, dx, partial, rows, D, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  last_route = 0;
+  return launch_dw(partial, dw, grid, D, s);
 }
 
 template <typename TI>
 cudaError_t launch_backward(const void* x, const void* w, const void* g,
                             void* dx, void* dw, void* partial, int64_t rows,
-                            int64_t D, float eps, cudaStream_t s) {
+                            int64_t D, float eps, bool fuse, cudaStream_t s) {
   constexpr int n = Vec<TI>::n;
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -524,17 +830,12 @@ cudaError_t launch_backward(const void* x, const void* w, const void* g,
   const float* wp = static_cast<const float*>(w);
   TI* dxp = static_cast<TI*>(dx);
   float* pp = static_cast<float*>(partial);
-  cudaError_t err;
+  float* dwp = static_cast<float*>(dw);
   if (D % n == 0 && D / n <= BWD_BT * BWD_NV_VEC[2] && aligned(x) &&
-      aligned(g) && aligned(dx))
-    err = launch_bwd<TI, n>(xp, wp, gp, dxp, pp, rows, (int)D, eps, s);
-  else
-    err = launch_bwd<TI, 1>(xp, wp, gp, dxp, pp, rows, (int)D, eps, s);
-  if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<<<(unsigned)((D + DW_COLS - 1) / DW_COLS),
-                      DW_COLS * DW_SLICES, 0, s>>>(
-      pp, static_cast<float*>(dw), bwd_grid(rows, D), (int)D);
-  return cudaGetLastError();
+      aligned(g) && aligned(dx) && aligned(w) && aligned(partial))
+    return launch_ring<TI>(xp, wp, gp, dxp, pp, dwp, rows, (int)D, eps, fuse,
+                           s);
+  return launch_scalar<TI>(xp, wp, gp, dxp, pp, dwp, rows, (int)D, eps, s);
 }
 
 }  // namespace
@@ -542,25 +843,32 @@ cudaError_t launch_backward(const void* x, const void* w, const void* g,
 extern "C" {
 
 // rows of the backward's dw scratch (float32, (rows of it, D)) for a
-// (rows, D) x: the wrapper allocates it
+// (rows, D) x: the CTAs of its grid
 int64_t rmsnorm_bwd_partials(int64_t rows, int64_t D) {
   return rows < 1 || D < 1 ? 0 : bwd_grid(rows, D);
 }
 
 // x, g, dx: contiguous (rows, D) of one dtype (bf16 != 0: bfloat16, else
 // float32); w, dw: (D,) float32; partial: (rmsnorm_bwd_partials(rows, D),
-// D) float32 scratch.  D <= 8192.  Two launches on the stream: the rows
-// kernel, then the dw sum.
+// D) float32 scratch.  D <= 8192.  fuse != 0: one cooperative launch where
+// the device holds the whole grid at once (the ring's rows, a grid
+// barrier, the dw sum); otherwise, and for the scalar rows, two launches
+// on the stream, the rows and then the dw sum, in the same order.
 int rmsnorm_bwd_launch(const void* x, const void* w, const void* g, void* dx,
                        void* dw, void* partial, int64_t rows, int64_t D,
-                       int64_t bf16, float eps, void* stream) {
+                       int64_t bf16, float eps, int64_t fuse, void* stream) {
   if (rows < 1 || D < 1 || D > BWD_MAX_D) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch_backward<__nv_bfloat16>(x, w, g, dx, dw, partial,
-                                                     rows, D, eps, s)
+                                                     rows, D, eps, fuse != 0,
+                                                     s)
                     : launch_backward<float>(x, w, g, dx, dw, partial, rows,
-                                             D, eps, s));
+                                             D, eps, fuse != 0, s));
 }
+
+// the route of this host thread's last backward launch: 0 scalar rows and
+// the dw sum, 1 the ring and the dw sum, 2 the ring with the sum fused
+int rmsnorm_bwd_last_route(void) { return last_route; }
 
 // x, y: contiguous (rows, D); w: (D,) float32.  bf16 != 0 means bfloat16
 // x/y, else float32.  Rows of whole 16-byte vectors (up to 1024 of them)

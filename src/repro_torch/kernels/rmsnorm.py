@@ -11,7 +11,8 @@ float32, and writes a new tensor in x's dtype.
 source (the Pallas kernel has none: the reference trains through the
 plain ``rms_norm``).  From x, w and the upstream gradient g it writes dx in
 x's dtype and dw in float32, deterministically (per-CTA dw partials summed
-in a fixed order, no atomics).  :class:`RMSNormFunction` ties the two
+in a fixed order, no atomics, in the same launch where the card holds the
+whole grid at once).  :class:`RMSNormFunction` ties the two
 together for autograd: its forward launches :func:`rmsnorm` and saves x
 and w, its backward launches :func:`rmsnorm_bwd`.  Both are looked up in
 this module when called, so a caller may swap either for another version
@@ -38,7 +39,8 @@ from repro_torch.kernels import build
 from repro_torch.perf import counts, roofline
 
 __all__ = ["KERNELS", "launches", "reset_launches", "rmsnorm", "rmsnorm_bwd",
-           "RMSNormFunction", "rmsnorm_autograd"]
+           "bwd_partials", "last_bwd_route", "RMSNormFunction",
+           "rmsnorm_autograd"]
 
 KERNELS = ("rmsnorm", "rmsnorm_bwd")
 launches = {name: 0 for name in KERNELS}
@@ -93,10 +95,12 @@ def _bwd_lib() -> ctypes.CDLL:
     if _bound_bwd is None:
         lib = _lib()
         lib.rmsnorm_bwd_launch.argtypes = [_P] * 6 + [_I] * 3 + [
-            ctypes.c_float, _P]
+            ctypes.c_float, _I, _P]
         lib.rmsnorm_bwd_launch.restype = ctypes.c_int
         lib.rmsnorm_bwd_partials.argtypes = [_I, _I]
         lib.rmsnorm_bwd_partials.restype = _I
+        lib.rmsnorm_bwd_last_route.argtypes = []
+        lib.rmsnorm_bwd_last_route.restype = ctypes.c_int
         _bound_bwd = lib
     return _bound_bwd
 
@@ -132,20 +136,47 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 # the backward's widest row (csrc/rmsnorm.cu BWD_MAX_D): every norm of the
 # registry is inside it (d_model <= 7168, Mamba2's d_inner 4096)
 BWD_MAX_D = 8192
+# csrc/rmsnorm.cu's bwd_grid: a CTA for every BWD_MIN_ROWS rows, at most
+# BWD_CTAS for rows of BWD_WIDE_D elements or more, up to BWD_SPREAD times
+# as many for narrower rows
+BWD_MIN_ROWS, BWD_CTAS, BWD_WIDE_D, BWD_SPREAD = 8, 264, 2048, 8
+# what rmsnorm_bwd_last_route says of a launch
+BWD_ROUTES = ("scalar rows + dw sum", "ring + dw sum", "ring, dw sum fused")
+
+
+def bwd_partials(rows: int, D: int) -> int:
+    """The CTAs of the backward's grid for a (rows, D) x, and so the rows
+    of its float32 (·, D) dw scratch: ``csrc/rmsnorm.cu``'s ``bwd_grid``
+    (``rmsnorm_bwd_partials``), a function of rows and D alone."""
+    if rows < 1 or D < 1:
+        return 0
+    spread = min(max(BWD_WIDE_D // D, 1), BWD_SPREAD)
+    return min(-(-rows // BWD_MIN_ROWS), BWD_CTAS * spread)
+
+
+def last_bwd_route() -> str:
+    """How this thread's last backward launch ran (``BWD_ROUTES``): the
+    rows through the ring or one element a load, and whether the dw sum
+    was fused into the same (cooperative) launch."""
+    return BWD_ROUTES[_bwd_lib().rmsnorm_bwd_last_route()]
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+                eps: float = 1e-6, *, fuse: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7's backward: x (..., D) float32 or bfloat16 and the upstream
     gradient g of its shape and dtype, contiguous; w (D,) float32, D ≤
     8192 → (dx in x's dtype, dw (D,) float32) with r = rsqrt(mean(x²) +
     eps): ``dx = r·g·w − x·r³·mean(x·g·w)``, ``dw = Σ_rows g·x·r``.
-    Deterministic: a repeat launch is bitwise identical."""
+    Deterministic: a repeat launch is bitwise identical.  ``fuse=False``
+    sums dw in a launch of its own even where the card holds the whole
+    grid at once (the same order, so the same bits)."""
     _check(x, w)
-    if g.device != x.device or g.dtype != x.dtype or g.shape != x.shape:
+    dev = x.device
+    if g.device != dev or g.dtype != x.dtype or g.shape != x.shape:
         raise ValueError(f"g ({tuple(g.shape)}, {g.dtype}, {g.device}) "
                          f"must match x ({tuple(x.shape)}, {x.dtype}, "
-                         f"{x.device})")
+                         f"{dev})")
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
     D = x.shape[-1]
@@ -153,19 +184,23 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"the backward takes rows of at most {BWD_MAX_D} "
                          f"elements, got {D}")
     dx = torch.empty_like(x)
-    dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    dw = torch.empty(D, dtype=torch.float32, device=dev)
     if dx.numel() == 0:         # no rows: dw is an empty sum
         return dx, dw.zero_()
     rows = x.numel() // D
+    partial = torch.empty((bwd_partials(rows, D), D), dtype=torch.float32,
+                          device=dev)
     lib = _bwd_lib()
-    partial = torch.empty((lib.rmsnorm_bwd_partials(rows, D), D),
-                          dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.rmsnorm_bwd_launch(
-            x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
+    args = (x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), partial.data_ptr(), rows, D,
-            int(x.dtype == torch.bfloat16), float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            int(x.dtype == torch.bfloat16), float(eps), int(fuse))
+    if dev.index == torch.cuda.current_device():
+        rc = lib.rmsnorm_bwd_launch(
+            *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:                       # launch on the operands' card
+        with torch.cuda.device(dev):
+            rc = lib.rmsnorm_bwd_launch(
+                *args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError("rmsnorm backward launch failed: "
                            f"{lib.rmsnorm_error_string(rc).decode()}")

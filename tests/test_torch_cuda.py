@@ -996,15 +996,22 @@ def test_new_smoke_models_on_the_card_match_the_cpu_route(card, arch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,D,offset", [(8192, 64, 0), (300, 4096, 0),
                                            (9, 7168, 0), (33, 100, 0),
-                                           (5, 2048, 1)])
+                                           (5, 2048, 1), (3, 2048, 0),
+                                           (1, 4096, 0), (1, 8192, 0),
+                                           (8197, 2048, 0), (2113, 4096, 0),
+                                           (300, 8192, 0), (33, 4096, 1)])
 def test_rmsnorm_backward_matches_plain_on_the_card(card, dtype, rows, D,
                                                     offset):
     """K7's backward against autograd through the plain version: float32
     dx ≤1e-5 relative to the float64 plain version; bfloat16 dx within one
     bf16 ulp of the largest (≤1e-2) of the plain version on the same
-    operands; dw (float32) ≤1e-4 to the float64 plain version.  D 64 to
-    7168, a D that takes single elements (100) and operands one element
-    into their buffers (not 16-byte aligned)."""
+    operands; dw (float32) ≤1e-4 to the float64 plain version; the dw sum
+    in a launch of its own (``fuse=False``) bitwise the fused one.  D 64
+    to 8192, a D that takes single elements (100), operands one element
+    into their buffers (not 16-byte aligned: the scalar rows), fewer rows
+    than one CTA's share (3), a single row, and rows that leave a CTA a
+    run that is not a multiple of its ring's stages (8197 × 2048: 31 or
+    32 rows on 6 stages; 2113 × 4096 on 4)."""
     td = getattr(torch, dtype)
     gen = torch.Generator(device=card).manual_seed(rows + D)
     x = torch.randn(rows * D + offset, generator=gen, device=card)
@@ -1021,24 +1028,72 @@ def test_rmsnorm_backward_matches_plain_on_the_card(card, dtype, rows, D,
     assert dx.dtype == td and float(rel) <= bar
     rel_dw = (dw.double() - wide[1]).abs().max() / wide[1].abs().max()
     assert dw.dtype == torch.float32 and float(rel_dw) <= 1e-4
+    dx2, dw2 = rk.rmsnorm_bwd(x, w, g, fuse=False)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda
 def test_rmsnorm_backward_is_deterministic_on_the_card(card):
     """Two launches on the same operands give dx and dw bitwise equal (dw's
-    partials are summed in a fixed order, no atomics), at a shape whose
-    grid is capped by the partials' scratch (8192 × 4096 bf16: 512 CTAs of
-    16 rows) and at a qk-norm's (65 536 rows × 128)."""
+    partials are summed in a fixed order, no atomics), at Granite's
+    training shape, whose grid is capped at 264 CTAs of 31 or 32 rows
+    (8192 × 4096 bf16, the dw sum fused into the cooperative launch), and
+    at a qk-norm's (65 536 rows × 128: 2112 CTAs of one warp, 31 or 32
+    rows each, the dw sum a launch of its own)."""
     gen = torch.Generator(device=card).manual_seed(5)
-    for rows, D in ((8192, 4096), (65536, 128)):
+    for rows, D, route in ((8192, 4096, "ring, dw sum fused"),
+                           (65536, 128, "ring + dw sum")):
         x = torch.randn(rows, D, generator=gen, device=card).bfloat16()
         g = torch.randn(rows, D, generator=gen, device=card).bfloat16()
         w = torch.rand(D, generator=gen, device=card) + 0.5
         first = rk.rmsnorm_bwd(x, w, g)
+        assert rk.last_bwd_route() == route
         for _ in range(3):
             again = rk.rmsnorm_bwd(x, w, g)
             assert torch.equal(first[0], again[0])
             assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_rmsnorm_backward_grid_is_the_wrappers_on_the_card(card):
+    """The library's ``rmsnorm_bwd_partials`` (``bwd_grid``) equals the
+    wrapper's ``bwd_partials``, which sizes the dw scratch without a call
+    into the library."""
+    lib = rk._bwd_lib()
+    for rows in (1, 7, 9, 300, 2113, 8192, 65_536):
+        for D in (37, 64, 100, 128, 2048, 4096, 7168, 8192):
+            assert lib.rmsnorm_bwd_partials(rows, D) == \
+                rk.bwd_partials(rows, D), (rows, D)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_backward_on_local_shards_of_a_one_card_mesh(card):
+    """The DTensor route (``dispatch.rmsnorm`` on a (1, 1) ("data",
+    "model") mesh over a world-size-1 ``nccl`` group, x split over
+    ``data``): one launch of the backward on the local shard, dx and dw
+    bitwise the unsharded kernel's (dw comes back as a partial sum,
+    reduced over one device)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(4, 512, 2048, generator=gen, device=card).bfloat16()
+    g = torch.randn(4, 512, 2048, generator=gen, device=card).bfloat16()
+    w = torch.rand(2048, generator=gen, device=card) + 0.5
+    want_dx, want_dw = rk.rmsnorm_bwd(x, w, g)
+    with chip_smoke.one_rank_group("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"), card)
+        xd = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+        wd = distribute_tensor(w, mesh, [Replicate(), Replicate()])
+        xd.requires_grad_()
+        wd.requires_grad_()
+        before = rk.launches["rmsnorm_bwd"]
+        y = dispatch.rmsnorm(xd, wd)
+        y.backward(distribute_tensor(g, mesh, [Shard(0), Replicate()]))
+        assert rk.launches["rmsnorm_bwd"] == before + 1
+        assert torch.equal(xd.grad.full_tensor(), want_dx)
+        assert torch.equal(wd.grad.full_tensor(), want_dw)
 
 
 @pytest.mark.cuda

@@ -391,6 +391,7 @@ def _rank(rank: int, world: int, tmp: str, part: str) -> None:
     tmp = Path(tmp)
     arrays, meta = {}, {}
     for name, case in _cases(part):
+        mark(rank, f"{name} starts")
         with case_group(tmp, name.replace("/", "-"), rank, world):
             a, m = case(tmp, rank)
         arrays.update({f"{name}/{k}": v for k, v in a.items()})
@@ -399,6 +400,7 @@ def _rank(rank: int, world: int, tmp: str, part: str) -> None:
     np.savez(tmp / f"{part}-rank{rank}.npz", **arrays)
     if rank == 0:
         (tmp / f"{part}-meta.json").write_text(json.dumps(meta))
+    mark(rank, "saved")
 
 
 def _fake_cells(tmp: str) -> None:
@@ -467,11 +469,22 @@ def _main(argv) -> None:
 
 # ---------------------------------------------------------------- pytest --
 
+def mark(rank: int, text: str) -> None:
+    """One line on the rank's stderr saying how far it got (C6: a rank
+    that dies leaves its last line in the child's output)."""
+    print(f"rank {rank}: {text}", file=sys.stderr, flush=True)
+
+
 def _child(what: str, tmp: Path, script: str = __file__) -> None:
     """``script`` run as ``script what tmp`` in its own session; killed
-    with everything it started past ``TIMEOUT``."""
+    with everything it started past ``TIMEOUT``.  The child and its ranks
+    run with ``faulthandler`` on, so a rank killed by a signal (C6: a
+    SIGABRT from the C library's heap checks) prints every thread's
+    Python stack; a failed child's assertion carries the end of its
+    output, the ranks' ``mark`` lines among it."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + os.pathsep
-           + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+           + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1",
+           "PYTHONFAULTHANDLER": "1"}
     p = subprocess.Popen([sys.executable, script, what, str(tmp)],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True, env=env, start_new_session=True)
@@ -481,7 +494,8 @@ def _child(what: str, tmp: Path, script: str = __file__) -> None:
         os.killpg(p.pid, signal.SIGKILL)
         p.communicate()
         pytest.fail(f"the {what} child outlasted {TIMEOUT} s")
-    assert p.returncode == 0, (out + err)[-6000:]
+    assert p.returncode == 0, (f"the {what} child exited "
+                               f"{p.returncode}:\n" + (out + err)[-12000:])
 
 
 @pytest.fixture(scope="module")

@@ -187,14 +187,17 @@ def _rank(rank: int, world: int, tmp: str, case: str) -> None:
         if c != case:
             continue
         moved[0] = 0
+        dist_test.mark(rank, f"{run} starts")
         with dist_test.case_group(tmp, run, rank, world):
             mesh = make_mesh(*MESHES[mesh_name], "cpu")
             model = build()
             with use_mesh(mesh), _rules(ep):
                 dist_test._shard(model, mesh)
                 got, got_tok = _serve(cfg, model, mesh)
+                dist_test.mark(rank, f"{run} served")
                 bits8 = (c, mesh_name, ep) == BITS8_RUN
                 got_train, state = _train(cfg, model, bits8)
+                dist_test.mark(rank, f"{run} trained")
             arrays.update({f"train/{run}/{k}": v
                            for k, v in got_train.items()})
             arrays[f"train/{run}/all_to_all"] = moved[0]
@@ -206,6 +209,7 @@ def _rank(rank: int, world: int, tmp: str, case: str) -> None:
                 arrays.update({f"bits8/{k}": v for k, v in
                                _bits8_gaps(cfg, build, model, state).items()})
     np.savez(tmp / f"rank{rank}.npz", **arrays)
+    dist_test.mark(rank, "saved")
 
 
 def _bits8_gaps(cfg, build, model, state) -> dict:
@@ -409,9 +413,13 @@ def check_train(ranks, jax_step, run) -> None:
     got = ranks(case)
     key = f"train/{RUN_IDS[RUNS.index(run)]}/"
     r0 = got[0]
-    assert dist_test._rel(r0[key + "loss"], loss) <= 1e-5
-    assert dist_test._rel(r0[key + "grad_norm"], norm) <= 1e-5
-    assert abs(float(r0[key + "aux"]) - aux) <= 1e-5 * max(1.0, abs(aux))
+    rel = dist_test._rel(r0[key + "loss"], loss)
+    assert rel <= 1e-5, ("loss", float(r0[key + "loss"]), loss, rel)
+    rel = dist_test._rel(r0[key + "grad_norm"], norm)
+    assert rel <= 1e-5, ("grad_norm", float(r0[key + "grad_norm"]), norm,
+                         rel)
+    assert abs(float(r0[key + "aux"]) - aux) <= 1e-5 * max(1.0, abs(aux)), \
+        ("aux", float(r0[key + "aux"]), aux)
     flat = {k[len(key) + 5:]: v for k, v in r0.items()
             if k.startswith(key + "grad:")}
     assert flat
@@ -419,7 +427,8 @@ def check_train(ranks, jax_step, run) -> None:
     for (path, g), want in zip(_leaves(stacked), _leaves(grads)):
         if np.asarray(want[1]).size == 0:   # a norm's placeholder leaf
             continue
-        assert dist_test._rel(g, want[1]) <= 1e-5, path
+        rel = dist_test._rel(g, want[1])
+        assert rel <= 1e-5, (path, rel)
     for r in range(1, WORLD):               # every rank holds the same
         assert np.array_equal(got[r][key + "loss"], r0[key + "loss"])
     # the MoE's tokens crossed by all-to-all (out and back) iff the

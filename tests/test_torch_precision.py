@@ -507,6 +507,183 @@ def test_k7_lane_order_meets_the_bars(D, dtype):
         assert np.all(np.abs(got.float().numpy() - want) <= ulp)
 
 
+# -- K7's backward: the order of its sums ----------------------------------------
+
+_RMSNORM_CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+               / "kernels" / "csrc" / "rmsnorm.cu")
+
+
+def _cu_constants(*names) -> dict:
+    """The integer ``constexpr`` constants ``names`` of ``csrc/rmsnorm.cu``
+    (``constexpr int A = 1, B = 2;`` or one a line)."""
+    import re
+    text = _RMSNORM_CU.read_text()
+    out = {}
+    for name in names:
+        m = re.search(rf"constexpr\s+(?:int|int64_t)\s+(?:\w+\s*=\s*\w+\s*,"
+                      rf"\s*)*{name}\s*=\s*(\d+)", text)
+        assert m, f"{name} not found in {_RMSNORM_CU.name}"
+        out[name] = int(m.group(1))
+    return out
+
+
+def _cu_bwd_grid(rows: int, D: int, c: dict) -> int:
+    """``rmsnorm_bwd_partials`` as ``csrc/rmsnorm.cu`` writes it (``bwd_grid``
+    with C's integer division), from the constants parsed out of it."""
+    if rows < 1 or D < 1:
+        return 0
+    spread = c["BWD_WIDE_D"] // D
+    spread = 1 if spread < 1 else min(spread, c["BWD_SPREAD"])
+    by_rows = (rows + c["BWD_MIN_ROWS"] - 1) // c["BWD_MIN_ROWS"]
+    return min(by_rows, c["BWD_CTAS"] * spread)
+
+
+def test_k7_backward_scratch_formula_is_the_sources():
+    """``rmsnorm.bwd_partials`` (the wrapper sizes the dw scratch with it,
+    no call into the library) equals ``csrc/rmsnorm.cu``'s ``bwd_grid``,
+    whose constants are read from the source, over a grid of (rows, D)."""
+    from repro_torch.kernels import rmsnorm as rk
+    c = _cu_constants("BWD_MIN_ROWS", "BWD_CTAS", "BWD_WIDE_D",
+                      "BWD_SPREAD", "BWD_MAX_D")
+    assert (rk.BWD_MIN_ROWS, rk.BWD_CTAS, rk.BWD_WIDE_D, rk.BWD_SPREAD,
+            rk.BWD_MAX_D) == (c["BWD_MIN_ROWS"], c["BWD_CTAS"],
+                              c["BWD_WIDE_D"], c["BWD_SPREAD"],
+                              c["BWD_MAX_D"])
+    for rows in (0, 1, 7, 8, 9, 300, 2111, 2112, 2113, 8192, 22_528,
+                 65_536, 1 << 20):
+        for D in (0, 1, 37, 64, 100, 128, 255, 256, 257, 1024, 2047, 2048,
+                  2049, 4096, 7168, 8192):
+            assert rk.bwd_partials(rows, D) == _cu_bwd_grid(rows, D, c), \
+                (rows, D)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf on float32 tensors: a·b exact in float64, plus c, rounded to
+    float64 and then to float32 (the kernel rounds once, so a result may
+    differ by one ulp where the two roundings meet a tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k7_bwd_layout(D: int, dtype: torch.dtype, c: dict):
+    """(values a load, loads a row, threads a CTA, loads a thread) of the
+    backward for rows of D elements of ``dtype`` with 16-byte aligned
+    operands: the ring's 16-byte vectors where D allows (up to BWD_BT × 4
+    of them), else the scalar rows, one element a load."""
+    n = 16 // torch.empty((), dtype=dtype).element_size()
+    width = n if D % n == 0 and D // n <= c["BWD_BT"] * 4 else 1
+    nv = D // width
+    bt = c["BWD_BT"] if nv >= c["BWD_BT"] else -(-nv // 32) * 32
+    return width, nv, bt, -(-nv // bt)
+
+
+def _k7_bwd_order(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                  eps: float = 1e-6, chunk: int = 512):
+    """x, g (rows, D) float32 or bf16, w (D,) float32 → (dx in x's dtype,
+    dw float32) with every sum in ``csrc/rmsnorm.cu``'s backward order:
+    thread t of a CTA of BT sums f·f and f·(g·w) with fmaf over its loads
+    k = t, t + BT, ... and their values in order; the 32 lanes of a warp
+    meet in the xor butterfly; the warps' sums are added in warp order.
+    dw: CTA b of G = ``bwd_grid`` takes rows b, b + G, b + 2G, ... and sums
+    g·(x·r) with fmaf row by row into its partial row; with SL =
+    min(G, DW_SLICES) slices, slice s adds the partials p = s, s + SL, ...
+    in order, then the slices are added in order.  Rows in chunks of
+    ``chunk`` (8192 × 8192 in float64 would take gigabytes)."""
+    from repro_torch.kernels import rmsnorm as rk
+    c = _cu_constants("BWD_BT", "DW_SLICES")
+    rows, D = x.shape
+    width, nv, bt, NV = _k7_bwd_layout(D, x.dtype, c)
+    nw = bt // 32
+    lanes = torch.arange(32)
+    wf = w.float()
+    r_all = torch.empty(rows, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    for a in range(0, rows, chunk):
+        xf, gf = x[a:a + chunk].float(), g[a:a + chunk].float()
+        R = xf.shape[0]
+        pad = torch.zeros(R, NV * bt * width, dtype=torch.float32)
+        xp, gwp = pad.clone(), pad.clone()
+        xp[:, :D] = xf
+        gwp[:, :D] = gf * wf                  # the float32 product g·w
+        xp, gwp = (t.view(R, NV, bt, width) for t in (xp, gwp))
+        ss = torch.zeros(R, bt, dtype=torch.float32)
+        sg = torch.zeros(R, bt, dtype=torch.float32)
+        for j in range(NV):                   # thread t: load j·BT + t
+            for i in range(width):
+                f = xp[:, j, :, i]
+                ss = _fma(f, f, ss)
+                sg = _fma(f, gwp[:, j, :, i], sg)
+        sums = []
+        for s in (ss, sg):
+            s = s.view(R, nw, 32)
+            for off in (16, 8, 4, 2, 1):
+                s = s + s[..., lanes ^ off]
+            assert torch.equal(s, s[..., :1].expand(R, nw, 32))
+            tot = torch.zeros(R, dtype=torch.float32)
+            for i in range(nw):               # the warps in order
+                tot = tot + s[:, i, 0]
+            sums.append(tot)
+        r = torch.rsqrt(sums[0] / D + eps)
+        cc = (sums[1] / D) * r * r * r
+        r_all[a:a + R] = r
+        dx[a:a + R] = (r[:, None] * (gf * wf)
+                       - xf * cc[:, None]).to(x.dtype)
+    G = rk.bwd_partials(rows, D)
+    b = torch.arange(G)
+    part = torch.zeros(G, D, dtype=torch.float32)
+    for step in range(-(-rows // G)):         # CTA b: rows b, b + G, ...
+        live = b + step * G < rows
+        idx = (b + step * G)[live]
+        xf, gf = x[idx].float(), g[idx].float()
+        part[live] = _fma(gf, xf * r_all[idx][:, None], part[live])
+    sl = min(G, c["DW_SLICES"])
+    dw = torch.zeros(D, dtype=torch.float32)
+    for s in range(sl):
+        a_s = torch.zeros(D, dtype=torch.float32)
+        for p in range(s, G, sl):
+            a_s = a_s + part[p]
+        dw = dw + a_s
+    return dx, dw
+
+
+def _plain_bwd_chunked(x, w, g, wide: bool, chunk: int = 512):
+    """``ref.rmsnorm_bwd_plain`` over row chunks (dw summed in float64):
+    in float64 (``wide``) or in float32 math on x's dtype."""
+    dxs, dw = [], torch.zeros(x.shape[1], dtype=torch.float64)
+    for a in range(0, x.shape[0], chunk):
+        xs, gs = x[a:a + chunk], g[a:a + chunk]
+        if wide:
+            xs, gs, ws = xs.double(), gs.double(), w.double()
+        else:
+            ws = w
+        d, dwc = ref.rmsnorm_bwd_plain(xs, ws, gs)
+        dxs.append(d)
+        dw += dwc.double()
+    return torch.cat(dxs), dw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 7, 300, 8192])
+@pytest.mark.parametrize("D", [37, 100, 2048, 4096, 7168, 8192])
+def test_k7_backward_order_meets_the_bars(D, rows, dtype):
+    """The backward's summation orders (:func:`_k7_bwd_order`) at the card
+    tests' bars: float32 dx within 1e-5 of the float64 plain version, bf16
+    dx within one bf16 ulp of the largest (1e-2) of the plain version on
+    the same operands, dw within 1e-4 of the float64 plain version."""
+    rng = np.random.default_rng(rows * 10_007 + D)
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((rows, D), np.float32)).to(td)
+    g = torch.from_numpy(rng.standard_normal((rows, D), np.float32)).to(td)
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(D, np.float32))
+    dx, dw = _k7_bwd_order(x, w, g)
+    assert dx.dtype == td and dx.shape == x.shape and dw.dtype == torch.float32
+    wide_dx, wide_dw = _plain_bwd_chunked(x, w, g, wide=True)
+    want_dx = wide_dx if dtype == "float32" else \
+        _plain_bwd_chunked(x, w, g, wide=False)[0]
+    bar = REL if dtype == "float32" else BF16_REL
+    assert _rel(dx.double().numpy(), want_dx.double().numpy()) <= bar
+    assert _rel(dw.double().numpy(), wide_dw.numpy()) <= 1e-4
+
+
 # -- C1: the FP32 guard of the structured path ------------------------------------
 
 def _structured_instance(seed: int):
